@@ -2,13 +2,14 @@
 
 The JAX package `feat3dnet_tpu` is the reference; this package keeps its
 module paths and public names so each counterpart sits at the same path.
-This slice ports the inference forward: FPS centres, the exact ball query,
-the detector/descriptor towers, and the cluster-descriptor server. Its
-three kernels (FPS, ball query, the fused describe tower) are hand-written
-CUDA C++ under `csrc/`, built with nvcc at first use (`kernels/`). Every
-kernel wrapper takes its plain PyTorch twin for CPU tensors only; on CUDA
-tensors it launches the kernel or raises.
+Ported so far: the inference forward (FPS centres, the exact ball query,
+the detector/descriptor towers, the cluster-descriptor server) and
+whole-cloud keypoint extraction (Morton-culled ball query, ball-max NMS,
+the detector-only tower, `inference.InferencePipeline`, `cli.infer`). Its
+six kernels are hand-written CUDA C++ under `csrc/`, built with nvcc at
+first use (`kernels/`). Every kernel wrapper takes its plain PyTorch twin
+for CPU tensors only; on CUDA tensors it launches the kernel or raises.
 """
-from feat3dnet_tpu_torch.config import ModelConfig
+from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig
 
-__all__ = ["ModelConfig"]
+__all__ = ["InferenceConfig", "ModelConfig"]

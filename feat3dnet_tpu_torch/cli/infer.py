@@ -1,0 +1,94 @@
+"""Inference CLI of the port (flags of feat3dnet_tpu/cli/infer.py).
+
+    python -m feat3dnet_tpu_torch.cli.infer \\
+        --data_dir examples/data --output_dir out \\
+        --variables feat3dnet_tpu_torch/assets/ckpt4480_variables.npz --device cuda
+
+--variables is a flat npz of the flax variable tree (utils/convert.py;
+the trained checkpoint ships as assets/ckpt4480_variables.npz) and takes
+the place of the JAX CLI's Orbax --checkpoint. --device cuda raises when
+no CUDA device is present. --checkpoint and --tf1_checkpoint need the JAX
+package and are refused here.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Extract keypoints + descriptors (PyTorch port)")
+    p.add_argument("--model", type=str, default="3DFeatNet")
+    p.add_argument("--data_dim", type=int, default=6)
+    p.add_argument("--num_points", type=int, default=-1)
+    p.add_argument("--base_scale", type=float, default=2.0)
+    p.add_argument("--num_samples", type=int, default=64)
+    p.add_argument("--feature_dim", type=int, default=32, choices=[16, 32, 64, 128])
+    p.add_argument("--use_keypoints_from", default=None)
+    p.add_argument("--randomize_points", action="store_true")
+    p.add_argument("--nms_radius", type=float, default=0.5)
+    p.add_argument("--min_response_ratio", type=float, default=1e-2)
+    p.add_argument("--max_keypoints", type=int, default=1024)
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="clouds per dispatch; only 1 is ported so far")
+    p.add_argument("--use_fused_detector", action="store_true",
+                   help="attention pass through the detector-only kernel and "
+                        "descriptors through the fused describe kernel")
+    p.add_argument("--data_dir", type=str, required=True)
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="Orbax checkpoint dir: needs the JAX package; use --variables")
+    p.add_argument("--tf1_checkpoint", type=str, default=None,
+                   help="TF1 npz export: needs the JAX package; use --variables")
+    p.add_argument("--variables", type=str, default=None,
+                   help="flat npz of the flax variable tree (utils/convert.py)")
+    p.add_argument("--device", type=str, default=None,
+                   help="cpu or cuda[:i] (default: cuda when available)")
+    p.add_argument("--output_dir", type=str, required=True)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    import torch
+
+    from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig
+    from feat3dnet_tpu_torch.inference import InferencePipeline
+    from feat3dnet_tpu_torch.models import get_network
+    from feat3dnet_tpu_torch.utils import init_variables, load_variables_npz
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    logger = logging.getLogger("feat3dnet_tpu_torch.infer")
+    logger.info("Arguments: %s", vars(args))
+    if args.checkpoint or args.tf1_checkpoint:
+        raise SystemExit("--checkpoint / --tf1_checkpoint need the JAX package; export "
+                         "the variables to npz and pass --variables")
+    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    mcfg = ModelConfig(num_clusters=-1, base_scale=args.base_scale,
+                       num_samples=args.num_samples, feature_dim=args.feature_dim)
+    icfg = InferenceConfig(nms_radius=args.nms_radius,
+                           min_response_ratio=args.min_response_ratio,
+                           max_keypoints=args.max_keypoints,
+                           num_points=args.num_points,
+                           randomize_points=args.randomize_points,
+                           use_fused_detector=args.use_fused_detector)
+    if args.variables:
+        variables = load_variables_npz(args.variables)
+    else:
+        logger.warning("No --variables given: running with a seeded random init")
+        variables = init_variables(mcfg, seed=0)
+    model = get_network(args.model)(mcfg)
+    pipe = InferencePipeline(model, variables, mcfg, icfg, device=device)
+    n = pipe.process_directory(args.data_dir, args.output_dir, data_dim=args.data_dim,
+                               keypoints_dir=args.use_keypoints_from, log=logger.info,
+                               batch_size=args.batch_size)
+    logger.info("Done: %d files on %s", n, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,15 @@
-"""Model configuration (mirror of feat3dnet_tpu/config.py:ModelConfig).
+"""Model and inference configuration (mirror of feat3dnet_tpu/config.py).
 
-Same fields, defaults and derived widths as the JAX dataclass, with torch
+Same fields, defaults and derived widths as the JAX dataclasses, with torch
 dtypes in place of jnp ones. The training-only fields (remat, residual
 dtype, fused towers) are kept so that configurations round-trip between
-the two packages; this slice runs only the eval forward and ignores them.
-`TrainConfig` and `InferenceConfig` arrive with their slices.
+the two packages; the eval forward ignores them. `TrainConfig` arrives
+with the training slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -52,3 +52,48 @@ class ModelConfig:
     @property
     def descriptor_mlp3(self) -> Sequence[int]:
         return (self.feature_dim,)
+
+
+@dataclasses.dataclass(frozen=True)
+class InferenceConfig:
+    """Extraction / NMS parameters (reference: inference.py:25-59).
+
+    nms_radius, min_response_ratio, max_keypoints: the NMS and selection
+    rule (ops/nms.py). keypoint_chunk: clusters per detector pass, which
+    bounds the (chunk, ns, C) tower activations. num_points (-1 = all) and
+    randomize_points: the reference's cloud preprocessing.
+    use_hashed_grouping: the attention pass through the Morton-culled ball
+    query (K4) and ball-max NMS (K5); None = on for CUDA tensors, as the
+    JAX package turns it on for the TPU. hash_block / hash_tile: points per
+    culling block (0 = chosen per cloud by density) and centres per tile;
+    outputs do not depend on them. use_csr_kernels: accepted for parity with
+    the JAX flags; the port's kernels always walk a per-tile hit list, so
+    the two settings run the same code. use_fused_detector: the attention
+    pass through the detector-only kernel (K6) and the descriptor tail
+    through the fused describe kernel (K3).
+    """
+
+    nms_radius: float = 0.5
+    min_response_ratio: float = 1e-2
+    max_keypoints: int = 1024
+    keypoint_chunk: int = 8192
+    num_points: int = -1
+    randomize_points: bool = False
+    use_hashed_grouping: Optional[bool] = None
+    hash_block: int = 256
+    hash_tile: int = 256
+    use_csr_kernels: bool = False
+    use_fused_detector: bool = False
+
+
+# Padded cloud sizes: clouds are padded (with a validity mask) to the
+# smallest bucket that holds them, as the JAX pipeline does.
+POINT_BUCKETS = (4096, 8192, 16384, 32768, 65536, 131072)
+
+
+def bucket_for(n: int) -> int:
+    """Smallest bucket that holds n points."""
+    for b in POINT_BUCKETS:
+        if n <= b:
+            return b
+    return ((n + POINT_BUCKETS[-1] - 1) // POINT_BUCKETS[-1]) * POINT_BUCKETS[-1]

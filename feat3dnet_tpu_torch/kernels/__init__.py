@@ -1,8 +1,8 @@
 """Build, load and bind the port's hand-written CUDA kernels.
 
 The sources live in `feat3dnet_tpu_torch/csrc/`. At first use they are
-compiled by nvcc for `sm_90a` into one shared library with a plain C
-interface, which is loaded with ctypes (no PyTorch headers, so the build
+compiled by nvcc for `sm_90a`, one process per source in parallel, and
+linked into one shared library with a plain C interface, which is loaded with ctypes (no PyTorch headers, so the build
 takes seconds). The library goes to `build/feat3dnet_tpu_torch/<hash>/`
 beside the package, keyed by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one is reused within a checkout.
@@ -12,8 +12,8 @@ machine without nvcc. A missing nvcc or a failed build raises.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()` after the launch; `check` raises on a non-zero code.
-The op wrappers (ops/fps.py, ops/batch_group.py, ops/fused_describe.py)
-validate tensors, allocate outputs and count launches; the `launch_*`
+The op wrappers (ops/fps.py, ops/batch_group.py, ops/fused_describe.py,
+ops/hash_grid.py) validate tensors, allocate outputs and count launches; the `launch_*`
 functions below only pass pointers.
 """
 from __future__ import annotations
@@ -32,10 +32,11 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("fps.cu", "ball_query.cu", "fused_describe.cu")
+SOURCES = ("fps.cu", "ball_query.cu", "fused_describe.cu", "sorted_ball_query.cu",
+           "ball_max.cu", "fused_detect.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libf3d_kernels.so"
 
 
@@ -62,7 +63,8 @@ def _nvcc() -> str:
 
 @functools.lru_cache(maxsize=None)
 def build() -> BuildInfo:
-    """Compile csrc/*.cu into one shared library, once per source hash."""
+    """Compile csrc/*.cu into one shared library, once per source hash: one
+    nvcc process per source, all started together, then one link."""
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
@@ -75,19 +77,38 @@ def build() -> BuildInfo:
         with open(log) as f:
             return BuildInfo(lib, 0.0, f.read())
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in SOURCES:
+        obj = os.path.join(out_dir, f"{src}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, src), "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    report, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        report.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    tmp = f"{lib}.{tag}"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{proc.stdout}\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
     with open(log, "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(report))
     os.replace(tmp, lib)
-    return BuildInfo(lib, seconds, proc.stdout + proc.stderr)
+    return BuildInfo(lib, seconds, "".join(report))
 
 
 _P = ctypes.c_void_p
@@ -114,6 +135,18 @@ def library() -> ctypes.CDLL:
     lib.f3d_fused_describe.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _F, _F,
                                        _P, _P, _P]
     lib.f3d_fused_describe.restype = _I
+    # pts4, np, hit (tiles x nb u8), nb, block, centers, m, tile, r2, ns,
+    # top, cnt, stream
+    lib.f3d_sorted_ball_query.argtypes = [_P, _I, _P, _I, _I, _P, _I, _I, _F, _I,
+                                          _P, _P, _P]
+    lib.f3d_sorted_ball_query.restype = _I
+    # pts4, values, np, hit, nb, block, centers, m, tile, r2, out, stream
+    lib.f3d_ball_max.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I, _I, _F, _P, _P]
+    lib.f3d_ball_max.restype = _I
+    # clusters, ns, batch, weights, layers (host int32 array), n_det, n_det2,
+    # r, r2, out, stream
+    lib.f3d_fused_detect.argtypes = [_P, _I, _I, _P, _P, _I, _I, _F, _F, _P, _P]
+    lib.f3d_fused_detect.restype = _I
     return lib
 
 
@@ -162,3 +195,29 @@ def launch_fused_describe(packed, ns, weights, layers, n_det, n_det2, n_desc,
             _ptr(packed), ns, batch, _ptr(weights), _ptr(layers), n_det, n_det2,
             n_desc, r2, inv_r, _ptr(desc), _ptr(att), _stream(packed)),
             "fused_describe")
+
+
+def launch_sorted_ball_query(pts4, hit, block, centers, tile, r2, ns, top, cnt) -> None:
+    """hit: (tiles, nb) uint8 device tensor, one row per tile of centres."""
+    with torch.cuda.device(pts4.device):
+        check(library().f3d_sorted_ball_query(
+            _ptr(pts4), pts4.shape[0], _ptr(hit), hit.shape[1], block, _ptr(centers),
+            centers.shape[0], tile, r2, ns, _ptr(top), _ptr(cnt), _stream(pts4)),
+            "sorted_ball_query")
+
+
+def launch_ball_max(pts4, values, hit, block, centers, tile, r2, out) -> None:
+    with torch.cuda.device(pts4.device):
+        check(library().f3d_ball_max(
+            _ptr(pts4), _ptr(values), pts4.shape[0], _ptr(hit), hit.shape[1], block,
+            _ptr(centers), centers.shape[0], tile, r2, _ptr(out), _stream(pts4)),
+            "ball_max")
+
+
+def launch_fused_detect(clusters, weights, layers, n_det, n_det2, r, r2, out) -> None:
+    """layers: host int32 tensor of (cin, cout, w, b, mu, mul, beta) rows."""
+    b, ns, _ = clusters.shape
+    with torch.cuda.device(clusters.device):
+        check(library().f3d_fused_detect(
+            _ptr(clusters), ns, b, _ptr(weights), _ptr(layers), n_det, n_det2, r, r2,
+            _ptr(out), _stream(clusters)), "fused_detect")

@@ -1,4 +1,4 @@
-"""Fused cluster -> descriptor forward (port of feat3dnet_tpu/ops/fused_describe.py).
+"""Fused cluster towers (port of feat3dnet_tpu/ops/fused_describe.py).
 
 The serving path: batches of origin-centred clusters -> L2-normalised
 descriptors and attention, the whole eval forward per cluster with eval BN
@@ -13,6 +13,10 @@ b' = (b−μ)·γ·rsqrt(σ²+ε)+β).
 * `fused_describe_clusters_t`: the wrapper of kernel K3
   (csrc/fused_describe.cu). The JAX package's `_kernel_2d` and `_kernel`
   compute the same thing in other TPU layouts; the port has this one.
+* `detector_weights_unfolded` / `transpose_unfolded_detector`: the
+  detector's weights with BN NOT folded (the extraction's attention pass
+  must round like the model path), and `fused_detect_clusters`, the
+  wrapper of kernel K6 (csrc/fused_detect.cu), with its plain version.
 """
 from __future__ import annotations
 
@@ -239,3 +243,181 @@ def fused_describe_clusters_t(weights_t: List[torch.Tensor], clusters_p: torch.T
 
 fused_describe_clusters_t.launches = 0
 fused_describe_clusters_t.plain = fused_describe_clusters_t_plain
+
+
+# ---- detector-only tower (kernel K6) -----------------------------------------
+
+def detector_weights_unfolded(variables: Dict[str, Any], cfg: ModelConfig
+                              ) -> List[torch.Tensor]:
+    """Detector weights WITHOUT BN folding, in flax's layout: per detector
+    conv and post conv (kernel (Cin, Cout), bias, mean, mul, bn_bias) with
+    mul = rsqrt(var + eps) * scale in flax's op order; then attention
+    (kernel, bias) and orientation (kernel, bias). The tower replays
+    y = (Wx + b - mean) * mul + bn_bias, rounding as the model path does."""
+    p, s = variables["params"], variables["batch_stats"]
+    det_p, det_s = p["detection"], s["detection"]
+    names = ([f"conv{i}" for i in range(len(cfg.detector_mlp))]
+             + [f"conv_post_{i}" for i in range(len(cfg.detector_mlp2))])
+    out: List[torch.Tensor] = []
+    for name in names:
+        mul = torch.rsqrt(_f32(det_s[name]["bn"]["var"]) + cfg.bn_epsilon) \
+            * _f32(det_p[name]["bn"]["scale"])
+        out.extend([_f32(det_p[name]["conv2d"]["kernel"]), _f32(det_p[name]["conv2d"]["bias"]),
+                    _f32(det_s[name]["bn"]["mean"]), mul, _f32(det_p[name]["bn"]["bias"])])
+    for head in ("attention", "orientation"):
+        out.extend([_f32(det_p[head]["kernel"]), _f32(det_p[head]["bias"])])
+    return out
+
+
+def transpose_unfolded_detector(weights: List[torch.Tensor]) -> List[torch.Tensor]:
+    """detector_weights_unfolded() -> kernels (Cout, Cin) with K=3 inputs
+    zero-padded to K=8, every per-channel vector a (Cout, 1) column: 5
+    entries per conv layer, then the two head (kernel, bias) pairs."""
+    n_conv = len(weights) - 4
+    if n_conv % 5:
+        raise ValueError("transpose_unfolded_detector: unexpected weight list")
+    out: List[torch.Tensor] = []
+    i = 0
+    while i < len(weights):
+        k = weights[i].t()
+        if k.shape[1] == 3:
+            k = torch.nn.functional.pad(k, (0, 5))
+        out.append(k.contiguous())
+        n_vec = 4 if i < n_conv else 1
+        out.extend(v[:, None].contiguous() for v in weights[i + 1:i + 1 + n_vec])
+        i += 1 + n_vec
+    return out
+
+
+def _detector_layers(weights_t: List[torch.Tensor], cfg: ModelConfig):
+    """Split transpose_unfolded_detector() into conv layers (k, b, mu, mul,
+    beta) and the two heads (k, b); raise on a list of another tower."""
+    n_conv = len(cfg.detector_mlp) + len(cfg.detector_mlp2)
+    if len(weights_t) != 5 * n_conv + 4:
+        raise ValueError(f"fused_detect_clusters: {len(weights_t)} weight tensors do not "
+                         "match the config's detector (BN layers need use_bn)")
+    convs = [tuple(weights_t[5 * i:5 * i + 5]) for i in range(n_conv)]
+    heads = (tuple(weights_t[5 * n_conv:5 * n_conv + 2]),
+             tuple(weights_t[5 * n_conv + 2:5 * n_conv + 4]))
+    return convs, heads
+
+
+def fused_detect_clusters_plain(weights_t: List[torch.Tensor], clusters: torch.Tensor,
+                                cfg: ModelConfig, chunk: int = 8192
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6: (B, ns, 3) origin-centred clusters ->
+    (attention (B,), orientation (B,) angle), in chunks of `chunk` clusters.
+
+    Membership d2 = (x·x + y·y) + z·z < r² (an empty cluster keeps its
+    first slot at the minimum d2); input divided by r; per slot Dense then
+    (v - mean)·mul + bn_bias then ReLU; masked max pool; post layers the
+    same way; attention logaddexp(x, 0); orientation atan2 of the
+    rsqrt(max(|o|², 1e-8))-normalised 2-vector. For the repeat-padded
+    clusters a ball query gives, the membership mask selects the same
+    points as slot < cnt.
+    """
+    convs, ((ka, ba), (ko, bo)) = _detector_layers(weights_t, cfg)
+    n_det = len(cfg.detector_mlp)
+    r = torch.tensor(cfg.base_scale, dtype=torch.float32)
+    r2 = (r * r).item()
+    atts, oris = [], []
+    for c0 in range(0, clusters.shape[0], chunk):
+        x = clusters[c0:c0 + chunk].to(torch.float32)                # (b, ns, 3)
+        ns = x.shape[1]
+        d2 = x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]
+        d2 = d2 + x[..., 2] * x[..., 2]                              # (b, ns)
+        in_ball = d2 < r2
+        empty = ~in_ball.any(dim=1, keepdim=True)
+        slots = torch.arange(ns, device=x.device).expand_as(d2)
+        first = torch.where(d2 <= d2.min(dim=1, keepdim=True).values, slots, ns)
+        first = first.min(dim=1, keepdim=True).values
+        mask = (in_ball | (empty & (slots == first))).to(torch.float32)
+        h = x / r.to(x.device)
+        for li, (k, b, mu, mul, beta) in enumerate(convs):
+            if li == n_det:
+                h = (h * mask[..., None]).amax(dim=1)                # (b, C)
+            kk = k[:, :h.shape[-1]]
+            v = torch.matmul(h, kk.t()) + b[:, 0]
+            h = torch.relu((v - mu[:, 0]) * mul[:, 0] + beta[:, 0])
+        if len(convs) == n_det:
+            h = (h * mask[..., None]).amax(dim=1)
+        a = torch.matmul(h, ka.t()) + ba[:, 0]
+        atts.append(torch.logaddexp(a[:, 0], torch.zeros((), device=x.device)))
+        o = torch.matmul(h, ko.t()) + bo[:, 0]
+        o = o * torch.rsqrt(torch.clamp((o * o).sum(dim=1, keepdim=True), min=1e-8))
+        oris.append(torch.atan2(o[:, 1], o[:, 0]))
+    if not atts:
+        empty_out = torch.zeros((0,), dtype=torch.float32, device=clusters.device)
+        return empty_out, empty_out.clone()
+    return torch.cat(atts), torch.cat(oris)
+
+
+def _detect_kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, device
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat (Cin, Cout) weight buffer + (cin, cout, w, b, mu, mul, beta)
+    offset table for kernel K6 (-1 for the heads' missing BN). The first
+    layer keeps 4 input rows (x, y, z, 0); every block starts on a 16-byte
+    boundary."""
+    convs, heads = _detector_layers(weights_t, cfg)
+    n_det = len(cfg.detector_mlp)
+    pieces, table, off = [], [], 0
+
+    def put(t):
+        nonlocal off
+        t = t.reshape(-1)
+        start = off
+        pad = -t.numel() % 4
+        pieces.extend([t, t.new_zeros(pad)])
+        off += t.numel() + pad
+        return start
+
+    for li, layer in enumerate(list(convs) + [h + (None, None, None) for h in heads]):
+        k, b, mu, mul, beta = layer
+        w = k.t()
+        if w.shape[0] == 8:
+            w = w[:4]                       # rows 3..7 are the zero pad
+        cin, cout = w.shape
+        if li < n_det and (cout not in _SLOT_WIDTHS or cin % 4):
+            raise ValueError(f"fused_detect_clusters: per-slot layer {li} is {cin}->{cout}; "
+                             f"the kernel takes Cout in {_SLOT_WIDTHS}, Cin % 4 == 0")
+        if cout > 256 or cin > 256:
+            raise ValueError(f"fused_detect_clusters: layer {li} wider than 256")
+        row = [cin, cout, put(w), put(b)]
+        row += [-1, -1, -1] if mu is None else [put(mu), put(mul), put(beta)]
+        table.append(row)
+    flat = torch.cat(pieces).to(device=device, dtype=torch.float32).contiguous()
+    return flat, torch.tensor(table, dtype=torch.int32)
+
+
+def fused_detect_clusters(weights_t: List[torch.Tensor], clusters: torch.Tensor,
+                          cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Detector-only tower through kernel K6: (B, ns, 3) origin-centred
+    clusters + transpose_unfolded_detector(detector_weights_unfolded(...))
+    -> (attention (B,), orientation (B,) angle).
+
+    CPU tensors take `fused_detect_clusters_plain`; CUDA tensors launch the
+    kernel, and anything it does not take raises.
+    """
+    if clusters.device.type == "cpu":
+        return fused_detect_clusters_plain(weights_t, clusters, cfg)
+    if clusters.device.type != "cuda":
+        raise ValueError(f"fused_detect_clusters: unsupported device {clusters.device}")
+    if clusters.dtype != torch.float32 or clusters.dim() != 3 or clusters.shape[2] != 3:
+        raise ValueError(f"fused_detect_clusters: want (B, ns, 3) float32, got "
+                         f"{tuple(clusters.shape)} {clusters.dtype}")
+    b, ns, _ = clusters.shape
+    if ns != cfg.num_samples or not 1 <= ns <= 64:
+        raise ValueError(f"fused_detect_clusters: {ns} samples, num_samples="
+                         f"{cfg.num_samples} (<= 64)")
+    clusters = clusters.contiguous()
+    flat, table = _detect_kernel_weights(weights_t, cfg, clusters.device)
+    r = np.float32(cfg.base_scale)
+    out = torch.empty((b, 3), dtype=torch.float32, device=clusters.device)
+    kernels.launch_fused_detect(clusters, flat, table, len(cfg.detector_mlp),
+                                len(cfg.detector_mlp2), float(r), float(r * r), out)
+    fused_detect_clusters.launches += 1
+    return out[:, 0], torch.atan2(out[:, 2], out[:, 1])
+
+
+fused_detect_clusters.launches = 0
+fused_detect_clusters.plain = fused_detect_clusters_plain

@@ -9,8 +9,8 @@ index on ties) in every slot; masked points are never selected.
 
 `ball_query_plain` is the CPU path and the oracle for kernel K2
 (ops/batch_group.py); `ball_query` dispatches on the tensors' device.
-Per-centre radii (QueryBallPoint2) and `knn_points` arrive with the
-extraction slice.
+Per-centre radii (QueryBallPoint2) and `knn_points` are not ported yet
+(no path of the port calls them).
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _scalar_radius(radius) -> float:
     if isinstance(radius, torch.Tensor) and radius.dim() > 0:
-        raise NotImplementedError("per-centre radii arrive with the extraction slice")
+        raise NotImplementedError("per-centre radii are not ported yet")
     return float(radius)
 
 

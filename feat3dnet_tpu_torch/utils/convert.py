@@ -10,9 +10,14 @@ The port's module attribute names are those scopes, so each state_dict key
 maps mechanically: `a.b.weight` <-> params/a/b/kernel (transposed from
 flax's (Cin, Cout)), `bias`/`scale` <-> params, `mean`/`var` <->
 batch_stats. Any missing or unused key raises.
+
+`save_variables_npz` / `load_variables_npz` keep such a tree in a flat npz
+keyed by `/`-joined paths (`params/detection/conv0/conv2d/kernel`, ...),
+which is how a trained checkpoint reaches a machine without JAX or Orbax.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -85,4 +90,26 @@ def variables_from_module(model: nn.Module) -> Dict[str, Any]:
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = t.detach().t() if transpose else t.detach()
+    return tree
+
+
+def save_variables_npz(path: str, variables: Mapping) -> None:
+    """Write a variable tree as a flat float32 npz keyed by `a/b/c` paths."""
+    np.savez(path, **{"/".join(p): np.asarray(v, dtype=np.float32)
+                      for p, v in _flatten(variables).items()})
+
+
+def load_variables_npz(path: str) -> Dict[str, Any]:
+    """Read a `save_variables_npz` file back into a nested dict of float32
+    numpy arrays."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"variables file not found: {path}")
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *scope, leaf = key.split("/")
+            node = tree
+            for p in scope:
+                node = node.setdefault(p, {})
+            node[leaf] = np.asarray(data[key], dtype=np.float32)
     return tree

@@ -6,9 +6,11 @@ imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-FPS and the ball query must be index-exact; the fused describe kernel
-within max |d| 1e-4 and attention relative 1e-4 (f32 products summed in
-another order than cuBLAS's). TF32 is off.
+FPS, the ball query, the sorted ball query (K4) and the ball max (K5)
+must be index-exact; the fused describe kernel within max |d| 1e-4 and
+attention relative 1e-4, the detector-only kernel (K6) within attention
+relative 1e-5 and orientation 1e-5 rad (f32 products summed in another
+order than the plain version's). TF32 is off.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 from feat3dnet_tpu_torch.config import ModelConfig
 from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
 from feat3dnet_tpu_torch.ops import fused_describe as tfd
+from feat3dnet_tpu_torch.ops import hash_grid as thg
 from feat3dnet_tpu_torch.ops.batch_group import ball_query_fused
 from feat3dnet_tpu_torch.ops.fps import (farthest_point_sample,
                                          farthest_point_sample_scan)
@@ -81,3 +84,53 @@ def test_fused_describe_kernel_matches_plain(dev, rs):
     dp, ap = tfd.fused_describe_clusters_t_plain(wt, packed, cfg)
     assert (dk - dp).abs().max().item() <= 1e-4
     assert ((ak - ap).abs() / ap.abs().clamp(min=1e-6)).max().item() <= 1e-4
+
+
+def _sorted_cloud(rs, n, dev, block=64, spread=12.0):
+    xyz = ((rs.rand(n, 3) - 0.5) * spread).astype(np.float32)
+    xyz[: n // 3] = xyz[rs.randint(0, 5, n // 3)] + rs.randn(n // 3, 3).astype(np.float32) * 0.4
+    valid = rs.rand(n) > 0.1
+    return thg.build_sorted_cloud_host(xyz, valid, cell_size=2.0, block_size=block).to(dev)
+
+
+@pytest.mark.parametrize("ns,tile,block", [(8, 16, 32), (64, 256, 256), (33, 40, 64)])
+def test_sorted_ball_query_kernel_matches_plain(dev, rs, ns, tile, block):
+    sc = _sorted_cloud(rs, 3000, dev, block=block)
+    ctr = torch.cat([sc.pts4[:, :3], sc.pts4[:50, :3] + 30.0]).contiguous()   # + empty balls
+    n0 = thg.sorted_ball_query.launches
+    tk, ck = thg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, 2.0, ns, tile=tile)
+    tp, cp = thg.sorted_ball_query_plain(sc.pts4, ctr, 2.0, ns)
+    torch.cuda.synchronize()
+    assert thg.sorted_ball_query.launches == n0 + 1
+    assert torch.equal(ck, cp) and torch.equal(tk, tp)
+    assert (ck > ns).float().mean().item() > 0.1            # saturated balls present
+
+
+@pytest.mark.parametrize("tile", [32, 512])
+def test_ball_max_kernel_matches_plain(dev, rs, tile):
+    sc = _sorted_cloud(rs, 4000, dev)
+    vals = torch.from_numpy(rs.rand(sc.pts4.shape[0]).astype(np.float32)).to(dev)
+    vals[100:140] = 0.75                                     # exact ties
+    got = thg.ball_max_sorted(sc.pts4, sc.blk_bbox, vals, 0.5, tile=tile)
+    want = thg.ball_max_plain(sc.pts4, vals, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    sub = sc.pts4[1000:1333, :3].contiguous()
+    assert torch.equal(thg.ball_max_sorted(sc.pts4, sc.blk_bbox, vals, 0.5, centers=sub),
+                       want[1000:1333])
+
+
+def test_fused_detect_kernel_matches_plain(dev, rs):
+    cfg = ModelConfig()
+    c = (rs.randn(300, cfg.num_samples, 3) * 1.6).astype(np.float32)
+    c[5] += 30.0                                   # empty ball -> nearest fallback
+    c[7, 32:] = c[7, :32]                          # repeat-padded duplicates
+    wt = [w.to(dev) for w in tfd.transpose_unfolded_detector(
+        tfd.detector_weights_unfolded(init_variables(cfg, seed=2, bn_perturb=0.1), cfg))]
+    x = torch.from_numpy(c).to(dev)
+    ak, ok = tfd.fused_detect_clusters(wt, x, cfg)
+    ap, op = tfd.fused_detect_clusters_plain(wt, x, cfg)
+    torch.cuda.synchronize()
+    assert ((ak - ap).abs() / ap.abs().clamp(min=1e-6)).max().item() <= 1e-5
+    d = ok - op
+    assert ((d + np.pi) % (2 * np.pi) - np.pi).abs().max().item() <= 1e-5

@@ -141,3 +141,70 @@ def test_describe_packed_asserts_its_contract(rng):
     d, a = server(_mixed_clusters(rng, 12, 8))             # no-BN: the model path
     assert d.shape == (12, 16) and a.shape == (12,)
 
+
+
+def test_unfolded_detector_weights_match_jax(rng):
+    _, v, _ = _setup(rng, SMALL)
+    jw = jfd.detector_weights_unfolded(v, JaxModelConfig(**SMALL))
+    tw = tfd.detector_weights_unfolded(v, ModelConfig(**SMALL))
+    assert len(jw) == len(tw) == 5 * 3 + 4
+    for a, b in zip(jw, tw):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6, atol=1e-7)
+    for a, b in zip(jfd.transpose_unfolded_detector(jw), tfd.transpose_unfolded_detector(tw)):
+        assert tuple(b.shape) == a.shape
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("source", ["mixed", "ball_query"])
+def test_plain_k6_matches_jax_detect_2d(rng, source):
+    """K6's plain version against the JAX detector-only kernel
+    (fused_detect_clusters_2d, unfolded=True, Pallas interpret mode):
+    attention within rtol 1e-5, orientation within 1e-5 rad. The
+    ball-query clusters are what the extraction feeds it: repeat-padded
+    offsets from the sorted ball query."""
+    kw = dict(SMALL, base_scale=2.0)
+    _, v, clusters = _setup(rng, kw)
+    if source == "ball_query":
+        from feat3dnet_tpu_torch.ops import hash_grid as thg
+
+        xyz = ((rng.rand(300, 3) - 0.5) * 10).astype(np.float32)
+        sc = thg.build_sorted_cloud_host(xyz, cell_size=2.0, block_size=32)
+        ctr = torch.from_numpy(sc.pts4[:, :3])
+        grouped, _, _ = thg.ball_query_grouped_sorted(sc.to("cpu"), ctr, 2.0, 8, tile=16)
+        clusters = (grouped - ctr[:, None, :]).numpy()[:300]
+    jcfg, tcfg = JaxModelConfig(**kw), ModelConfig(**kw)
+    ja, jo = jfd.fused_detect_clusters_2d(jfd.detector_weights_unfolded(v, jcfg),
+                                          jnp.asarray(clusters), jcfg, tile=8, unfolded=True)
+    n0 = tfd.fused_detect_clusters.launches
+    wt = tfd.transpose_unfolded_detector(tfd.detector_weights_unfolded(v, tcfg))
+    ta, to = tfd.fused_detect_clusters(wt, torch.from_numpy(clusters), tcfg)
+    assert tfd.fused_detect_clusters.launches == n0        # CPU: plain version
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-5, atol=1e-7)
+    d = to.numpy() - np.asarray(jo)
+    assert np.abs((d + np.pi) % (2 * np.pi) - np.pi).max() <= 1e-5
+    # chunking changes only the matmuls' blocking (last-ulp differences)
+    ca, _ = tfd.fused_detect_clusters_plain(wt, torch.from_numpy(clusters), tcfg, chunk=7)
+    np.testing.assert_allclose(ca.numpy(), ta.numpy(), rtol=1e-6)
+
+
+def test_k6_weight_table_layout(rng):
+    """K6's flat buffer: (Cin, Cout) kernel, bias, then mean, mul, bn_bias
+    per conv (-1 for the heads), 16-byte aligned; first layer cut to 4
+    input rows."""
+    cfg = ModelConfig(**SMALL)
+    wt = tfd.transpose_unfolded_detector(
+        tfd.detector_weights_unfolded(init_variables(cfg, seed=1, bn_perturb=0.1), cfg))
+    flat, table = tfd._detect_kernel_weights(wt, cfg, torch.device("cpu"))
+    convs, heads = tfd._detector_layers(wt, cfg)
+    assert table.shape == (len(convs) + 2, 7) and table.dtype == torch.int32
+    for row, layer in zip(table.tolist(), list(convs) + list(heads)):
+        cin, cout, w_off = row[:3]
+        k = layer[0]
+        np.testing.assert_array_equal(flat[w_off:w_off + cin * cout].reshape(cin, cout).numpy(),
+                                      k.t()[:cin].numpy())
+        for off, vec in zip(row[3:], layer[1:]):
+            np.testing.assert_array_equal(flat[off:off + cout].numpy(), vec[:, 0].numpy())
+        assert all(o % 4 == 0 for o in row[2:] if o >= 0)
+    assert table[0, 0].item() == 4 and (table[-2:, 4:] == -1).all()
+    with pytest.raises(ValueError, match="weight tensors"):
+        tfd.fused_detect_clusters(wt[:-1], torch.zeros(2, 8, 3), cfg)

@@ -20,7 +20,7 @@ import torch
 import feat3dnet_tpu_torch
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.config import ModelConfig
-from feat3dnet_tpu_torch.ops import batch_group, fps, fused_describe
+from feat3dnet_tpu_torch.ops import batch_group, fps, fused_describe, hash_grid
 
 torch.set_num_threads(2)
 
@@ -32,6 +32,10 @@ WRAPPERS = {
     "ball_query": (batch_group.ball_query_fused, batch_group.ball_query_plain),
     "fused_describe": (fused_describe.fused_describe_clusters_t,
                        fused_describe.fused_describe_clusters_t_plain),
+    "sorted_ball_query": (hash_grid.sorted_ball_query, hash_grid.sorted_ball_query_plain),
+    "ball_max": (hash_grid.ball_max_sorted, hash_grid.ball_max_plain),
+    "fused_detect": (fused_describe.fused_detect_clusters,
+                     fused_describe.fused_detect_clusters_plain),
 }
 
 
@@ -78,6 +82,9 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_describe.fused_describe_clusters_t(
             [], torch.empty(512, 4, device=meta), ModelConfig())
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_describe.fused_detect_clusters([], torch.empty(4, 64, 3, device=meta),
+                                             ModelConfig())
 
 
 @pytest.mark.parametrize("source", kernels.SOURCES)
@@ -90,8 +97,10 @@ def test_kernel_sources_carry_their_note(source):
 
 
 def test_nothing_builds_at_import():
-    code = ("import feat3dnet_tpu_torch.inference, feat3dnet_tpu_torch.models, "
-            "feat3dnet_tpu_torch.utils\n"
+    code = ("import sys\n"
+            "import feat3dnet_tpu_torch.inference, feat3dnet_tpu_torch.models, "
+            "feat3dnet_tpu_torch.utils, feat3dnet_tpu_torch.cli.infer\n"
+            "assert not {'jax', 'triton'} & set(sys.modules)\n"
             "from feat3dnet_tpu_torch import kernels\n"
             "assert kernels.build.cache_info().currsize == 0\n"
             "assert kernels.library.cache_info().currsize == 0\n")
