@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the six CUDA kernels from
+Run from the root of a checkout. It builds the CUDA kernels from
 feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
   1. holds K1-K3 against their plain PyTorch versions at the forward's
      shapes (FPS and ball query index-exact on the four vendored clouds
@@ -34,11 +34,30 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      (K, 35) float32 rows;
   8. times K4-K6 against their plain versions and the extract latency of
      both routes per cloud (host Morton sort separately), and profiles
-     one extract of each of the two largest clouds per route.
+     one extract of each of the two largest clouds per route;
+  9. holds K7-K10 (the fused training passes) against their plain versions
+     at the training shapes: 18 clouds of 4 096 points (the vendored clouds
+     cropped to 20 m and resampled under several seeds), FPS + K2 groups
+     (64, 9 216, 3), 256 clusters with every slot tied, both tower plans,
+     f32 and bf16 cotangents; two kernel runs must be bit-equal;
+  10. drives the training path with launch counters reset: cli.train
+     --fused_towers for 20 steps at the paper config on a 12-entry dataset
+     written under build/ (three z-rotations of each vendored cloud), then
+     --auto_resume for 4 more; K1, K2 and K7-K10 must have launched, every
+     loss be finite, the resumed run start at step 20;
+  11. checks a step: the fused route against the autograd route (f32
+     cotangents: loss, batch_stats, grads per leaf; bf16: cosine >= 0.99
+     per leaf), the card against the CPU (loss, grads, params after Adam),
+     and that 30 steps with the kernels on one batch lower the loss;
+  12. times a training step per route (median of 12, synchronised, with
+     peak memory and a torch.profiler breakdown) and K7-K10 per call
+     against their plain versions, each beside its bound.
 It writes only under build/ in the checkout.
-The line before last is a JSON summary of the six kernels; the last line
-is {"ok": true, "device": {...}}. Any failure raises (non-zero exit). It
-needs a CUDA device and refuses to run without one.
+The line before last is a JSON summary of the ten kernels (times, their
+bounds from this run's shapes at the H100's f32 and HBM peaks, launches on
+their path); the last line is {"ok": true, "device": {...}}. Any failure
+raises (non-zero exit). It needs a CUDA device and refuses to run without
+one.
 """
 import itertools
 import json
@@ -60,6 +79,9 @@ FULL_CHECK = 32768    # buckets up to this size: plain versions on every centre
 BATCH = 7680          # clusters per serving request (2 048 distinct, tiled)
 REQUESTS = 8
 SEED = 0
+# H100 SXM peaks: f32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def require(cond, what):
@@ -79,6 +101,44 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(flops, moved):
+    """(ms, "operations" | "bytes"): the larger of the f32 operations over the
+    card's f32 peak and the bytes moved over its memory rate."""
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_mem = moved / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def mean_bound(bounds):
+    """Mean (ms, what bounds the most of them) over per-call bounds."""
+    kinds = [b[1] for b in bounds]
+    return float(np.mean([b[0] for b in bounds])), max(set(kinds), key=kinds.count)
+
+
+def tower_macs(cfg, detector=True, descriptor=True):
+    """Multiply-adds of one 64-slot cluster through K3's / K6's towers."""
+    def chain(cin, widths):
+        macs = 0
+        for w in widths:
+            macs, cin = macs + cin * w, w
+        return macs, cin
+    macs = 0
+    if detector:
+        slot, c = chain(3, cfg.detector_mlp)
+        post, c = chain(c, cfg.detector_mlp2)
+        macs += cfg.num_samples * slot + post + 3 * c
+    if descriptor:
+        slot, c = chain(3, cfg.descriptor_mlp)
+        mid, c = chain(2 * c, cfg.descriptor_mlp2)
+        post, _ = chain(c, cfg.descriptor_mlp3)
+        macs += cfg.num_samples * (slot + mid) + post
+    return macs
 
 
 def in_turns(kernel_fn, plain_fn, reps_k, reps_p):
@@ -135,6 +195,7 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir):
     report = {"sorted_ball_query": {"max_abs_err": 0}, "ball_max": {"max_abs_err": 0},
               "fused_detect": {"max_abs_err": 0.0}}
     times = {k: [] for k in report}
+    bounds = {k: [] for k in report}
 
     # ---- 5. K4, K5, K6 against their plain versions at the extraction shapes
     with torch.no_grad():
@@ -178,6 +239,17 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir):
                   f"{o_err:.3e} rad (<= 1e-5); K5 ball max exact, "
                   f"{(att_k[real] >= bm_k[real]).sum().item()} local maxima")
             if nb <= FULL_CHECK:      # times at the vendored clouds' shapes
+                # what this cloud's data needs: every in-ball pair tested once
+                # (8 flops), the NMS balls' pairs also maxed (9)
+                _, cnt_nms = hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, NMS_RADIUS, 1,
+                                                  tile=256)
+                bounds["sorted_ball_query"].append(bound_ms(
+                    8.0 * cnt_k[real].sum().item(), nbytes(sc.pts4, ctr, top_k, cnt_k)))
+                bounds["ball_max"].append(bound_ms(
+                    9.0 * cnt_nms[real].sum().item(), nbytes(sc.pts4, att_k, bm_k)))
+                bounds["fused_detect"].append(bound_ms(
+                    2.0 * tower_macs(cfg, descriptor=False) * offs.shape[0],
+                    nbytes(offs, *w_det) + offs.shape[0] * 8))
                 pairs = (
                     ("sorted_ball_query",
                      lambda: hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, RADIUS, NS, tile=256),
@@ -195,6 +267,7 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir):
     for key, per in times.items():
         report[key]["ms"] = float(np.mean([p[0] for p in per]))
         report[key]["plain_ms"] = float(np.mean([p[1] for p in per]))
+        report[key]["bound_ms"], report[key]["bound_by"] = mean_bound(bounds[key])
 
     # ---- 6. the extraction path, trained weights, counters from zero --------
     pipes = {"default": InferencePipeline(model, None, cfg, InferenceConfig(), device=dev),
@@ -301,6 +374,513 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir):
     return report, launches
 
 
+TRAIN_CLOUDS = 18        # 3B: TrainConfig().batch_size = 6 triplets of clouds
+TRAIN_POINTS = 4096      # TrainConfig().num_points
+TRAIN_EPOCHS, RESUME_EPOCHS = 10, 2   # 12 entries / 6 per step: 20, then 4 more steps
+TIE_CLUSTERS = 256       # clusters whose 64 slots are made equal (every slot ties)
+# elementwise outputs (dx, the streamed cotangent) may differ past their
+# tolerance where a ReLU input or a pool candidate sits within rounding of
+# its rival: the kernel and the plain version sum in other orders
+FLIP_SHARE = 1e-5
+TRAIN_KERNELS = ("train_stats", "train_final", "train_bwd_top", "train_bwd")
+
+
+def compare(name, got, want, rtol, atol, max_share=0.0):
+    """|got - want| <= atol + rtol |want| on all but max_share of the
+    elements; returns (max |d|, share outside)."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    share = (d > atol + rtol * want.abs()).float().mean().item()
+    require(share <= max_share,
+            f"{name}: {100 * share:.5f} % of elements outside rtol {rtol:g} / atol "
+            f"{atol:.3g} (max |d| {d.max().item():.3e})")
+    return d.max().item(), share
+
+
+def training_batch(dev, seed):
+    """One step's 18 clouds: the vendored clouds in turn, cropped to 20 m and
+    resampled to 4 096 points under seeds seed, seed + 1, ..."""
+    from feat3dnet_tpu_torch.data.datagenerator import crop_and_resample
+    from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+
+    raw = {n: load_point_cloud(example_cloud_path(n)) for n in CLOUDS}
+    out = [crop_and_resample(raw[CLOUDS[i % len(CLOUDS)]], TRAIN_POINTS,
+                             np.random.RandomState(seed + i))[:, :3]
+           for i in range(TRAIN_CLOUDS)]
+    return torch_from(np.stack(out), dev)
+
+
+def torch_from(a, dev):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+
+def write_train_dataset(root):
+    """12 entries in the train.txt format: each vendored cloud under three
+    seeded z-rotations, the other two copies its positives."""
+    import shutil
+
+    from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "train"))
+    rs = np.random.RandomState(SEED)
+    lines = []
+    for ci, name in enumerate(CLOUDS):
+        cloud = load_point_cloud(example_cloud_path(name))
+        for r in range(3):
+            a = rs.uniform(0.0, 2 * np.pi)
+            rot = np.array([[np.cos(a), np.sin(a), 0], [-np.sin(a), np.cos(a), 0], [0, 0, 1]],
+                           np.float32)
+            out = cloud.copy()
+            out[:, :3], out[:, 3:6] = cloud[:, :3] @ rot, cloud[:, 3:6] @ rot
+            fname = f"{name[:-4]}_r{r}.bin"
+            out.astype(np.float32).tofile(os.path.join(root, "train", fname))
+            pos = " ".join(str(3 * ci + k) for k in range(3) if k != r)
+            lines.append(f"{fname} | {pos} | ")
+    with open(os.path.join(root, "train", "train.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def tower_inputs(cfg, xyz):
+    """Slot-major (ns, G, 3) inputs of the two towers for one training batch:
+    FPS (K1) + ball query (K2) groupings, and the same rotated by seeded
+    angles for the descriptor; the first TIE_CLUSTERS clusters have every
+    slot equal to slot 0."""
+    import torch
+
+    from feat3dnet_tpu_torch.models.feat3dnet import _rotate_z
+    from feat3dnet_tpu_torch.ops import batch_group, fps
+    from feat3dnet_tpu_torch.ops.neighborhoods import gather_points, group_points
+
+    ctr = gather_points(xyz, fps.farthest_point_sample(xyz, cfg.num_clusters)).contiguous()
+    nidx, _ = batch_group.ball_query_fused(xyz, ctr, cfg.base_scale, cfg.num_samples)
+    grouped = (group_points(xyz, nidx) - ctr[:, :, None]) / cfg.base_scale
+    g = torch.Generator().manual_seed(SEED)
+    ang = (torch.rand(grouped.shape[:2], generator=g) * (2 * np.pi)).to(xyz.device)
+    xs = []
+    for gr in (grouped, _rotate_z(grouped, ang)):
+        x = gr.permute(2, 0, 1, 3).reshape(cfg.num_samples, -1, 3).contiguous()
+        x[:, :TIE_CLUSTERS] = x[0:1, :TIE_CLUSTERS].clone()
+        xs.append(x)
+    return xs
+
+
+def tower_params(model, cfg):
+    """{tower: (plan, flat (W, b, gamma, beta) per conv)} of the model."""
+    from feat3dnet_tpu_torch.ops import fused_train as ft
+
+    def flat(blocks):
+        return [t.detach().contiguous() for b in blocks
+                for t in (b.conv2d.weight.t(), b.conv2d.bias, b.bn.scale, b.bn.bias)]
+
+    det = [getattr(model.detection, f"conv{i}") for i in range(len(cfg.detector_mlp))]
+    desc = ([getattr(model.description, f"conv{i}") for i in range(len(cfg.descriptor_mlp))]
+            + [getattr(model.description, f"conv_mid_{i}")
+               for i in range(len(cfg.descriptor_mlp2))])
+    return {"detector": (ft.detector_plan(len(det)), flat(det)),
+            "descriptor": (ft.descriptor_plan(len(cfg.descriptor_mlp),
+                                              len(cfg.descriptor_mlp2)), flat(desc))}
+
+
+def check_train_passes(tag, x, plan, flat, cot, eps):
+    """Phase 9 for one tower and cotangent type: K7-K10 against their plain
+    versions on the same inputs (each backward pass gets the plain chain's
+    cotangent), twice for bit-equality. Returns ({kernel: max |d|},
+    {kernel: [(kernel_fn, plain_fn, bound)]}) for the timing phase."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import fused_train as ft
+
+    ns, gp, _ = x.shape
+    count = float(ns * gp)
+    n = len(flat) // 4
+    io = ft.plan_conv_widths(plan, [flat[4 * j].shape[1] for j in range(n)], x.shape[2])
+    macs = [ci * co for ci, co in io]
+    rows = ns * gp
+    nblk = min(gp, ft.GRID_BLOCKS)
+    wbytes = nbytes(*flat)
+    errs = {k: 0.0 for k in TRAIN_KERNELS}
+    calls = {k: [] for k in TRAIN_KERNELS}
+    folded, means, isigs = [], [], []
+    for j in range(n):
+        w, b, g, be = flat[4 * j:4 * j + 4]
+        pre = list(folded)
+        st_k = ft.stats_pass(x, plan, pre, w, b, gp)
+        st_p = ft.stats_pass.plain(x, plan, pre, w, b, gp)
+        require(torch.equal(st_k, ft.stats_pass(x, plan, pre, w, b, gp)), f"{tag} K7 {j}: not bit-equal")
+        mk, mp = st_k[0] / count, st_p[0] / count
+        e, _ = compare(f"{tag} K7 conv {j} means", mk, mp, 1e-5, 1e-6)
+        compare(f"{tag} K7 conv {j} vars", st_k[1] / count - mk * mk, st_p[1] / count - mp * mp,
+                1e-4, 1e-6)
+        errs["train_stats"] = max(errs["train_stats"], e)
+        mean, var, a, c, isig = ft._finalize_stats(st_p, count, g, be, eps)
+        folded.append((w, b, a, c))
+        means.append(mean)
+        isigs.append(isig)
+        calls["train_stats"].append((
+            lambda pre=pre, w=w, b=b: ft.stats_pass(x, plan, pre, w, b, gp),
+            lambda pre=pre, w=w, b=b: ft.stats_pass.plain(x, plan, pre, w, b, gp),
+            bound_ms(2.0 * rows * sum(macs[:j + 1]), nbytes(x) + wbytes + nblk * 2 * w.shape[1] * 4)))
+    pk, pp = ft.final_pass(x, plan, folded), ft.final_pass.plain(x, plan, folded)
+    errs["train_final"], _ = compare(f"{tag} K8 pooled", pk, pp, 0.0, 1e-4)
+    calls["train_final"].append((lambda: ft.final_pass(x, plan, folded),
+                                 lambda: ft.final_pass.plain(x, plan, folded),
+                                 bound_ms(2.0 * rows * sum(macs), nbytes(x, pk) + wbytes)))
+    g = torch.Generator().manual_seed(SEED + 1)
+    dpool = torch.randn(pk.shape, generator=g).to(x.device)
+    bk = ft.bwd_top_pass(x, plan, folded, means[-1], isigs[-1], dpool)
+    bp = ft.bwd_top_pass.plain(x, plan, folded, means[-1], isigs[-1], dpool)
+    errs["train_bwd_top"], _ = compare(f"{tag} K9 sums", bk, bp, 5e-3,
+                                       5e-4 * bp.abs().max().item())
+    calls["train_bwd_top"].append((
+        lambda: ft.bwd_top_pass(x, plan, folded, means[-1], isigs[-1], dpool),
+        lambda: ft.bwd_top_pass.plain(x, plan, folded, means[-1], isigs[-1], dpool),
+        bound_ms(2.0 * rows * sum(macs), nbytes(x, dpool, bk) * 1.0 + wbytes + nblk * bk.numel() * 4)))
+    src, bst = dpool, bp
+    cot_rtol = 2.0 ** -7 if cot == torch.bfloat16 else 5e-3     # one bf16 step either way
+    for j in range(n - 1, -1, -1):
+        args = (x, plan, folded[:j + 1], means[j], isigs[j], src, bst[0] / count,
+                bst[1] / count, flat[4 * j + 2] * isigs[j], means[j - 1] if j else None,
+                isigs[j - 1] if j else None, gp, cot)
+        dw_k, db_k, out_k, bst_k = ft.bwd_pass(*args)
+        dw_p, db_p, out_p, bst_p = ft.bwd_pass.plain(*args)
+        again = ft.bwd_pass(*args)
+        require(torch.equal(again[0], dw_k) and torch.equal(again[1], db_k)
+                and torch.equal(again[2], out_k)
+                and (j == 0 or torch.equal(again[3], bst_k)), f"{tag} K10 {j}: not bit-equal")
+        dw_scale = dw_p.abs().max().item()
+        e, _ = compare(f"{tag} K10 conv {j} dW", dw_k, dw_p, 5e-3, 5e-4 * dw_scale)
+        errs["train_bwd"] = max(errs["train_bwd"], e)
+        # db is analytically zero under BN: both sides are the rounding noise of
+        # a sum over ns * G rows, held to the layer's weight-gradient scale
+        compare(f"{tag} K10 conv {j} db", db_k, db_p, 0.0, 5e-4 * dw_scale)
+        if j > 0:
+            _, share = compare(f"{tag} K10 conv {j} do_prev", out_k, out_p, cot_rtol, 5e-5,
+                               FLIP_SHARE)
+            compare(f"{tag} K10 conv {j} next sums", bst_k, bst_p, 5e-3,
+                    5e-4 * bst_p.abs().max().item())
+        else:
+            _, share = compare(f"{tag} K10 dx", out_k, out_p, 5e-3, 5e-5, FLIP_SHARE)
+        if share:
+            print(f"  {tag} K10 conv {j}: {100 * share:.5f} % of the elementwise output past "
+                  f"tolerance (<= {100 * FLIP_SHARE:g} %)")
+        extra = macs[j] if j > 0 else 3 * io[0][1]
+        calls["train_bwd"].append((
+            lambda args=args: ft.bwd_pass(*args), lambda args=args: ft.bwd_pass.plain(*args),
+            bound_ms(2.0 * rows * (sum(macs[:j + 1]) + macs[j] + extra),
+                     nbytes(x, src, out_k) + wbytes + nblk * (dw_k.numel() + db_k.numel()) * 4)))
+        src, bst = out_p, bst_p
+    return errs, calls
+
+
+def model_grads(model, clouds, margin):
+    """Loss, grads per parameter and the BN buffers after one training forward."""
+    import torch
+
+    from feat3dnet_tpu_torch.train.loss import alignment_triplet_loss
+
+    model.zero_grad(set_to_none=True)
+    out = model(clouds, training=True)
+    fa, fp, fn = torch.chunk(out.features, 3)
+    loss, _ = alignment_triplet_loss(fa, fp, fn, torch.chunk(out.attention, 3)[0], margin)
+    loss.backward()
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().clone()
+             for k, p in model.named_parameters()}
+    return loss.item(), grads, {k: b.detach().cpu().clone() for k, b in model.named_buffers()}
+
+
+def f64_grads(model, clouds, margin):
+    """Float64 reference grads of the model's loss: the grouping in f32 as
+    the model makes it (K1, K2), the towers, BN and the loss in float64."""
+    import copy
+
+    import torch
+
+    from feat3dnet_tpu_torch.models.feat3dnet import _group_normalized, _rotate_z
+    from feat3dnet_tpu_torch.ops import farthest_point_sample, gather_points
+    from feat3dnet_tpu_torch.train.loss import alignment_triplet_loss
+
+    cfg = model.cfg
+    m = copy.deepcopy(model).double()
+    xyz = clouds[..., :3].contiguous()
+    ctr = gather_points(xyz, farthest_point_sample(xyz, cfg.num_clusters)).contiguous()
+    grouped, _, _ = _group_normalized(xyz, ctr, cfg.base_scale, cfg.num_samples, None)
+    att, ori = m.detection(grouped.double(), True)
+    feat = m.description(_rotate_z(grouped.double(), ori), True)
+    fa, fp, fn = torch.chunk(feat, 3)
+    alignment_triplet_loss(fa, fp, fn, torch.chunk(att, 3)[0], margin)[0].backward()
+    return {k: p.grad.float().cpu() for k, p in m.named_parameters()}
+
+
+def noise_leaves(grads):
+    """Leaves whose grad is analytically zero (a shift the next BN removes):
+    rounding noise on both sides."""
+    top = max(g.abs().max().item() for g in grads.values())
+    return {k for k, g in grads.items() if g.abs().max().item() <= 1e-4 * top}
+
+
+def training_phases(dev, card):
+    """Phases 9-12: K7-K10 against their plain versions at the training
+    shapes, the training path through cli.train with counters reset, checks
+    on the step, and times. Returns ({kernel: report} for K7-K10, the
+    training path's launches)."""
+    import statistics
+
+    import torch
+
+    from feat3dnet_tpu_torch.cli import train as train_cli
+    from feat3dnet_tpu_torch.config import ModelConfig, TrainConfig
+    from feat3dnet_tpu_torch.data.augment import resolve_augmentations
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.ops import batch_group, fps
+    from feat3dnet_tpu_torch.ops import fused_train as ft
+    from feat3dnet_tpu_torch.train import init_state, make_fused_train_step, make_train_step
+    from feat3dnet_tpu_torch.utils import init_variables, load_variables
+
+    cfg = ModelConfig()
+    tcfg = TrainConfig()
+    report = {k: {"max_abs_err": 0.0} for k in TRAIN_KERNELS}
+    xyz = training_batch(dev, SEED)
+
+    # ---- 9. K7-K10 against their plain versions at the training shapes -------
+    t0 = time.perf_counter()
+    model = load_variables(Feat3DNet(cfg), init_variables(cfg, seed=SEED, bn_perturb=0.1)).to(dev)
+    towers = tower_params(model, cfg)
+    timed = {k: [] for k in TRAIN_KERNELS}
+    with torch.no_grad():
+        xs = dict(zip(("detector", "descriptor"), tower_inputs(cfg, xyz)))
+        for (tower, (plan, flat)), cot in itertools.product(towers.items(),
+                                                             (torch.float32, torch.bfloat16)):
+            errs, calls = check_train_passes(f"{tower}/{str(cot)[6:]}", xs[tower], plan, flat,
+                                             cot, cfg.bn_epsilon)
+            for k, e in errs.items():
+                report[k]["max_abs_err"] = max(report[k]["max_abs_err"], e)
+            if cot == torch.float32:
+                for k, c in calls.items():
+                    timed[k] += c
+            torch.cuda.empty_cache()
+    errs = ", ".join(f"{k} {v['max_abs_err']:.3e}" for k, v in report.items())
+    print(f"K7-K10 at (ns, G) = {tuple(xs['detector'].shape[:2])}, both plans, f32 and bf16 "
+          f"cotangents, {TIE_CLUSTERS} all-ties clusters: within tolerance, bit-equal on "
+          f"repeat; max |d|: {errs} ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 10. the training path, counters from zero -----------------------------
+    root = os.path.join(HERE, "build", "chip_smoke_train")
+    write_train_dataset(root)
+    wrappers = {"fps": fps.farthest_point_sample, "ball_query": batch_group.ball_query_fused,
+                "train_stats": ft.stats_pass, "train_final": ft.final_pass,
+                "train_bwd_top": ft.bwd_top_pass, "train_bwd": ft.bwd_pass}
+    for w in wrappers.values():
+        w.launches = 0
+    log_dir = os.path.join(root, "log")
+    args = ["--data_dir", root, "--log_dir", log_dir, "--fused_towers", "--device", "cuda",
+            "--num_points", str(TRAIN_POINTS), "--batch_size", str(TRAIN_CLOUDS // 3),
+            "--summary_every_n_steps", "1", "--checkpoint_every_n_steps", "10"]
+    per_epoch = 12 // (TRAIN_CLOUDS // 3)
+    first, total = TRAIN_EPOCHS * per_epoch, (TRAIN_EPOCHS + RESUME_EPOCHS) * per_epoch
+    t0 = time.perf_counter()
+    state = train_cli.main(args + ["--num_epochs", str(TRAIN_EPOCHS)])
+    first_s = time.perf_counter() - t0
+    require(state.step == first, f"cli.train took {state.step} steps, not {first}")
+    state = train_cli.main(args + ["--num_epochs", str(RESUME_EPOCHS), "--auto_resume"])
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"training path launches: {launches}")
+    for k, n_launch in launches.items():
+        require(n_launch > 0, f"kernel {k} was not launched on the training path")
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    require([r["step"] for r in rows] == list(range(1, total + 1)) and state.step == total,
+            f"training steps logged {[r['step'] for r in rows]}, resumed run at {state.step}")
+    require(all(np.isfinite(r["loss"]) for r in rows), "non-finite loss on the training path")
+    print(f"cli.train --fused_towers: {first} steps ({first_s:.1f} s with set-up), then "
+          f"--auto_resume from step {first} to {total}; losses "
+          f"{[round(r['loss'], 4) for r in rows]}")
+
+    # ---- 11. checks on the step ---------------------------------------------------
+    # At these shapes the f32 grads of every route carry discrete choices (the
+    # loss's argmin, pool argmaxes, ReLU masks) that flip under f32 rounding,
+    # so each route is measured against float64 grads of the same init and
+    # batch (K1/K2 groupings shared): per leaf the relative L2 error and the
+    # cosine. Leaves whose grad is analytically zero (conv biases under BN)
+    # are rounding noise everywhere and are held to |g| <= 1e-3.
+    variables = init_variables(cfg, seed=SEED)
+    clouds = training_batch(dev, SEED + 100)
+    ref = load_variables(Feat3DNet(cfg), variables).to(dev)
+    l_ref, g_ref, b_ref = model_grads(ref, clouds, cfg.margin)
+    g64 = f64_grads(ref, clouds, cfg.margin)
+    noise = noise_leaves(g64)
+    routes = {"autograd f32": g_ref}
+    for cot in (torch.float32, torch.bfloat16):
+        fused = load_variables(Feat3DNet(ModelConfig(fused_towers=True, fused_cot_dtype=cot)),
+                               variables).to(dev)
+        l_f, g_f, b_f = model_grads(fused, clouds, cfg.margin)
+        require(abs(l_f - l_ref) <= 1e-5 * abs(l_ref), f"fused loss {l_f} vs autograd {l_ref}")
+        for k, w in b_ref.items():
+            compare(f"batch_stats {k}", b_f[k], w, 1e-4, 1e-6)
+        routes[f"fused {str(cot)[6:]}"] = g_f
+        del fused
+    # (b) the card against the CPU: one step each, the autograd route on both,
+    # and the card's fused route (f32 cotangents) beside them
+    steps = []
+    for d, fused in ((dev, False), (dev, True), (torch.device("cpu"), False)):
+        m = Feat3DNet(ModelConfig(fused_towers=fused, fused_cot_dtype=torch.float32))
+        st = init_state(m, tcfg, cfg, variables=variables, device=d)
+        a, p, n = torch.chunk(clouds.to(d), 3)
+        _, met = make_train_step(m, cfg.margin, cfg.attention)(st, a, p, n)
+        steps.append((met["loss"].item(),
+                      {k: q.grad.detach().cpu() for k, q in m.named_parameters()},
+                      {k: q.detach().cpu() for k, q in m.named_parameters()}))
+    (lc, gc, pc), (_, _, pf), (lh, gh, ph) = steps
+    del st, steps
+    routes["CPU autograd f32"] = gh
+
+    def leaf_stats(g):
+        out = {}
+        for k, w in g64.items():
+            if k not in noise:
+                d = (g[k] - w).norm().item() / max(w.norm().item(), 1e-30)
+                c = torch.nn.functional.cosine_similarity(g[k].flatten(), w.flatten(), dim=0)
+                out[k] = (d, c.item())
+        return out
+
+    # which GEMMs the card's autograd step runs, under the precision flags set
+    flags = {n: getattr(torch.backends.cuda.matmul, n, None)
+             for n in ("allow_tf32", "fp32_precision")}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        model_grads(ref, clouds, cfg.margin)
+    gemms = sorted({e.key[:70] for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and ("gemm" in e.key.lower() or "xmma" in e.key.lower())})
+    print(f"(a/b) card autograd step: matmul flags {flags}, float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()}; GEMM kernels: {gemms}")
+    stats = {r: leaf_stats(g) for r, g in routes.items()}
+    checks = []                       # (ok, what): all printed, then required
+    for r, st_r in stats.items():
+        worst = sorted(st_r, key=lambda k: st_r[k][0], reverse=True)[:4]
+        noise_max = max(routes[r][k].abs().max().item() for k in noise)
+        print(f"(a/b) {r} vs float64: worst rel L2 " + ", ".join(
+            f"{k} {st_r[k][0]:.2e} (cos {st_r[k][1]:.6f})" for k in worst)
+            + f"; median rel L2 {statistics.median(v[0] for v in st_r.values()):.2e}; "
+            f"noise leaves max |g| {noise_max:.2e} ({len(noise)} leaves)")
+        checks.append((noise_max <= 1e-3, f"{r}: a conv-bias grad under BN is {noise_max}"))
+        k = min(st_r, key=lambda q: st_r[q][1])
+        floor = 0.999 if r in ("fused float32", "CPU autograd f32") else 0.99
+        checks.append((st_r[k][1] >= floor, f"{r}: cosine {st_r[k][1]:.6f} to float64 on {k} "
+                                            f"(>= {floor})"))
+    worst_f = max(v[0] for v in stats["fused float32"].values())
+    worst_a = max(v[0] for v in stats["autograd f32"].values())
+    checks.append((worst_f <= 1.5 * worst_a + 1e-3,
+                   f"fused route rel L2 to float64 {worst_f:.3e} vs autograd {worst_a:.3e}"))
+    for r in ("fused float32", "fused bfloat16", "CPU autograd f32"):
+        cos = {k: torch.nn.functional.cosine_similarity(routes[r][k].flatten(),
+                                                        g_ref[k].flatten(), dim=0).item()
+               for k in g64 if k not in noise}
+        worst = min(cos, key=cos.get)
+        print(f"(a/b) {r} vs the card's autograd route: worst cosine {cos[worst]:.6f} on {worst}")
+        checks.append((cos[worst] >= 0.99, f"{r} vs autograd: cosine {cos[worst]:.6f} on "
+                                           f"{worst} (>= 0.99)"))
+    print(f"(a) fused vs autograd route: loss {l_f:.7f} vs {l_ref:.7f}, batch_stats within rtol "
+          f"1e-4; f32 cotangents: worst leaf rel L2 to float64 {worst_f:.2e} (autograd "
+          f"{worst_a:.2e})")
+    checks.append((abs(lc - lh) <= 1e-5 * abs(lh), f"card loss {lc} vs CPU {lh}"))
+    # Adam's first update is about lr * sign(g): where a grad is analytically
+    # zero (element by element: |g64| <= 1e-4 of the largest, e.g. the beta of
+    # a channel that every cluster's pool keeps positive, whose uniform shift
+    # the next BN removes) its sign, and the update, can differ by 2 lr. The
+    # card's autograd route is 10x further from float64 than the CPU's and
+    # the kernels' (printed above), so it is held to 99 % instead of 99.9 %.
+    lr = tcfg.learning_rate
+    thr = 1e-4 * max(g.abs().max().item() for g in g64.values())
+    for route, params, need in (("fused f32", pf, 0.999), ("autograd", pc, 0.99)):
+        shares, within, total, dmax = {}, 0.0, 0, 0.0
+        for k, w in ph.items():
+            d = (params[k] - w).abs()
+            dmax = max(dmax, d.max().item())
+            real = g64[k].abs() > thr
+            if real.any():
+                shares[k] = (d[real] <= 1e-2 * lr).float().mean().item()
+                within += shares[k] * real.sum().item()
+                total += real.sum().item()
+        low = min(shares, key=shares.get)
+        print(f"(b) card ({route} step) vs CPU (autograd step): params after Adam "
+              f"{100 * within / total:.4f} % of the {total} with a grad above the noise "
+              f"within 1e-2 lr (lowest leaf {low} "
+              f"{100 * shares[low]:.3f} %), every one within {dmax / lr:.4f} lr")
+        checks.append((within / total >= need, f"{route}: params after Adam "
+                                               f"{100 * within / total:.4f} % within 1e-2 lr "
+                                               f"(>= {100 * need:g} %)"))
+        checks.append((dmax <= 2 * lr + 1e-7, f"{route}: a param after Adam differs by "
+                                               f"{dmax / lr:.4f} lr (<= 2)"))
+    print(f"(b) loss on the card {lc:.7f}, on the CPU {lh:.7f}")
+    bad = [what for ok, what in checks if not ok]
+    for what in bad:
+        print(f"(a/b) FAILED: {what}")
+    require(not bad, "; ".join(bad))
+    # (c) the loss falls: 30 steps with the kernels on one batch, lr 1e-3, margin 1.0
+    m = Feat3DNet(ModelConfig(fused_towers=True))
+    s3 = init_state(m, TrainConfig(learning_rate=1e-3), cfg, variables=variables, device=dev)
+    step = make_fused_train_step(m, 1.0, True)
+    losses = [step(s3, clouds)[1]["loss"].item() for _ in range(30)]
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0], f"loss did not fall: {losses}")
+    print(f"(c) 30 steps with the kernels on one batch: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    del s3, m
+
+    # ---- 12. times -------------------------------------------------------------------
+    aug = tuple(resolve_augmentations(tcfg.augmentations, tcfg.upright_axis))
+    route_ms = {}
+    for route, fused in (("autograd", False), ("fused", True), ("fused", True), ("autograd", False)):
+        m = Feat3DNet(ModelConfig(fused_towers=fused))
+        s4 = init_state(m, tcfg, cfg, variables=variables, device=dev)
+        step = make_fused_train_step(m, cfg.margin, cfg.attention, augmentations=aug, aug_seed=1)
+        for _ in range(2):
+            step(s4, clouds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per = []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            step(s4, clouds)
+            torch.cuda.synchronize()
+            per.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        route_ms.setdefault(route, []).append((statistics.median(per), peak))
+        if len(route_ms[route]) == 2:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(s4, clouds)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+            busy = sum(e.self_device_time_total for e in ev) / 1e3
+            print(f"[{card}] profile train step ({route}): wall {wall:.2f} ms, device busy "
+                  f"{busy:.2f} ms ({100 * busy / wall:.1f} %)")
+            for e in ev[:10]:
+                print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+        del s4, m, step
+        torch.cuda.empty_cache()
+    for route, vals in route_ms.items():
+        print(f"[{card}] train step ({route} route, {TRAIN_CLOUDS} x {TRAIN_POINTS} points, "
+              f"augmented): median "
+              f"{np.mean([v[0] for v in vals]):.2f} ms (runs {[round(v[0], 2) for v in vals]}), "
+              f"peak memory {max(v[1] for v in vals):.2f} GiB")
+    with torch.no_grad():
+        for k, cl in timed.items():
+            per = [(*in_turns(kf, pf, 3, 2), b) for kf, pf, b in cl]
+            report[k]["ms"] = float(np.mean([q[0] for q in per]))
+            report[k]["plain_ms"] = float(np.mean([q[1] for q in per]))
+            report[k]["bound_ms"], report[k]["bound_by"] = mean_bound([q[2] for q in per])
+            print(f"[{card}] {k}: {len(per)} calls (both towers), kernel "
+                  f"{[round(q[0], 4) for q in per]} ms, plain {[round(q[1], 4) for q in per]} ms, "
+                  f"bound {[round(q[2][0], 4) for q in per]} ms")
+    return report, launches
+
+
 def main():
     import torch
 
@@ -396,7 +976,7 @@ def main():
     model = load_variables(Feat3DNet(cfg), variables).eval()
     cpu_model = load_variables(Feat3DNet(cfg), variables).eval()
     model.to(dev)
-    server = ClusterDescriptorServer(model)
+    server = ClusterDescriptorServer(model, device=dev)
     weights_t = server._kernel_weights_t()
     packed_host = ClusterDescriptorServer.pack_clusters(clusters.cpu().numpy())
     packed = torch.from_numpy(packed_host).to(dev)
@@ -471,24 +1051,36 @@ def main():
         for key, fn_k, fn_p, rk, rp in (
                 ("fps", lambda x: fps_k(x, NPOINT), lambda x: fps_p(x, NPOINT), 10, 2),
                 ("ball_query", None, None, 20, 5)):
-            per = []
+            per, bounds = [], []
             for name in CLOUDS:
                 xyz = gpu[name]
+                n_pts = xyz.shape[1]
                 if key == "fps":
                     kf, pf = (lambda x=xyz: fn_k(x)), (lambda x=xyz: fn_p(x))
+                    # (npoint - 1) sweeps of 3 sub, 3 mul, 2 add and a min per point
+                    bounds.append(bound_ms(9.0 * (NPOINT - 1) * n_pts,
+                                           n_pts * 12 + NPOINT * 4))
                 else:
                     c = centers[name]
                     kf = lambda x=xyz, c=c: bq_k(x, c, RADIUS, NS)
                     pf = lambda x=xyz, c=c: bq_p(x, c, RADIUS, NS)
+                    # each centre scans points up to its ns-th hit (all N if fewer)
+                    ik, ck = bq_k(xyz, c, RADIUS, NS)
+                    scanned = torch.where(ck >= NS, ik[..., NS - 1].long() + 1,
+                                          torch.full_like(ck, n_pts).long()).sum().item()
+                    bounds.append(bound_ms(8.0 * scanned, nbytes(xyz, c, ik, ck)))
                 ms_k, ms_p = in_turns(kf, pf, rk, rp)
                 per.append((ms_k, ms_p))
                 print(f"[{card}] {key} {name} N={xyz.shape[1]}: kernel {ms_k:.4f} ms, "
                       f"plain {ms_p:.4f} ms")
             report[key]["ms"] = float(np.mean([p[0] for p in per]))
             report[key]["plain_ms"] = float(np.mean([p[1] for p in per]))
+            report[key]["bound_ms"], report[key]["bound_by"] = mean_bound(bounds)
         ms_k, ms_p = in_turns(lambda: k3(weights_t, packed, cfg),
                               lambda: k3_plain(weights_t, packed, cfg), 10, 3)
-        report["fused_describe"].update(ms=ms_k, plain_ms=ms_p)
+        b3 = bound_ms(2.0 * tower_macs(cfg) * BATCH,
+                      nbytes(packed, *weights_t) + BATCH * (cfg.feature_dim + 1) * 4)
+        report["fused_describe"].update(ms=ms_k, plain_ms=ms_p, bound_ms=b3[0], bound_by=b3[1])
         print(f"[{card}] fused_describe {BATCH} clusters: kernel {ms_k:.4f} ms "
               f"({BATCH / ms_k * 1e3:.0f} desc/s), plain {ms_p:.4f} ms")
         # server: host-packed requests in, descriptors on the host out
@@ -541,6 +1133,11 @@ def main():
     # K1-K3 count on the forward/serving path, K4-K6 on the extraction path
     launches.update({k: ext_launches[k] for k in ext_report})
 
+    # ---- 9-12. triplet training, random weights -------------------------------------
+    train_report, train_launches = training_phases(dev, card)
+    report.update(train_report)
+    launches.update({k: train_launches[k] for k in train_report})
+
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),
         "ball_query": ("feat3dnet_tpu_torch/csrc/ball_query.cu",
@@ -553,10 +1150,21 @@ def main():
                      "feat3dnet_tpu/ops/hash_grid.py:1139"),
         "fused_detect": ("feat3dnet_tpu_torch/csrc/fused_detect.cu",
                          "feat3dnet_tpu/ops/fused_describe.py:1286"),
+        "train_stats": ("feat3dnet_tpu_torch/csrc/fused_train.cu",
+                        "feat3dnet_tpu/ops/fused_train.py:253"),
+        "train_final": ("feat3dnet_tpu_torch/csrc/fused_train.cu",
+                        "feat3dnet_tpu/ops/fused_train.py:274"),
+        "train_bwd_top": ("feat3dnet_tpu_torch/csrc/fused_train.cu",
+                          "feat3dnet_tpu/ops/fused_train.py:285"),
+        "train_bwd": ("feat3dnet_tpu_torch/csrc/fused_train.cu",
+                      "feat3dnet_tpu/ops/fused_train.py:316"),
     }
+    # no single PyTorch call computes any of these functions: library_ms is null
     summary = [{"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
                 "launches": launches[k], "max_abs_err": report[k]["max_abs_err"],
-                "ms": report[k]["ms"], "plain_ms": report[k]["plain_ms"]}
+                "ms": report[k]["ms"], "plain_ms": report[k]["plain_ms"],
+                "bound_ms": report[k]["bound_ms"], "bound_by": report[k]["bound_by"],
+                "library_ms": None}
                for k in meta]
     print(f"card: {card}")
     print(json.dumps({"kernels": summary}))

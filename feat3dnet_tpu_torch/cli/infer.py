@@ -41,8 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TF1 npz export: needs the JAX package; use --variables")
     p.add_argument("--variables", type=str, default=None,
                    help="flat npz of the flax variable tree (utils/convert.py)")
-    p.add_argument("--device", type=str, default=None,
-                   help="cpu or cuda[:i] (default: cuda when available)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda[:i] (the default; raises without a CUDA device) or cpu")
     p.add_argument("--output_dir", type=str, required=True)
     return p
 
@@ -56,6 +56,7 @@ def main(argv=None):
     from feat3dnet_tpu_torch.inference import InferencePipeline
     from feat3dnet_tpu_torch.models import get_network
     from feat3dnet_tpu_torch.utils import init_variables, load_variables_npz
+    from feat3dnet_tpu_torch.utils.device import resolve_device
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     logger = logging.getLogger("feat3dnet_tpu_torch.infer")
@@ -63,9 +64,7 @@ def main(argv=None):
     if args.checkpoint or args.tf1_checkpoint:
         raise SystemExit("--checkpoint / --tf1_checkpoint need the JAX package; export "
                          "the variables to npz and pass --variables")
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

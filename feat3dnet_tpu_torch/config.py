@@ -3,8 +3,9 @@
 Same fields, defaults and derived widths as the JAX dataclasses, with torch
 dtypes in place of jnp ones. The training-only fields (remat, residual
 dtype, fused towers) are kept so that configurations round-trip between
-the two packages; the eval forward ignores them. `TrainConfig` arrives
-with the training slice.
+the two packages; the eval forward ignores them, the training forward
+reads `fused_towers` and `fused_cot_dtype` and refuses the two TPU-era
+memory modes (`remat_towers`, `residual_dtype`).
 """
 from __future__ import annotations
 
@@ -52,6 +53,37 @@ class ModelConfig:
     @property
     def descriptor_mlp3(self) -> Sequence[int]:
         return (self.feature_dim,)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference: train.py:20-67, config.py, train.sh).
+
+    batch_size: triplets per step. num_points: points per cloud after crop
+    and resample. learning_rate: Adam's (fixed, or the cosine peak).
+    lr_schedule: 'constant' or 'cosine' (linear warmup over warmup_steps,
+    cosine decay to 0 at decay_steps, counted in optimiser updates).
+    augmentations: reference CLI names (data/augment.resolve_augmentations).
+    crop_radius: metres around the origin kept before resampling.
+    freeze_scopes: top-level scopes ('detection', 'description') left out
+    of the optimiser. The *_every_n_steps fields are the training loop's cadences.
+    """
+
+    batch_size: int = 6
+    num_points: int = 4096
+    learning_rate: float = 1e-5
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    decay_steps: int = 0
+    num_epochs: int = 1000
+    augmentations: Sequence[str] = ("Jitter", "RotateSmall", "Shift", "Rotate1D")
+    upright_axis: int = 2
+    crop_radius: float = 20.0
+    freeze_scopes: Optional[Sequence[str]] = None
+    checkpoint_every_n_steps: int = 500
+    validate_every_n_steps: int = 250
+    summary_every_n_steps: int = 20
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,134 @@
+"""Triplet dataset (numpy copy of feat3dnet_tpu/data/datagenerator.py).
+
+Metadata lines `fname | positives | nonnegatives`; per triplet the positive
+is drawn uniformly from the anchor's positives and the negative uniformly
+from the clouds outside positives and nonnegatives; per cloud a crop to a
+20 m radius around the origin, then a random downsample without
+replacement to num_points, or duplicate-padding with random resampling.
+Epoch e's order is `RandomState((seed, e)).permutation`, sliced per shard.
+Batches are bit-equal to the JAX package's numpy branch; its native C++
+reader is not part of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue
+import threading
+from typing import Callable, Iterator, List, Optional, Set, Tuple
+
+import numpy as np
+
+from feat3dnet_tpu_torch.data.io import load_point_cloud
+
+
+@dataclasses.dataclass
+class TripletMetadata:
+    fname: str
+    positives: Set[int]
+    nonnegatives: Set[int]
+
+
+def parse_metadata(path: str) -> List[TripletMetadata]:
+    out = []
+    with open(path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            fname, pos, nonneg = [p.strip() for p in line.split("|")]
+            out.append(TripletMetadata(fname=fname,
+                                       positives={int(s) for s in pos.split()},
+                                       nonnegatives={int(s) for s in nonneg.split()}))
+    return out
+
+
+class TripletDataset:
+    """Seeded triplet sampler over a train.txt metadata file (numpy reader)."""
+
+    def __init__(self, metadata_file: str, num_cols: int = 6, seed: int = 0,
+                 shard_index: int = 0, num_shards: int = 1):
+        self.folder = os.path.split(metadata_file)[0]
+        self.meta = parse_metadata(metadata_file)
+        self.num_cols = num_cols
+        self.seed = seed
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        self.size = len(self.meta)
+        # each anchor's negative pool: the complement of positives | nonnegatives
+        self._neg_pool = [np.array([i for i in range(self.size)
+                                    if i not in m.positives | m.nonnegatives], dtype=np.int64)
+                          for m in self.meta]
+
+    def epoch_order(self, epoch: int) -> np.ndarray:
+        """Deterministic global permutation for this epoch, sliced per shard."""
+        order = np.random.RandomState((self.seed, epoch)).permutation(self.size)
+        return order[self.shard_index::self.num_shards]
+
+    def sample_triplet_indices(self, anchor: int, rng: np.random.RandomState
+                               ) -> Tuple[int, int]:
+        positives = sorted(self.meta[anchor].positives)
+        positive = positives[rng.randint(len(positives))]
+        pool = self._neg_pool[anchor]
+        return positive, int(pool[rng.randint(len(pool))])
+
+    def load_processed(self, i: int, num_points: int, rng: np.random.RandomState,
+                       crop_radius: float = 20.0) -> np.ndarray:
+        cloud = load_point_cloud(os.path.join(self.folder, self.meta[i].fname),
+                                 num_cols=self.num_cols)
+        return crop_and_resample(cloud, num_points, rng, crop_radius)
+
+    def epoch_triplets(self, epoch: int, batch_size: int, num_points: int,
+                       crop_radius: float = 20.0
+                       ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """(anchors, positives, negatives) batches of (batch_size, num_points,
+        num_cols); the ragged tail is dropped."""
+        order = self.epoch_order(epoch)
+        rng = np.random.RandomState((self.seed, epoch, self.shard_index, 0xA5))
+        batch_a, batch_p, batch_n = [], [], []
+        for anchor in order:
+            pos, neg = self.sample_triplet_indices(int(anchor), rng)
+            batch_a.append(self.load_processed(int(anchor), num_points, rng, crop_radius))
+            batch_p.append(self.load_processed(pos, num_points, rng, crop_radius))
+            batch_n.append(self.load_processed(neg, num_points, rng, crop_radius))
+            if len(batch_a) == batch_size:
+                yield np.stack(batch_a), np.stack(batch_p), np.stack(batch_n)
+                batch_a, batch_p, batch_n = [], [], []
+
+
+def crop_and_resample(cloud: np.ndarray, num_points: int, rng: np.random.RandomState,
+                      crop_radius: float = 20.0) -> np.ndarray:
+    """Crop to the radius, then an exact-size random resample."""
+    cloud = cloud[np.sum(np.square(cloud[:, :3]), axis=1) <= crop_radius * crop_radius]
+    n = cloud.shape[0]
+    if n == 0:
+        raise ValueError("empty cloud after crop")
+    if n <= num_points:
+        return np.concatenate([cloud, cloud[rng.choice(n, size=num_points - n, replace=True)]])
+    return cloud[rng.choice(n, size=num_points, replace=False)]
+
+
+def prefetch(iterator: Iterator, depth: int = 2,
+             transform: Optional[Callable] = None) -> Iterator:
+    """Run `iterator` (and `transform` on each item, e.g. the host-to-device
+    copy) in a background thread, `depth` items ahead."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    err: List[BaseException] = []
+
+    def worker():
+        try:
+            for item in iterator:
+                q.put(transform(item) if transform is not None else item)
+        except BaseException as e:  # handed to the consumer, which re-raises it
+            err.append(e)
+        finally:
+            q.put(sentinel)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            if err:
+                raise err[0]
+            return
+        yield item

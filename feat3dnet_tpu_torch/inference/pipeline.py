@@ -43,6 +43,7 @@ from feat3dnet_tpu_torch.ops.hash_grid import (SortedCloud, ball_max_sorted,
                                                estimate_ball_points)
 from feat3dnet_tpu_torch.ops.nms import nms_keypoints, select_keypoints
 from feat3dnet_tpu_torch.utils.convert import load_variables, variables_from_module
+from feat3dnet_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -58,9 +59,9 @@ class InferencePipeline:
 
     model: the port's Feat3DNet. variables: a flax-layout variable tree to
     load into it (e.g. utils.load_variables_npz), or None to keep the
-    model's own weights. device: where the passes run (default: where the
-    model's parameters are). `timings` holds the last extract's host sort
-    and total seconds.
+    model's own weights. device: where the passes run, `cuda` unless the
+    caller names another (raises without a CUDA device). `timings` holds
+    the last extract's host sort and total seconds.
     """
 
     def __init__(self, model: Feat3DNet, variables: Optional[Dict[str, Any]],
@@ -68,8 +69,7 @@ class InferencePipeline:
                  device: Optional[torch.device] = None):
         if variables is not None:
             load_variables(model, variables)
-        self.device = torch.device(device) if device is not None else next(
-            model.parameters()).device
+        self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.mcfg = model_cfg
         self.icfg = infer_cfg

@@ -19,19 +19,21 @@ from feat3dnet_tpu_torch.ops.fused_describe import (folded_weights,
                                                     pack_clusters_lanes_torch,
                                                     transpose_folded_weights)
 from feat3dnet_tpu_torch.utils.convert import variables_from_module
+from feat3dnet_tpu_torch.utils.device import resolve_device
 
 
 class ClusterDescriptorServer:
-    """Holds the model and its folded kernel weights for repeated calls."""
+    """Holds the model and its folded kernel weights for repeated calls.
 
-    def __init__(self, model: Feat3DNet):
-        self.model = model.eval()
+    device: where it serves, `cuda` unless the caller names another
+    (raises without a CUDA device); the model is moved there."""
+
+    def __init__(self, model: Feat3DNet,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
         self.cfg = model.cfg
         self._weights_t: Optional[List[torch.Tensor]] = None
-
-    @property
-    def device(self) -> torch.device:
-        return next(self.model.parameters()).device
 
     def _kernel_weights_t(self) -> List[torch.Tensor]:
         if self._weights_t is None:

@@ -13,7 +13,7 @@ machine without nvcc. A missing nvcc or a failed build raises.
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()` after the launch; `check` raises on a non-zero code.
 The op wrappers (ops/fps.py, ops/batch_group.py, ops/fused_describe.py,
-ops/hash_grid.py) validate tensors, allocate outputs and count launches; the `launch_*`
+ops/hash_grid.py, ops/fused_train.py) validate tensors, allocate outputs and count launches; the `launch_*`
 functions below only pass pointers.
 """
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("fps.cu", "ball_query.cu", "fused_describe.cu", "sorted_ball_query.cu",
-           "ball_max.cu", "fused_detect.cu")
+           "ball_max.cu", "fused_detect.cu", "fused_train.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -147,6 +147,21 @@ def library() -> ctypes.CDLL:
     # r, r2, out, stream
     lib.f3d_fused_detect.argtypes = [_P, _I, _I, _P, _P, _I, _I, _F, _F, _P, _P]
     lib.f3d_fused_detect.restype = _I
+    # x, ns, gp, g_total, cin0, weights, convs (host int32 (n, 9)), n, nblk,
+    # part, stream
+    lib.f3d_train_stats.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P]
+    lib.f3d_train_stats.restype = _I
+    # x, ns, gp, cin0, weights, convs, n, nblk, pooled, stream
+    lib.f3d_train_final.argtypes = [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P]
+    lib.f3d_train_final.restype = _I
+    # x, ns, gp, cin0, weights, convs, n, vecs (host int32), nblk, dpool, part, stream
+    lib.f3d_train_bwd_top.argtypes = [_P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P]
+    lib.f3d_train_bwd_top.restype = _I
+    # x, ns, gp, g_total, cin0, weights, convs, n, vecs, nblk, is_top, src,
+    # src_bf16, dw_part, db_part, out, out_bf16, bst_part|NULL, stream
+    lib.f3d_train_bwd.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _I, _P,
+                                  _P, _P, _I, _P, _P]
+    lib.f3d_train_bwd.restype = _I
     return lib
 
 
@@ -221,3 +236,41 @@ def launch_fused_detect(clusters, weights, layers, n_det, n_det2, r, r2, out) ->
         check(library().f3d_fused_detect(
             _ptr(clusters), ns, b, _ptr(weights), _ptr(layers), n_det, n_det2, r, r2,
             _ptr(out), _stream(clusters)), "fused_detect")
+
+
+def launch_train_stats(x, g_total, wts, convs, nblk, part) -> None:
+    """convs: host int32 (n, 9) table of (cin, cout, relu, poolcat, w, wt, b, a, c)."""
+    ns, gp, cin0 = x.shape
+    with torch.cuda.device(x.device):
+        check(library().f3d_train_stats(
+            _ptr(x), ns, gp, g_total, cin0, _ptr(wts), _ptr(convs), convs.shape[0], nblk,
+            _ptr(part), _stream(x)), "train_stats")
+
+
+def launch_train_final(x, wts, convs, nblk, pooled) -> None:
+    ns, gp, cin0 = x.shape
+    with torch.cuda.device(x.device):
+        check(library().f3d_train_final(
+            _ptr(x), ns, gp, cin0, _ptr(wts), _ptr(convs), convs.shape[0], nblk,
+            _ptr(pooled), _stream(x)), "train_final")
+
+
+def launch_train_bwd_top(x, wts, convs, vecs, nblk, dpool, part) -> None:
+    """vecs: host int32 offsets of (mu, isig) in wts."""
+    ns, gp, cin0 = x.shape
+    with torch.cuda.device(x.device):
+        check(library().f3d_train_bwd_top(
+            _ptr(x), ns, gp, cin0, _ptr(wts), _ptr(convs), convs.shape[0], _ptr(vecs), nblk,
+            _ptr(dpool), _ptr(part), _stream(x)), "train_bwd_top")
+
+
+def launch_train_bwd(x, g_total, wts, convs, vecs, nblk, is_top, src, dw_part, db_part,
+                     out, bst_part) -> None:
+    """vecs: host int32 offsets of (mu, isig, m1, m2, ga, mu_p, isig_p)."""
+    ns, gp, cin0 = x.shape
+    with torch.cuda.device(x.device):
+        check(library().f3d_train_bwd(
+            _ptr(x), ns, gp, g_total, cin0, _ptr(wts), _ptr(convs), convs.shape[0],
+            _ptr(vecs), nblk, int(is_top), _ptr(src), int(src.dtype == torch.bfloat16),
+            _ptr(dw_part), _ptr(db_part), _ptr(out), int(out.dtype == torch.bfloat16),
+            _ptr(bst_part), _stream(x)), "train_bwd")

@@ -1,6 +1,6 @@
 """Feat3DNet detector + descriptor (port of feat3dnet_tpu/models/feat3dnet.py).
 
-Eval forward only in this slice:
+Eval and training forward:
 * detector: FPS centres -> radius neighbourhoods (first ns in index order,
   repeat-pad, nearest fallback) centred and radius-normalised -> shared
   MLP -> max pool -> MLP -> attention logaddexp(x, 0) and orientation
@@ -9,8 +9,12 @@ Eval forward only in this slice:
   z-orientation -> MLP -> max pool -> [pointwise | pooled] -> MLP (last
   layer BN, no ReLU) -> max pool -> MLP (no ReLU) -> L2 normalise.
 
-On CUDA tensors FPS and the ball query run kernels K1 and K2; the tower
-products are torch matmuls (the JAX package leaves them to XLA).
+Training (`training=True`) takes flax BatchNorm's batch moments and writes
+their EMA into the BN buffers. With `cfg.fused_towers` (f32) the pre-pool
+segments of both towers run through ops/fused_train.tower_prepool_fused
+(kernels K7-K10 on CUDA), otherwise through torch autograd over `ConvBN`.
+On CUDA tensors FPS and the ball query run kernels K1 and K2; the other
+tower products are torch matmuls (the JAX package leaves them to XLA).
 Module attribute names are the flax scope names ('detection',
 'description', 'conv0', ...) so the weight bridge is mechanical.
 """
@@ -26,6 +30,8 @@ from feat3dnet_tpu_torch.config import ModelConfig
 from feat3dnet_tpu_torch.models.layers import ConvBN, l2_normalize
 from feat3dnet_tpu_torch.ops import (ball_query, farthest_point_sample,
                                      gather_points, group_points)
+from feat3dnet_tpu_torch.ops.fused_train import (descriptor_plan, detector_plan,
+                                                 tower_prepool_fused)
 
 
 @dataclasses.dataclass
@@ -66,7 +72,8 @@ def _convs(module: nn.Module, prefix: str, cin: int, widths, cfg: ModelConfig,
         act = torch.relu if (final_act or i < len(widths) - 1) else None
         module.add_module(f"{prefix}{i}", ConvBN(cin, f, use_bn=cfg.use_bn,
                                                  activation=act,
-                                                 bn_epsilon=cfg.bn_epsilon))
+                                                 bn_epsilon=cfg.bn_epsilon,
+                                                 bn_momentum=cfg.bn_momentum))
         cin = f
     return cin
 
@@ -76,6 +83,37 @@ def _run(module: nn.Module, prefix: str, n: int, x: torch.Tensor,
     for i in range(n):
         x = getattr(module, f"{prefix}{i}")(x, training)
     return x
+
+
+def _use_fused_towers(cfg: ModelConfig, training: bool) -> bool:
+    """The fused tower pipeline applies to f32 training only."""
+    if training and (cfg.remat_towers or cfg.residual_dtype is not None):
+        raise NotImplementedError(
+            "remat_towers / residual_dtype are TPU-era memory modes that the port does "
+            "not have (ROADMAP.md, slice 3, not ported)")
+    use = cfg.fused_towers and training and cfg.compute_dtype == torch.float32
+    if use and not cfg.use_bn:
+        raise ValueError("fused_towers needs use_bn=True (the kernels train ConvBN)")
+    return use
+
+
+def _fused_prepool(module: nn.Module, grouped: torch.Tensor, names, plan,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """A tower's pre-pool segment through tower_prepool_fused: (B, M, ns, C)
+    grouped -> (B, M, 1, C_top) pooled. The parameters and BN buffers are
+    the ConvBN layers' own; their EMA takes the pipeline's batch moments."""
+    b, m, ns, cin = grouped.shape
+    blocks = [getattr(module, nm) for nm in names]
+    flat = []
+    for blk in blocks:
+        flat += [blk.conv2d.weight.t(), blk.conv2d.bias, blk.bn.scale, blk.bn.bias]
+    x_sm = grouped.to(torch.float32).permute(2, 0, 1, 3).reshape(ns, b * m, cin).contiguous()
+    pooled, (means, vars_) = tower_prepool_fused(
+        x_sm, flat, plan, [blk.conv2d.out_features for blk in blocks], ns, b * m,
+        cfg.bn_epsilon, cfg.fused_cot_dtype)
+    for blk, mean, var in zip(blocks, means, vars_):
+        blk.bn.update_stats(mean, var)
+    return pooled.reshape(b, m, 1, -1)
 
 
 class Detector(nn.Module):
@@ -92,8 +130,13 @@ class Detector(nn.Module):
     def forward(self, grouped: torch.Tensor, training: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        x = _run(self, "conv", len(cfg.detector_mlp), grouped, training)
-        x = torch.amax(x, dim=2, keepdim=True)                    # pool over samples
+        n = len(cfg.detector_mlp)
+        if _use_fused_towers(cfg, training):
+            x = _fused_prepool(self, grouped, [f"conv{i}" for i in range(n)],
+                               detector_plan(n), cfg)
+        else:
+            x = _run(self, "conv", n, grouped, training)
+            x = torch.amax(x, dim=2, keepdim=True)                # pool over samples
         x = _run(self, "conv_post_", len(cfg.detector_mlp2), x, training)
         att = self.attention(x)[..., 0, 0]
         attention = torch.logaddexp(att, torch.zeros((), dtype=att.dtype,
@@ -115,17 +158,23 @@ class Descriptor(nn.Module):
 
     def forward(self, grouped: torch.Tensor, training: bool = False) -> torch.Tensor:
         cfg = self.cfg
-        h = _run(self, "conv", len(cfg.descriptor_mlp), grouped, training)
-        pooled = torch.amax(h, dim=2, keepdim=True).expand_as(h)
-        h = torch.cat([h, pooled], dim=-1)
-        h = _run(self, "conv_mid_", len(cfg.descriptor_mlp2), h, training)
-        x = torch.amax(h, dim=2, keepdim=True)
+        n_pre, n_mid = len(cfg.descriptor_mlp), len(cfg.descriptor_mlp2)
+        if _use_fused_towers(cfg, training):
+            names = [f"conv{i}" for i in range(n_pre)] + [f"conv_mid_{i}" for i in range(n_mid)]
+            x = _fused_prepool(self, grouped, names, descriptor_plan(n_pre, n_mid), cfg)
+        else:
+            h = _run(self, "conv", n_pre, grouped, training)
+            pooled = torch.amax(h, dim=2, keepdim=True).expand_as(h)
+            h = torch.cat([h, pooled], dim=-1)
+            h = _run(self, "conv_mid_", n_mid, h, training)
+            x = torch.amax(h, dim=2, keepdim=True)
         x = _run(self, "conv_post_", len(cfg.descriptor_mlp3), x, training)
         return l2_normalize(x[..., 0, :], dim=-1, epsilon=1e-8)
 
 
 class Feat3DNet(nn.Module):
-    """Full model, eval forward.
+    """Full model; `training=True` uses batch moments and updates the BN
+    buffers (the caller differentiates the outputs).
 
     Call modes:
       * keypoints=None, cfg.num_clusters > 0 — FPS centres;

@@ -1,15 +1,22 @@
 """Shared-MLP building blocks (port of feat3dnet_tpu/models/layers.py).
 
 `ConvBN` is a per-point Dense (the reference's 1x1 conv2d) with its bias
-kept under BN, then eval-mode batch norm in flax's own op order, then the
+kept under BN, then batch norm with flax's semantics, then the
 activation. Submodule and variable names mirror the flax tree
 (`conv2d/{kernel,bias}`, `bn/{scale,bias}`, batch_stats `bn/{mean,var}`)
 so utils/convert.py maps them mechanically.
 
-`nn.BatchNorm*` is not used: its momentum runs the other way (flax's 0.9
-is torch's 0.1) and its eval formula rounds differently from flax's
-`(x - mean) * (rsqrt(var + eps) * scale) + bias`. Training-mode BN arrives
-with the training slice.
+BatchNorm follows flax.linen.BatchNorm in both modes:
+* eval: `(x - mean) * (rsqrt(var + eps) * scale) + bias` on the running
+  statistics;
+* training: the batch moments over every non-channel axis, with the fast
+  biased variance `max(0, mean(x^2) - mean(x)^2)`, the same normalise
+  formula (the loss differentiates through the moments), and the EMA
+  `ra = m * ra + (1 - m) * batch` (m = 0.9) written to the buffers
+  without grad.
+`nn.BatchNorm*` / `F.batch_norm` are not used: their momentum runs the
+other way (flax's 0.9 is torch's 0.1) and their running variance is the
+unbiased one.
 """
 from __future__ import annotations
 
@@ -19,39 +26,53 @@ import torch
 from torch import nn
 
 
-class EvalBatchNorm(nn.Module):
-    """flax BatchNorm at eval: params scale/bias, buffers mean/var."""
+class BatchNorm(nn.Module):
+    """flax BatchNorm: params scale/bias, buffers mean/var."""
 
-    def __init__(self, features: int, epsilon: float = 1e-3):
+    def __init__(self, features: int, epsilon: float = 1e-3, momentum: float = 0.9):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        return (x - self.mean) * mul + self.bias
+    @torch.no_grad()
+    def update_stats(self, batch_mean: torch.Tensor, batch_var: torch.Tensor) -> None:
+        """flax's EMA of the batch moments into the running statistics."""
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1.0 - m) * batch_mean)
+        self.var.copy_(m * self.var + (1.0 - m) * batch_var)
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        if not training:
+            mul = torch.rsqrt(self.var + self.epsilon) * self.scale
+            return (x - self.mean) * mul + self.bias
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=axes)
+        mean2 = (x * x).mean(dim=axes)
+        var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
+        self.update_stats(mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return (x - mean) * mul + self.bias
 
 
 class ConvBN(nn.Module):
-    """Dense (= 1x1 conv) + optional eval BN + activation (after BN)."""
+    """Dense (= 1x1 conv) + optional BN + activation (after BN)."""
 
     def __init__(self, cin: int, features: int, use_bn: bool = True,
                  activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = torch.relu,
-                 bn_epsilon: float = 1e-3):
+                 bn_epsilon: float = 1e-3, bn_momentum: float = 0.9):
         super().__init__()
         self.conv2d = nn.Linear(cin, features)
-        self.bn = EvalBatchNorm(features, bn_epsilon) if use_bn else None
+        self.bn = BatchNorm(features, bn_epsilon, bn_momentum) if use_bn else None
         self.activation = activation
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
-        if training:
-            raise NotImplementedError("training-mode BN arrives with the training slice")
         x = self.conv2d(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, training)
         if self.activation is not None:
             x = self.activation(x)
         return x
@@ -61,3 +82,14 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, epsilon: float = 1e-8) -> torch
     """tf.nn.l2_normalize semantics: x * rsqrt(max(sum(x^2), epsilon))."""
     sq = torch.sum(x * x, dim=dim, keepdim=True)
     return x * torch.rsqrt(torch.clamp(sq, min=epsilon))
+
+
+def pairwise_sqdist_features(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, N, D) x (B, M, D) -> (B, N, M) squared L2 between descriptor sets:
+    the |a|^2 + |b|^2 - 2ab expansion clamped at 0 (safe for L2-normalised
+    descriptors), with jnp.maximum's even gradient split at the clamp."""
+    a2 = torch.sum(a * a, dim=-1, keepdim=True)
+    b2 = torch.sum(b * b, dim=-1)[..., None, :]
+    ab = torch.einsum("bnd,bmd->bnm", a, b)
+    d = a2 + b2 - 2.0 * ab
+    return torch.maximum(d, torch.zeros_like(d))

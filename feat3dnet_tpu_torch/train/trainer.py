@@ -1,0 +1,221 @@
+"""Train state, train steps and the epoch loop (port of
+feat3dnet_tpu/train/trainer.py).
+
+  * triplet concat: anchors, positives and negatives stacked on the batch
+    axis, one shared forward (shared BN moments across the three roles),
+    split in three for the loss;
+  * Adam (b1 0.9, b2 0.999, eps 1e-8) at a fixed lr or optax's
+    warmup-cosine schedule, counted in optimiser updates;
+  * `freeze_scopes`: those top-level scopes are left out of the optimiser;
+    their BN buffers still take the EMA, as in the JAX step;
+  * the fused step takes one stacked (3B, N, 3) batch and augments it on
+    the device from a generator seeded by (aug_seed, step).
+
+Everything runs where the state's model lies; `Trainer` and `init_state`
+put it on `cuda` unless the caller names another device. The JAX package's
+chained (scan) step, int16 upload and device histograms are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from feat3dnet_tpu_torch.config import ModelConfig, TrainConfig
+from feat3dnet_tpu_torch.data.augment import augment_clouds
+from feat3dnet_tpu_torch.models.feat3dnet import Feat3DNet
+from feat3dnet_tpu_torch.train.loss import alignment_triplet_loss
+from feat3dnet_tpu_torch.utils.convert import load_variables
+from feat3dnet_tpu_torch.utils.device import resolve_device
+from feat3dnet_tpu_torch.utils.init import init_variables
+
+Schedule = Callable[[int], float]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """step: train steps taken. count: optimiser updates taken, the lr
+    schedule's count (both restore with a checkpoint)."""
+
+    step: int
+    model: Feat3DNet
+    optimizer: torch.optim.Adam
+    schedule: Schedule
+    count: int = 0
+
+
+def cosine_schedule(learning_rate: float, warmup_steps: int, decay_steps: int,
+                    end_lr_ratio: float = 0.0) -> Schedule:
+    """optax.warmup_cosine_decay_schedule as make_optimizer builds it: from 0
+    (or from the peak without warmup) linearly to the peak over
+    warmup_steps, then cosine decay to peak * end_lr_ratio at decay_steps."""
+    init = 0.0 if warmup_steps > 0 else learning_rate
+    end = learning_rate * end_lr_ratio
+    alpha = 0.0 if learning_rate == 0.0 else end / learning_rate
+    span = decay_steps - warmup_steps
+
+    def lr(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - count / warmup_steps
+            return (init - learning_rate) * frac + learning_rate
+        t = min(count - warmup_steps, span)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / span))
+        return learning_rate * ((1.0 - alpha) * cosine + alpha)
+
+    return lr
+
+
+def _frozen(name: str, freeze_scopes: Optional[Sequence[str]]) -> bool:
+    scope = name.split(".")[0]
+    return bool(freeze_scopes) and any(scope == s or scope.startswith(s) for s in freeze_scopes)
+
+
+def make_optimizer(model: torch.nn.Module, learning_rate: float = 1e-5,
+                   freeze_scopes: Optional[Sequence[str]] = None,
+                   lr_schedule: str = "constant", warmup_steps: int = 0,
+                   decay_steps: int = 0, end_lr_ratio: float = 0.0
+                   ) -> Tuple[torch.optim.Adam, Schedule]:
+    """Adam over the parameters outside `freeze_scopes`, and the lr per
+    optimiser update: 'constant' or 'cosine' (see cosine_schedule)."""
+    if lr_schedule == "cosine":
+        if decay_steps <= 0:
+            raise ValueError("cosine lr_schedule needs decay_steps > 0")
+        schedule = cosine_schedule(learning_rate, warmup_steps, decay_steps, end_lr_ratio)
+    elif lr_schedule == "constant":
+        def schedule(count: int) -> float:
+            return learning_rate
+    else:
+        raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
+    params = [p for n, p in model.named_parameters() if not _frozen(n, freeze_scopes)]
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8), schedule
+
+
+def init_state(model: Feat3DNet, cfg: TrainConfig, model_cfg: ModelConfig, seed: int = 0,
+               variables: Optional[Mapping[str, Any]] = None, device=None,
+               decay_steps: Optional[int] = None) -> TrainState:
+    """Weights from `variables` (a flax-layout tree, e.g. the JAX init through
+    the bridge) or utils/init.py's seeded init; the model on `device`
+    (`cuda` unless named); Adam from `cfg` (decay_steps overrides cfg's)."""
+    load_variables(model, variables if variables is not None
+                   else init_variables(model_cfg, seed=seed))
+    model.to(resolve_device(device))
+    opt, schedule = make_optimizer(
+        model, cfg.learning_rate, cfg.freeze_scopes, cfg.lr_schedule, cfg.warmup_steps,
+        cfg.decay_steps if decay_steps is None else decay_steps)
+    return TrainState(step=0, model=model, optimizer=opt, schedule=schedule)
+
+
+def _train_core(state: TrainState, clouds: torch.Tensor, margin: float,
+                use_attention: bool) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    model = state.model
+    model.zero_grad(set_to_none=True)
+    out = model(clouds, training=True)
+    a_feat, p_feat, n_feat = torch.chunk(out.features, 3, dim=0)
+    a_att = torch.chunk(out.attention, 3, dim=0)[0] if use_attention else None
+    loss, aux = alignment_triplet_loss(a_feat, p_feat, n_feat, a_att, margin)
+    loss.backward()
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.schedule(state.count)
+    state.optimizer.step()
+    state.count += 1
+    state.step += 1
+    return state, {"loss": loss.detach(), "sum_positive": aux["sum_positive"].mean().detach(),
+                   "sum_negative": aux["sum_negative"].mean().detach()}
+
+
+def make_train_step(model: Feat3DNet, margin: float, use_attention: bool) -> Callable:
+    """step(state, anchors, positives, negatives) -> (state, metrics), each
+    (B, N, >=3) on the model's device; state is updated in place."""
+
+    def step(state: TrainState, anchors, positives, negatives):
+        if state.model is not model:
+            raise ValueError("train step: the state holds another model")
+        clouds = torch.cat([anchors, positives, negatives], dim=0)[..., :3]
+        return _train_core(state, clouds.contiguous(), margin, use_attention)
+
+    return step
+
+
+def aug_generator(device: torch.device, aug_seed: int, step: int) -> torch.Generator:
+    """The augmentation generator of one step: seeded by (aug_seed, step), so
+    a resumed run draws what an uninterrupted one would."""
+    return torch.Generator(device=device).manual_seed(
+        (aug_seed * 0x9E3779B97F4A7C15 + step) % (1 << 63))
+
+
+def make_fused_train_step(model: Feat3DNet, margin: float, use_attention: bool,
+                          augmentations: Optional[Sequence[str]] = None,
+                          aug_seed: int = 0) -> Callable:
+    """step(state, clouds) with clouds the stacked (3B, N, >=3) batch,
+    anchors | positives | negatives, augmented on its device first."""
+
+    def step(state: TrainState, clouds: torch.Tensor):
+        if state.model is not model:
+            raise ValueError("train step: the state holds another model")
+        clouds = clouds[..., :3]
+        if augmentations:
+            clouds = augment_clouds(aug_generator(clouds.device, aug_seed, state.step),
+                                    clouds, augmentations)
+        return _train_core(state, clouds.contiguous(), margin, use_attention)
+
+    return step
+
+
+def stack_triplet(batch, device) -> torch.Tensor:
+    """(anchors, positives, negatives) host arrays -> the stacked (3B, N, 3)
+    float32 batch on `device` (the prefetch thread's host-to-device copy)."""
+    a, p, n = batch
+    stacked = np.concatenate([a[..., :3], p[..., :3], n[..., :3]], axis=0)
+    return torch.from_numpy(np.ascontiguousarray(stacked, np.float32)).to(device)
+
+
+class Trainer:
+    """The epoch loop: the fused step over a triplet iterator, with the
+    batch stacked and copied to the device by the prefetch thread.
+
+    augmentations: resolved names applied on the device inside the step
+    (generator per (seed + 1, step)); None trains on the batches as given.
+    device: `cuda` unless the caller names another (raises without one).
+    """
+
+    def __init__(self, model: Feat3DNet, model_cfg: ModelConfig, train_cfg: TrainConfig,
+                 log_fn=None, augmentations: Optional[Sequence[str]] = None, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.model_cfg = model_cfg
+        self.train_cfg = train_cfg
+        self.step_fn = make_fused_train_step(
+            model, model_cfg.margin, model_cfg.attention,
+            augmentations=tuple(augmentations) if augmentations else None,
+            aug_seed=train_cfg.seed + 1)
+        self.log = log_fn or (lambda *a, **k: None)
+
+    def init(self, seed: int = 0, variables: Optional[Mapping[str, Any]] = None) -> TrainState:
+        return init_state(self.model, self.train_cfg, self.model_cfg, seed, variables,
+                          self.device)
+
+    def fit(self, state: TrainState, data_iter, num_steps: int,
+            hooks: Optional[Dict[int, Callable]] = None):
+        """Run up to `num_steps` steps; hooks maps a period to fn(state, metrics)."""
+        from feat3dnet_tpu_torch.data.datagenerator import prefetch
+
+        hooks = hooks or {}
+        metrics = None
+
+        def take(it, n):
+            for _ in range(n):
+                batch = next(it, None)
+                if batch is None:
+                    return
+                yield batch
+
+        for clouds in prefetch(take(iter(data_iter), num_steps),
+                               transform=lambda b: stack_triplet(b, self.device)):
+            state, metrics = self.step_fn(state, clouds)
+            for period, fn in hooks.items():
+                if state.step % period == 0:
+                    fn(state, metrics)
+        return state, metrics

@@ -10,7 +10,10 @@ FPS, the ball query, the sorted ball query (K4) and the ball max (K5)
 must be index-exact; the fused describe kernel within max |d| 1e-4 and
 attention relative 1e-4, the detector-only kernel (K6) within attention
 relative 1e-5 and orientation 1e-5 rad (f32 products summed in another
-order than the plain version's). TF32 is off.
+order than the plain version's), the training passes K7-K10 within the
+tolerances of tests/test_fused_train.py (means rtol 1e-5, pooled 1e-4,
+dW / dgamma / dbeta rtol 5e-3 with atol 5e-4 max|ref|, db atol 1e-3, dx
+rtol 5e-3 / atol 5e-5), and bit-equal across two runs. TF32 is off.
 """
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 from feat3dnet_tpu_torch.config import ModelConfig
 from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
 from feat3dnet_tpu_torch.ops import fused_describe as tfd
+from feat3dnet_tpu_torch.ops import fused_train as tft
 from feat3dnet_tpu_torch.ops import hash_grid as thg
 from feat3dnet_tpu_torch.ops.batch_group import ball_query_fused
 from feat3dnet_tpu_torch.ops.fps import (farthest_point_sample,
@@ -134,3 +138,95 @@ def test_fused_detect_kernel_matches_plain(dev, rs):
     assert ((ak - ap).abs() / ap.abs().clamp(min=1e-6)).max().item() <= 1e-5
     d = ok - op
     assert ((d + np.pi) % (2 * np.pi) - np.pi).abs().max().item() <= 1e-5
+
+
+def _tower_case(rs, dev, plan_kind, g_total, gp, ns=16):
+    if plan_kind == "detector":
+        widths = (8, 16, 32)
+        plan = tft.detector_plan(3)
+    else:
+        widths = (8, 16, 24, 16)
+        plan = tft.descriptor_plan(2, 2)
+    x = rs.randn(ns, gp, 3).astype(np.float32)
+    x[ns // 2:, :g_total // 2] = x[0:1, :g_total // 2]      # repeat-pad ties
+    flat = []
+    for ci, co in tft.plan_conv_widths(plan, widths, 3):
+        flat += [rs.randn(ci, co) * 0.4, rs.randn(co) * 0.1, 1 + 0.2 * rs.randn(co),
+                 0.1 * rs.randn(co)]
+    flat = [torch.from_numpy(np.asarray(f, np.float32)).to(dev) for f in flat]
+    return torch.from_numpy(x).to(dev), plan, widths, flat
+
+
+def _close(got, want, rtol, atol_rel=None, atol=0.0):
+    if atol_rel is not None:
+        atol = atol_rel * max(want.abs().max().item(), 1e-3)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("plan_kind,g_total,gp", [("detector", 96, 96), ("detector", 80, 96),
+                                                  ("descriptor", 80, 96)])
+@pytest.mark.parametrize("cot", [torch.float32, torch.bfloat16])
+def test_train_passes_match_plain(dev, rs, plan_kind, g_total, gp, cot):
+    x, plan, widths, flat = _tower_case(rs, dev, plan_kind, g_total, gp)
+    ns, n = x.shape[0], len(widths)
+    count = float(ns * g_total)
+    folded, means, isigs = [], [], []
+    for j in range(n):
+        w, b, g, be = flat[4 * j:4 * j + 4]
+        st_k = tft.stats_pass(x, plan, folded, w, b, g_total)
+        st_p = tft.stats_pass.plain(x, plan, folded, w, b, g_total)
+        _close(st_k[0] / count, st_p[0] / count, 1e-5, atol=1e-6)
+        _close(st_k[1] / count, st_p[1] / count, 1e-5, atol=1e-6)
+        mean, var, a, c, isig = tft._finalize_stats(st_p, count, g, be, 1e-3)
+        folded.append((w, b, a, c))
+        means.append(mean)
+        isigs.append(isig)
+    pk, pp = tft.final_pass(x, plan, folded), tft.final_pass.plain(x, plan, folded)
+    assert (pk[:g_total] - pp[:g_total]).abs().max().item() <= 1e-4
+    dpool = torch.from_numpy(rs.randn(gp, widths[-1]).astype(np.float32)).to(dev)
+    dpool[g_total:] = 0.0
+    bk = tft.bwd_top_pass(x, plan, folded, means[-1], isigs[-1], dpool)
+    bp = tft.bwd_top_pass.plain(x, plan, folded, means[-1], isigs[-1], dpool)
+    _close(bk, bp, 5e-3, atol_rel=5e-4)
+    src, bst = dpool, bp
+    for j in range(n - 1, -1, -1):
+        args = (x, plan, folded[:j + 1], means[j], isigs[j], src, bst[0] / count,
+                bst[1] / count, flat[4 * j + 2] * isigs[j], means[j - 1] if j else None,
+                isigs[j - 1] if j else None, g_total, cot)
+        dw_k, db_k, out_k, bst_k = tft.bwd_pass(*args)
+        dw_p, db_p, out_p, bst_p = tft.bwd_pass.plain(*args)
+        again = tft.bwd_pass(*args)
+        assert torch.equal(again[0], dw_k) and torch.equal(again[2], out_k)
+        _close(dw_k, dw_p, 5e-3, atol_rel=5e-4)
+        _close(db_k, db_p, 0.0, atol=1e-3)
+        if j > 0:
+            assert out_k.dtype == cot
+            # the cotangent type's rounding: one step of it either way
+            _close(out_k, out_p, 8e-3 if cot == torch.bfloat16 else 5e-3, atol=5e-5)
+            _close(bst_k, bst_p, 5e-3, atol_rel=5e-4)
+            src, bst = out_p, bst_p
+        else:
+            _close(out_k, out_p, 5e-3, atol=5e-5)
+            assert not out_k[:, g_total:].any()
+
+
+def test_train_tower_autograd_matches_cpu(dev, rs):
+    """tower_prepool_fused on the card (K7-K10 inside the autograd Function)
+    against the same function on the CPU (the plain passes)."""
+    x, plan, widths, flat = _tower_case(rs, dev, "descriptor", 80, 96)
+    lw = torch.from_numpy(rs.randn(80, widths[-1]).astype(np.float32))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xs = x.detach().to(d, copy=True).requires_grad_(True)
+        fs = [f.detach().to(d, copy=True).requires_grad_(True) for f in flat]
+        pooled, (means, _) = tft.tower_prepool_fused(xs, fs, plan, widths, 16, 80, 1e-3,
+                                                     torch.float32)
+        (pooled[:80] * lw.to(d)).sum().backward()
+        grads.append([xs.grad.cpu()] + [f.grad.cpu() for f in fs] + [means[-1].cpu()])
+    _close(grads[0][0], grads[1][0], 5e-3, atol=5e-5)
+    for i, (a, b) in enumerate(zip(grads[0][1:-1], grads[1][1:-1])):
+        if i % 4 == 1:
+            _close(a, b, 0.0, atol=1e-3)
+        else:
+            _close(a, b, 5e-3, atol_rel=5e-4)
+    _close(grads[0][-1], grads[1][-1], 1e-5, atol=1e-6)

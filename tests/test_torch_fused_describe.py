@@ -120,7 +120,7 @@ def test_server_matches_jax_server(rng):
     jmodel, v, clusters = _setup(rng, SMALL, b=12)
     jcfg, tcfg = JaxModelConfig(**SMALL), ModelConfig(**SMALL)
     jd, ja = JaxServer(jmodel, v, jcfg)(clusters)
-    server = ClusterDescriptorServer(load_variables(Feat3DNet(tcfg), v))
+    server = ClusterDescriptorServer(load_variables(Feat3DNet(tcfg), v), device="cpu")
     td, ta = server(clusters)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-4, atol=1e-5)
@@ -131,11 +131,13 @@ def test_server_matches_jax_server(rng):
 
 def test_describe_packed_asserts_its_contract(rng):
     cfg = ModelConfig(**SMALL)
-    server = ClusterDescriptorServer(load_variables(Feat3DNet(cfg), init_variables(cfg)))
+    server = ClusterDescriptorServer(load_variables(Feat3DNet(cfg), init_variables(cfg)),
+                                     device="cpu")
     with pytest.raises(ValueError):
         server.describe_packed(np.zeros((8 * 4, 3), np.float32))      # ns 4 != 8
     nobn = ModelConfig(**SMALL, use_bn=False)
-    server = ClusterDescriptorServer(load_variables(Feat3DNet(nobn), init_variables(nobn)))
+    server = ClusterDescriptorServer(load_variables(Feat3DNet(nobn), init_variables(nobn)),
+                                     device="cpu")
     with pytest.raises(ValueError):
         server.describe_packed(np.zeros((8 * 8, 3), np.float32))
     d, a = server(_mixed_clusters(rng, 12, 8))             # no-BN: the model path

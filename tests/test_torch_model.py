@@ -130,11 +130,26 @@ def test_init_variables_has_the_flax_tree(use_bn):
     load_variables(Feat3DNet(ModelConfig(**kw)), ours)
 
 
-def test_training_mode_waits_for_its_slice(rng):
-    model = load_variables(Feat3DNet(ModelConfig(**SMALL, num_clusters=4)),
-                           init_variables(ModelConfig(**SMALL, num_clusters=4)))
-    with pytest.raises(NotImplementedError):
-        model(torch.from_numpy(rng.randn(1, 20, 3).astype(np.float32)), training=True)
+def test_training_mode_matches_jax(rng):
+    """training=True: batch moments, the EMA into the BN buffers, outputs as
+    JAX's apply(training=True, mutable=['batch_stats'])."""
+    cloud = (rng.randn(2, 96, 3) * 2.0).astype(np.float32)
+    kw = dict(SMALL, num_clusters=12)
+    jmodel, v = _jax_variables(kw, cloud)
+    want, mut = jmodel.apply(v, jnp.asarray(cloud), training=True, mutable=["batch_stats"])
+    model = load_variables(Feat3DNet(ModelConfig(**kw)), jax.tree.map(np.asarray, v))
+    before = model.detection.conv0.bn.mean.clone()
+    got = model(torch.from_numpy(cloud), training=True)
+    np.testing.assert_allclose(got.features.detach().numpy(), np.asarray(want.features),
+                               rtol=1e-4, atol=1e-5)
+    assert not torch.equal(before, model.detection.conv0.bn.mean)
+    for scope in ("detection", "description"):
+        stats = mut["batch_stats"][scope]["conv1"]["bn"]
+        bn = getattr(model, scope).conv1.bn
+        np.testing.assert_allclose(bn.mean.numpy(), np.asarray(stats["mean"]), rtol=1e-4,
+                                   atol=1e-6)
+        np.testing.assert_allclose(bn.var.numpy(), np.asarray(stats["var"]), rtol=1e-4,
+                                   atol=1e-6)
 
 
 def test_registry():

@@ -20,7 +20,7 @@ import torch
 import feat3dnet_tpu_torch
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.config import ModelConfig
-from feat3dnet_tpu_torch.ops import batch_group, fps, fused_describe, hash_grid
+from feat3dnet_tpu_torch.ops import batch_group, fps, fused_describe, fused_train, hash_grid
 
 torch.set_num_threads(2)
 
@@ -36,6 +36,10 @@ WRAPPERS = {
     "ball_max": (hash_grid.ball_max_sorted, hash_grid.ball_max_plain),
     "fused_detect": (fused_describe.fused_detect_clusters,
                      fused_describe.fused_detect_clusters_plain),
+    "train_stats": (fused_train.stats_pass, fused_train.stats_pass_plain),
+    "train_final": (fused_train.final_pass, fused_train.final_pass_plain),
+    "train_bwd_top": (fused_train.bwd_top_pass, fused_train.bwd_top_pass_plain),
+    "train_bwd": (fused_train.bwd_pass, fused_train.bwd_pass_plain),
 }
 
 
@@ -85,6 +89,18 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_describe.fused_detect_clusters([], torch.empty(4, 64, 3, device=meta),
                                              ModelConfig())
+    x = torch.empty(8, 16, 3, device=meta)
+    w, b = torch.empty(3, 8, device=meta), torch.empty(8, device=meta)
+    plan = fused_train.detector_plan(1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_train.stats_pass(x, plan, [], w, b, 16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_train.final_pass(x, plan, [(w, b, b, b)])
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_train.bwd_top_pass(x, plan, [(w, b, b, b)], b, b, torch.empty(16, 8, device=meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_train.bwd_pass(x, plan, [(w, b, b, b)], b, b, torch.empty(16, 8, device=meta),
+                             b, b, b, None, None, 16)
 
 
 @pytest.mark.parametrize("source", kernels.SOURCES)
@@ -99,7 +115,9 @@ def test_kernel_sources_carry_their_note(source):
 def test_nothing_builds_at_import():
     code = ("import sys\n"
             "import feat3dnet_tpu_torch.inference, feat3dnet_tpu_torch.models, "
-            "feat3dnet_tpu_torch.utils, feat3dnet_tpu_torch.cli.infer\n"
+            "feat3dnet_tpu_torch.utils, feat3dnet_tpu_torch.cli.infer, "
+            "feat3dnet_tpu_torch.cli.train, feat3dnet_tpu_torch.train, "
+            "feat3dnet_tpu_torch.data, feat3dnet_tpu_torch.utils.checkpoint\n"
             "assert not {'jax', 'triton'} & set(sys.modules)\n"
             "from feat3dnet_tpu_torch import kernels\n"
             "assert kernels.build.cache_info().currsize == 0\n"
@@ -108,6 +126,13 @@ def test_nothing_builds_at_import():
     assert kernels.build_dir() == os.path.join(ROOT, "build", "feat3dnet_tpu_torch")
     for name in kernels.SOURCES + kernels.HEADERS:
         assert os.path.isfile(os.path.join(kernels.CSRC_DIR, name))
+
+
+def test_train_config_mirrors_jax():
+    from feat3dnet_tpu.config import TrainConfig as JaxTrainConfig
+    from feat3dnet_tpu_torch.config import TrainConfig
+
+    assert dataclasses.asdict(TrainConfig()) == dataclasses.asdict(JaxTrainConfig())
 
 
 def test_model_config_mirrors_jax():

@@ -71,7 +71,7 @@ def jax_setup():
 def _port(variables, **icfg):
     cfg = ModelConfig(**MODEL)
     return InferencePipeline(Feat3DNet(cfg), variables, cfg,
-                             InferenceConfig(**dict(INFER, **icfg)))
+                             InferenceConfig(**dict(INFER, **icfg)), device="cpu")
 
 
 def _assert_same(got, want):
