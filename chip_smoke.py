@@ -51,10 +51,31 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      and that 30 steps with the kernels on one batch lower the loss;
   12. times a training step per route (median of 12, synchronised, with
      peak memory and a torch.profiler breakdown) and K7-K10 per call
-     against their plain versions, each beside its bound.
+     against their plain versions, each beside its bound;
+  13. holds K3's bf16-activation mode against its plain version on the 7 680
+     serving clusters with phase 1's weights (min cosine >= 0.9999, >= 99.9 %
+     of descriptors within 2^-8, attention relative <= 1e-2) and prints it
+     against f32 K3 (min cosine >= 0.995);
+  14. drives the bf16 serving path with counters reset:
+     ClusterDescriptorServer(bf16_act=True), 8 describe_packed and 8 __call__
+     requests; only K3's bf16 mode may launch, answers equal across
+     requests; descriptors/s beside the f32 server's, in turns;
+  15. holds K3's decomposition bodies against their plain versions: stream
+     (exact), matmul (_ablate_kernel_t's) and matmul_2d (_ablate_kernel_2d's),
+     both within 1e-5 max|ref|; then with counters reset splits K3's time
+     (serving_time_split): elementwise share (f32 - matmul) and product
+     share (matmul - stream) of the f32 forward;
+  16. holds K6's folded mode (attention relative 1e-5, orientation 1e-5
+     rad) and bf16_operands mode (>= 99.9 % of centres within 1e-4 relative
+     attention and 1e-4 rad, while the f32 kernel against the same plain
+     bf16_operands version must fail that limit) against their plain
+     versions at phase 5's shapes and trained weights, after a counted run
+     of both modes on every cloud; folded vs unfolded attention <= 1e-3
+     relative; times per mode.
 It writes only under build/ in the checkout.
-The line before last is a JSON summary of the ten kernels (times, their
-bounds from this run's shapes at the H100's f32 and HBM peaks, launches on
+The line before last is a JSON summary of the sixteen kernel entries (K1-K10
+and K3's and K6's extra modes: times, their bounds from this run's shapes at
+the H100's f32 (bf16 modes: bf16 tensor-core) and HBM peaks, launches on
 their path); the last line is {"ok": true, "device": {...}}. Any failure
 raises (non-zero exit). It needs a CUDA device and refuses to run without
 one.
@@ -79,8 +100,9 @@ FULL_CHECK = 32768    # buckets up to this size: plain versions on every centre
 BATCH = 7680          # clusters per serving request (2 048 distinct, tiled)
 REQUESTS = 8
 SEED = 0
-# H100 SXM peaks: f32 outside the tensor cores, HBM3
+# H100 SXM peaks: f32 outside the tensor cores, bf16 dense tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -103,10 +125,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops, moved):
-    """(ms, "operations" | "bytes"): the larger of the f32 operations over the
-    card's f32 peak and the bytes moved over its memory rate."""
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def bound_ms(flops, moved, peak=PEAK_F32_FLOPS):
+    """(ms, "operations" | "bytes"): the larger of the operations over the
+    card's peak for their type (f32 unless given) and the bytes moved over
+    its memory rate."""
+    t_ops = flops / peak * 1e3
     t_mem = moved / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -155,6 +178,28 @@ def in_turns(kernel_fn, plain_fn, reps_k, reps_p):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def serving_time_split(k3, weights_t, packed, cfg, reps=10):
+    """K3's time split, as the JAX bench's `pct_matmul_floor` reads it: ms
+    per call of the f32 forward, the bf16 forward and the decomposition
+    bodies (CUDA events, `reps` back-to-back calls, warmed up, in turns
+    forward then backward), plus elementwise_share = (f32 - matmul) / f32
+    and product_share = (matmul - stream) / f32."""
+    import torch
+
+    calls = {"f32": {}, "bf16": {"bf16_act": True}, "matmul": {"ablate": "matmul"},
+             "matmul_2d": {"ablate": "matmul_2d"}, "stream": {"ablate": "stream"}}
+    runs = {k: (lambda kw=kw: k3(weights_t, packed, cfg, **kw)) for k, kw in calls.items()}
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    ms = dict.fromkeys(runs, 0.0)
+    for k in list(runs) + list(runs)[::-1]:
+        ms[k] += cuda_ms(runs[k], reps) / 2
+    ms["elementwise_share"] = (ms["f32"] - ms["matmul"]) / ms["f32"]
+    ms["product_share"] = (ms["matmul"] - ms["stream"]) / ms["f32"]
+    return ms
+
+
 def synthetic_cloud(seed, n=SYN_POINTS):
     """n points uniform in a 160 m x 160 m x 8 m box (about 33 per 2 m ball)."""
     rs = np.random.RandomState(seed)
@@ -166,6 +211,28 @@ def _wrapped(d):
     import torch
 
     return torch.remainder(d + np.pi, 2 * np.pi) - np.pi
+
+
+def sorted_clusters(dev, cloud):
+    """A cloud at its bucket, Morton-sorted on the card, and the (M, ns, 3)
+    origin-centred K4 clusters of every sorted centre (the attention pass's
+    input). Returns (sorted cloud, centres, K4 top, K4 count, clusters, the
+    slice of centres the plain versions check: every centre, or SYN_SLICE
+    contiguous sorted centres of a cloud past FULL_CHECK)."""
+    from feat3dnet_tpu_torch.config import bucket_for
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+
+    n = cloud.shape[0]
+    nb = bucket_for(n)
+    padded = np.zeros((nb, 3), np.float32)
+    padded[:n] = cloud[:, :3]
+    sc = hg.build_sorted_cloud_host(padded, np.arange(nb) < n, cell_size=RADIUS,
+                                    block_size=256).to(dev)
+    ctr = sc.pts4[:, :3]
+    top, cnt = hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, RADIUS, NS, tile=256)
+    grouped, _, _ = hg._finish_grouped(top, cnt, ctr, NS)
+    sl = slice(0, nb) if nb <= FULL_CHECK else slice(nb // 4, nb // 4 + SYN_SLICE)
+    return sc, ctr, top, cnt, (grouped - ctr[:, None, :]).contiguous(), sl
 
 
 def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir):
@@ -200,26 +267,14 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir):
     # ---- 5. K4, K5, K6 against their plain versions at the extraction shapes
     with torch.no_grad():
         for name, cloud in clouds.items():
-            n = cloud.shape[0]
-            nb = bucket_for(n)
-            padded = np.zeros((nb, 3), np.float32)
-            padded[:n] = cloud[:, :3]
-            valid = np.arange(nb) < n
-            sc = hg.build_sorted_cloud_host(padded, valid, cell_size=RADIUS,
-                                            block_size=256).to(dev)
-            ctr = sc.pts4[:, :3]
-            # the plain versions on every centre, or on a contiguous slice of
-            # SYN_SLICE sorted centres of the largest cloud
-            sl = slice(0, nb) if nb <= FULL_CHECK else slice(nb // 4, nb // 4 + SYN_SLICE)
+            n, nb = cloud.shape[0], bucket_for(cloud.shape[0])
+            sc, ctr, top_k, cnt_k, offs, sl = sorted_clusters(dev, cloud)
             ctr_sl = ctr[sl].contiguous()
-            top_k, cnt_k = hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, RADIUS, NS, tile=256)
             top_p, cnt_p = hg.sorted_ball_query_plain(sc.pts4, ctr_sl, RADIUS, NS)
             require(torch.equal(top_k[sl], top_p) and torch.equal(cnt_k[sl], cnt_p),
                     f"sorted ball query kernel != plain on {name}")
-            grouped, _, cnt = hg._finish_grouped(top_k, cnt_k, ctr, NS)
-            offs = (grouped - ctr[:, None, :]).contiguous()
-            att_k, ori_k = fd.fused_detect_clusters(w_det, offs, cfg)
-            att_p, ori_p = fd.fused_detect_clusters_plain(w_det, offs[sl], cfg)
+            att_k, ori_k = fd.fused_detect_clusters(w_det, offs, cfg, unfolded=True)
+            att_p, ori_p = fd.fused_detect_clusters_plain(w_det, offs[sl], cfg, unfolded=True)
             a_err = (att_k[sl] - att_p).abs()
             a_rel = (a_err / att_p.abs().clamp(min=1e-6)).max().item()
             o_err = _wrapped(ori_k[sl] - ori_p).abs().max().item()
@@ -254,8 +309,10 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir):
                     ("sorted_ball_query",
                      lambda: hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, RADIUS, NS, tile=256),
                      lambda: hg.sorted_ball_query_plain(sc.pts4, ctr, RADIUS, NS), 5, 1),
-                    ("fused_detect", lambda: fd.fused_detect_clusters(w_det, offs, cfg),
-                     lambda: fd.fused_detect_clusters_plain(w_det, offs, cfg), 3, 2),
+                    ("fused_detect",
+                     lambda: fd.fused_detect_clusters(w_det, offs, cfg, unfolded=True),
+                     lambda: fd.fused_detect_clusters_plain(w_det, offs, cfg, unfolded=True),
+                     3, 2),
                     ("ball_max", lambda: hg.ball_max_sorted(sc.pts4, sc.blk_bbox, att_k, NMS_RADIUS),
                      lambda: hg.ball_max_plain(sc.pts4, att_k, NMS_RADIUS), 10, 2))
                 for key, kf, pf, rk, rp in pairs:
@@ -263,7 +320,7 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir):
                     times[key].append((ms_k, ms_p))
                     print(f"[{card}] {key} {name} bucket {nb}: kernel {ms_k:.4f} ms, "
                           f"plain {ms_p:.4f} ms")
-            del sc, top_k, top_p, grouped, offs
+            del sc, top_k, top_p, offs
     for key, per in times.items():
         report[key]["ms"] = float(np.mean([p[0] for p in per]))
         report[key]["plain_ms"] = float(np.mean([p[1] for p in per]))
@@ -881,6 +938,234 @@ def training_phases(dev, card):
     return report, launches
 
 
+def serving_mode_phases(dev, card, model, server, weights_t, packed, packed_host,
+                        clusters_host, cfg):
+    """Phases 13-15: K3's bf16 mode against its plain version and f32, the
+    bf16 serving path with counters reset, K3's decomposition bodies and
+    the time split. Returns ({kernel entry: report}, {entry: launches})."""
+    import torch
+
+    from feat3dnet_tpu_torch.inference import ClusterDescriptorServer
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+    from feat3dnet_tpu_torch.utils import profiling
+
+    k3 = fd.fused_describe_clusters_t
+    names = {"bf16": "fused_describe_bf16", "stream": "fused_describe_ablate_stream",
+             "matmul": "fused_describe_ablate_matmul",
+             "matmul_2d": "fused_describe_ablate_matmul_2d"}
+    ablations = ("stream", "matmul", "matmul_2d")
+    report = {n: {} for n in names.values()}
+    cos = torch.nn.functional.cosine_similarity
+    macs = 2.0 * tower_macs(cfg) * BATCH
+    io_bytes = nbytes(packed, *weights_t) + BATCH * (cfg.feature_dim + 1) * 4
+
+    # ---- 13. bf16 activations against the plain bf16 version and f32 -----------
+    with torch.no_grad():
+        (dk, ak), (dp, ap) = (k3(weights_t, packed, cfg, bf16_act=True),
+                              k3.plain(weights_t, packed, cfg, bf16_act=True))
+        d32, _ = k3(weights_t, packed, cfg)
+        torch.cuda.synchronize()
+    dmax = (dk - dp).abs().amax(dim=1)
+    c_min = cos(dk, dp, dim=1).min().item()
+    within = (dmax <= 2.0 ** -8).float().mean().item()
+    a_rel = ((ak - ap).abs() / ap.abs().clamp(min=1e-6)).max().item()
+    c32 = cos(dk, d32, dim=1)
+    print(f"K3 bf16 {BATCH} clusters vs plain bf16: min cos {c_min:.7f} (>= 0.9999), "
+          f"{100 * within:.3f} % of descriptors within 2^-8 (>= 99.9 %), max|d| "
+          f"{dmax.max().item():.3e}, att rel {a_rel:.3e} (<= 1e-2); vs f32 K3: min cos "
+          f"{c32.min().item():.6f} (>= 0.995), median {c32.median().item():.7f}")
+    require(c_min >= 0.9999 and within >= 0.999 and a_rel <= 1e-2,
+            "K3 bf16 mode outside tolerance vs its plain version")
+    require(c32.min().item() >= 0.995, "K3 bf16 mode too far from f32")
+    report[names["bf16"]]["max_abs_err"] = dmax.max().item()
+
+    # ---- 14. the bf16 serving path, counters from zero -----------------------------
+    bf_server = ClusterDescriptorServer(model, device=dev, bf16_act=True)
+    k3.launches = 0
+    k3.mode_launches.update(dict.fromkeys(k3.mode_launches, 0))
+    with torch.no_grad():
+        packed_ans = [tuple(t.cpu() for t in bf_server.describe_packed(packed_host))
+                      for _ in range(REQUESTS)]
+        call_ans = [tuple(t.cpu() for t in bf_server(clusters_host)) for _ in range(REQUESTS)]
+    launches = {names["bf16"]: k3.mode_launches["bf16"]}
+    print(f"bf16 serving path launches: {dict(k3.mode_launches)}")
+    require(k3.mode_launches["bf16"] == 2 * REQUESTS and k3.mode_launches["f32"] == 0,
+            f"bf16 server launched {dict(k3.mode_launches)}")
+    for d, a in packed_ans + call_ans:
+        require(torch.equal(d, packed_ans[0][0]) and torch.equal(a, packed_ans[0][1]),
+                "bf16 server answers differ between requests or entry points")
+    require(torch.equal(packed_ans[0][0], dk.cpu()), "bf16 server != K3 bf16 mode")
+    serve = {"f32": [], "bf16": []}
+    with torch.no_grad():
+        for kind, srv in (("f32", server), ("bf16", bf_server), ("bf16", bf_server),
+                          ("f32", server)):
+            srv.describe_packed(packed_host)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(REQUESTS):
+                d, a = srv.describe_packed(packed_host)
+                d.cpu(), a.cpu()
+            serve[kind].append(REQUESTS * BATCH / (time.perf_counter() - t0))
+    print(f"[{card}] server bf16_act: {np.mean(serve['bf16']):.0f} descriptors/s "
+          f"(runs {[round(x) for x in serve['bf16']]}), f32 {np.mean(serve['f32']):.0f} "
+          f"(runs {[round(x) for x in serve['f32']]}), {REQUESTS} requests x {BATCH} clusters "
+          f"each, host packed array in, host results out, in turns")
+
+    # ---- 15. the decomposition bodies, then the time split --------------------------
+    with torch.no_grad():
+        for ab in ablations:
+            (dk, ak), (dp, ap) = (k3(weights_t, packed, cfg, ablate=ab),
+                                  k3.plain(weights_t, packed, cfg, ablate=ab))
+            torch.cuda.synchronize()
+            if ab == "stream":
+                require(torch.equal(dk, dp) and torch.equal(ak, ap),
+                        "K3 stream body != its plain version")
+                err = 0.0
+            else:
+                err = max((dk - dp).abs().max().item() / dp.abs().max().item(),
+                          (ak - ap).abs().max().item() / ap.abs().max().item())
+                require(err <= 1e-5, f"K3 {ab} body vs plain: {err:.3e} of max|ref|")
+            report[names[ab]]["max_abs_err"] = max((dk - dp).abs().max().item(),
+                                                   (ak - ap).abs().max().item())
+            print(f"K3 {ab} body vs plain: "
+                  + ("exact" if ab == "stream" else f"{err:.3e} of max|ref| (<= 1e-5)"))
+        k3.mode_launches.update(dict.fromkeys(k3.mode_launches, 0))
+        split = serving_time_split(k3, weights_t, packed, cfg, reps=10)
+        for ab in ablations:
+            launches[names[ab]] = k3.mode_launches[ab]
+        require(all(launches[names[ab]] > 0 for ab in ablations),
+                f"decomposition launches {dict(k3.mode_launches)}")
+        host_ms = profiling.timed_device_call(k3, weights_t, packed, cfg, repeats=7) * 1e3
+        for mode, kw in [("bf16", {"bf16_act": True})] + [(ab, {"ablate": ab})
+                                                          for ab in ablations]:
+            report[names[mode]].update(zip(("ms", "plain_ms"), in_turns(
+                lambda kw=kw: k3(weights_t, packed, cfg, **kw),
+                lambda kw=kw: k3.plain(weights_t, packed, cfg, **kw), 10, 3)))
+    print(f"[{card}] K3 time split at {BATCH} clusters (CUDA events, in turns): f32 "
+          f"{split['f32']:.4f} ms, bf16 {split['bf16']:.4f} ms, matmul {split['matmul']:.4f} ms, "
+          f"matmul_2d {split['matmul_2d']:.4f} ms, stream {split['stream']:.4f} ms; elementwise share (f32 - matmul) / f32 "
+          f"{100 * split['elementwise_share']:.2f} %, product share (matmul - stream) / f32 "
+          f"{100 * split['product_share']:.2f} %; f32 on the host clock (timed_device_call, "
+          f"synchronised) {host_ms:.4f} ms")
+    b_bf = bound_ms(macs, io_bytes, PEAK_BF16_FLOPS)
+    b_f32 = bound_ms(macs, io_bytes)
+    report[names["bf16"]].update(bound_ms=b_bf[0], bound_by=b_bf[1])
+    report[names["matmul"]].update(bound_ms=b_f32[0], bound_by=b_f32[1])
+    report[names["matmul_2d"]].update(bound_ms=b_f32[0], bound_by=b_f32[1])
+    stream_bytes = 12 * cfg.num_samples * BATCH + BATCH * (cfg.feature_dim + 1) * 4
+    report[names["stream"]].update(bound_ms=stream_bytes / PEAK_HBM_BYTES * 1e3,
+                                   bound_by="bytes")
+    for name in names.values():
+        r = report[name]
+        print(f"[{card}] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f"; at the f32 FMA peak the bound is {b_f32[0]:.4f} ms"
+                 if name == names["bf16"] else ""))
+    return report, launches
+
+
+def detector_mode_phase(dev, card, clouds, npz_path):
+    """Phase 16: K6's folded and bf16_operands modes on the extraction
+    shapes with the trained weights: a counted run of both modes on every
+    cloud's K4 clusters, then each against its plain version, folded
+    against unfolded, and times. Returns ({entry: report}, {entry: launches})."""
+    import torch
+
+    from feat3dnet_tpu_torch.config import ModelConfig
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+    from feat3dnet_tpu_torch.utils import load_variables_npz
+
+    cfg = ModelConfig()
+    variables = load_variables_npz(npz_path)
+    w_unf = [w.to(dev) for w in fd.transpose_unfolded_detector(
+        fd.detector_weights_unfolded(variables, cfg))]
+    w_fold = [w.to(dev) for w in fd.transpose_folded_weights(fd.folded_weights(variables, cfg))]
+    modes = {"folded": (w_fold, {}),
+             "bf16_operands": (w_unf, {"unfolded": True, "bf16_operands": True})}
+    names = {"folded": "fused_detect_folded", "bf16_operands": "fused_detect_bf16_operands"}
+    k6 = fd.fused_detect_clusters
+    report = {n: {"max_abs_err": 0.0} for n in names.values()}
+    cases = {}
+    with torch.no_grad():
+        for name, cloud in clouds.items():
+            _, ctr, _, _, offs, sl = sorted_clusters(dev, cloud)
+            cases[name] = (offs, sl, ctr[:, 0] < 5e8)
+        # the path: both modes on every cloud's clusters, counters from zero
+        k6.mode_launches.update(dict.fromkeys(k6.mode_launches, 0))
+        outs = {name: {m: k6(w, offs, cfg, **kw) for m, (w, kw) in modes.items()}
+                for name, (offs, _, _) in cases.items()}
+        torch.cuda.synchronize()
+        launches = {names[m]: k6.mode_launches[m] for m in modes}
+        print(f"K6 modes path launches: {dict(k6.mode_launches)}")
+        require(all(n > 0 for n in launches.values()) and k6.mode_launches["unfolded"] == 0,
+                f"K6 mode launches {dict(k6.mode_launches)}")
+        times = {m: [] for m in modes}
+        bounds = {m: [] for m in modes}
+        for name, (offs, sl, real) in cases.items():
+            att_u, ori_u = k6(w_unf, offs, cfg, unfolded=True)
+            line = []
+            for m, (w, kw) in modes.items():
+                att_k, ori_k = outs[name][m]
+                att_p, ori_p = fd.fused_detect_clusters_plain(w, offs[sl], cfg, **kw)
+                a_err = (att_k[sl] - att_p).abs()
+                a_rel = a_err / att_p.abs().clamp(min=1e-6)
+                o_err = _wrapped(ori_k[sl] - ori_p).abs()
+                report[names[m]]["max_abs_err"] = max(report[names[m]]["max_abs_err"],
+                                                      a_err.max().item())
+                if m == "folded":
+                    require(a_rel.max().item() <= 1e-5 and o_err.max().item() <= 1e-5,
+                            f"K6 folded vs plain on {name}: att rel {a_rel.max().item():.3e}, "
+                            f"ori {o_err.max().item():.3e} rad")
+                    fu = ((att_k - att_u).abs() / att_u.abs().clamp(min=1e-6))[real].max().item()
+                    require(fu <= 1e-3, f"K6 folded vs unfolded attention {fu:.3e} on {name}")
+                    line.append(f"folded att rel {a_rel.max().item():.3e}, ori "
+                                f"{o_err.max().item():.3e} rad (<= 1e-5); folded vs unfolded "
+                                f"att rel {fu:.3e} (<= 1e-3)")
+                else:
+                    def share(att, ori):
+                        rel = (att[sl] - att_p).abs() / att_p.abs().clamp(min=1e-6)
+                        err = _wrapped(ori[sl] - ori_p).abs()
+                        return ((rel <= 1e-4) & (err <= 1e-4)).float().mean().item()
+
+                    # the control: the f32 kernel must fail the limit the mode is held to
+                    s_k, s_f = share(att_k, ori_k), share(att_u, ori_u)
+                    require(s_k >= 0.999, f"K6 bf16_operands vs plain on {name}: "
+                                          f"{100 * s_k:.3f} % within 1e-4")
+                    require(s_f < 0.999, f"K6 f32 vs plain bf16_operands on {name}: "
+                                         f"{100 * s_f:.3f} % within 1e-4, the check cannot "
+                                         "tell a kernel that skips the rounding")
+                    line.append(f"bf16_operands {100 * s_k:.3f} % within 1e-4 (>= 99.9 %), "
+                                f"max att rel {a_rel.max().item():.3e}, ori "
+                                f"{o_err.max().item():.3e} rad; control f32 kernel vs plain "
+                                f"bf16_operands {100 * s_f:.3f} % within 1e-4 (< 99.9 %)")
+            print(f"K6 modes {name} ({sl.stop - sl.start} centres vs plain): " + "; ".join(line))
+            if offs.shape[0] <= FULL_CHECK:
+                ms = {}
+                for m, (w, kw) in modes.items():
+                    ms[m] = in_turns(lambda w=w, kw=kw: k6(w, offs, cfg, **kw),
+                                     lambda w=w, kw=kw: fd.fused_detect_clusters_plain(
+                                         w, offs, cfg, **kw), 3, 2)
+                    times[m].append(ms[m])
+                    moved = nbytes(offs, *w) + offs.shape[0] * 8
+                    flops = 2.0 * tower_macs(cfg, descriptor=False) * offs.shape[0]
+                    bounds[m].append(bound_ms(flops, moved, PEAK_BF16_FLOPS
+                                              if m == "bf16_operands" else PEAK_F32_FLOPS))
+                ms_u, _ = in_turns(lambda: k6(w_unf, offs, cfg, unfolded=True),
+                                   lambda: k6(w_fold, offs, cfg), 3, 3)
+                print(f"[{card}] K6 modes {name} M={offs.shape[0]}: folded {ms['folded'][0]:.4f} "
+                      f"ms (plain {ms['folded'][1]:.4f}), bf16_operands "
+                      f"{ms['bf16_operands'][0]:.4f} ms (plain {ms['bf16_operands'][1]:.4f}), "
+                      f"unfolded {ms_u:.4f} ms in turns with folded")
+    for m in modes:
+        r = report[names[m]]
+        r["ms"] = float(np.mean([t[0] for t in times[m]]))
+        r["plain_ms"] = float(np.mean([t[1] for t in times[m]]))
+        r["bound_ms"], r["bound_by"] = mean_bound(bounds[m])
+        print(f"[{card}] {names[m]}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) mean over the vendored clouds")
+    return report, launches
+
+
 def main():
     import torch
 
@@ -1138,6 +1423,14 @@ def main():
     report.update(train_report)
     launches.update({k: train_launches[k] for k in train_report})
 
+    # ---- 13-16. K3's bf16 and decomposition modes, K6's folded and bf16 modes -----------
+    for more in (serving_mode_phases(dev, card, model, server, weights_t, packed, packed_host,
+                                     clusters.cpu().numpy(), cfg),
+                 detector_mode_phase(dev, card, ext_clouds, os.path.join(
+                     HERE, "feat3dnet_tpu_torch", "assets", "ckpt4480_variables.npz"))):
+        report.update(more[0])
+        launches.update(more[1])
+
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),
         "ball_query": ("feat3dnet_tpu_torch/csrc/ball_query.cu",
@@ -1158,6 +1451,18 @@ def main():
                           "feat3dnet_tpu/ops/fused_train.py:285"),
         "train_bwd": ("feat3dnet_tpu_torch/csrc/fused_train.cu",
                       "feat3dnet_tpu/ops/fused_train.py:316"),
+        "fused_describe_bf16": ("feat3dnet_tpu_torch/csrc/fused_describe.cu",
+                                "feat3dnet_tpu/ops/fused_describe.py:883"),
+        "fused_describe_ablate_stream": ("feat3dnet_tpu_torch/csrc/fused_describe.cu",
+                                         "feat3dnet_tpu/ops/fused_describe.py:984"),
+        "fused_describe_ablate_matmul": ("feat3dnet_tpu_torch/csrc/fused_describe.cu",
+                                         "feat3dnet_tpu/ops/fused_describe.py:984"),
+        "fused_describe_ablate_matmul_2d": ("feat3dnet_tpu_torch/csrc/fused_describe.cu",
+                                            "feat3dnet_tpu/ops/fused_describe.py:518"),
+        "fused_detect_folded": ("feat3dnet_tpu_torch/csrc/fused_detect.cu",
+                                "feat3dnet_tpu/ops/fused_describe.py:1286"),
+        "fused_detect_bf16_operands": ("feat3dnet_tpu_torch/csrc/fused_detect.cu",
+                                       "feat3dnet_tpu/ops/fused_describe.py:1286"),
     }
     # no single PyTorch call computes any of these functions: library_ms is null
     summary = [{"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],

@@ -151,7 +151,8 @@ class InferencePipeline:
         shape as the dense route's."""
         offs = grouped - centers[:, None, :]
         if self.icfg.use_fused_detector:
-            return fd.fused_detect_clusters(self._kernel_weights("detect"), offs, self.mcfg)
+            return fd.fused_detect_clusters(self._kernel_weights("detect"), offs, self.mcfg,
+                                            unfolded=True)
         normalized = offs / self.mcfg.base_scale
         chunk = self._chunk_size(normalized.shape[0])
         atts, oris = [], []

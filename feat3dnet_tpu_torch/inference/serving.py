@@ -2,8 +2,9 @@
 
 `ClusterDescriptorServer` turns origin-centred clusters into descriptors
 and attention. On CUDA, clusters of `num_samples` points from a BN model
-go through kernel K3 (ops/fused_describe.py); everything else (CPU
-tensors, other cluster sizes, models without BN) takes the model path.
+go through kernel K3 (ops/fused_describe.py), in f32 or, with
+`bf16_act=True`, with bf16 activations; everything else (CPU tensors,
+other cluster sizes, models without BN) takes the model path, in f32.
 """
 from __future__ import annotations
 
@@ -26,13 +27,20 @@ class ClusterDescriptorServer:
     """Holds the model and its folded kernel weights for repeated calls.
 
     device: where it serves, `cuda` unless the caller names another
-    (raises without a CUDA device); the model is moved there."""
+    (raises without a CUDA device); the model is moved there.
+    bf16_act: K3's products take bf16 operands and its activations are
+    bf16 values (f32 sums, heads and normalisation), in `__call__` and
+    `describe_packed`; the model path stays f32, as the JAX server's XLA
+    path does. Descriptors stay within cosine 0.995 of f32 (chip_smoke
+    phase 13 prints the card's figure)."""
 
     def __init__(self, model: Feat3DNet,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 bf16_act: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = model.cfg
+        self.bf16_act = bf16_act
         self._weights_t: Optional[List[torch.Tensor]] = None
 
     def _kernel_weights_t(self) -> List[torch.Tensor]:
@@ -61,7 +69,8 @@ class ClusterDescriptorServer:
         clusters = torch.as_tensor(clusters, dtype=torch.float32, device=self.device)
         if clusters.device.type == "cuda" and self._fused_ok(clusters.shape[1]):
             return fused_describe_clusters_t(
-                self._kernel_weights_t(), pack_clusters_lanes_torch(clusters), self.cfg)
+                self._kernel_weights_t(), pack_clusters_lanes_torch(clusters), self.cfg,
+                bf16_act=self.bf16_act)
         return self._model_path(clusters)
 
     @staticmethod
@@ -82,4 +91,4 @@ class ClusterDescriptorServer:
                 f"describe_packed: want (num_samples*8, B) = ({8 * self.cfg.num_samples}, B) "
                 f"and a BN model, got {tuple(packed.shape)}, use_bn={self.cfg.use_bn}")
         return fused_describe_clusters_t(self._kernel_weights_t(), packed.contiguous(),
-                                         self.cfg)
+                                         self.cfg, bf16_act=self.bf16_act)

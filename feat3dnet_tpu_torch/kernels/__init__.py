@@ -34,7 +34,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("fps.cu", "ball_query.cu", "fused_describe.cu", "sorted_ball_query.cu",
            "ball_max.cu", "fused_detect.cu", "fused_train.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "slot_layer.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libf3d_kernels.so"
@@ -131,8 +131,8 @@ def library() -> ctypes.CDLL:
     lib.f3d_ball_query.argtypes = [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]
     lib.f3d_ball_query.restype = _I
     # packed, ns, batch, weights, layers (host int32 array), n_det, n_det2,
-    # n_desc, r2, inv_r, desc, att, stream
-    lib.f3d_fused_describe.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _F, _F,
+    # n_desc, mode, r2, inv_r, desc, att, stream
+    lib.f3d_fused_describe.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _F,
                                        _P, _P, _P]
     lib.f3d_fused_describe.restype = _I
     # pts4, np, hit (tiles x nb u8), nb, block, centers, m, tile, r2, ns,
@@ -144,8 +144,9 @@ def library() -> ctypes.CDLL:
     lib.f3d_ball_max.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I, _I, _F, _P, _P]
     lib.f3d_ball_max.restype = _I
     # clusters, ns, batch, weights, layers (host int32 array), n_det, n_det2,
-    # r, r2, out, stream
-    lib.f3d_fused_detect.argtypes = [_P, _I, _I, _P, _P, _I, _I, _F, _F, _P, _P]
+    # folded, bf16, r, inv_r, r2, out, stream
+    lib.f3d_fused_detect.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
+                                     _P]
     lib.f3d_fused_detect.restype = _I
     # x, ns, gp, g_total, cin0, weights, convs (host int32 (n, 9)), n, nblk,
     # part, stream
@@ -201,15 +202,20 @@ def launch_ball_query(xyz, centers, mask, r2, ns, idx, cnt) -> None:
                                        _stream(xyz)), "ball_query")
 
 
-def launch_fused_describe(packed, ns, weights, layers, n_det, n_det2, n_desc,
+# K3's modes, as csrc/fused_describe.cu numbers them
+DESCRIBE_MODES = {"f32": 0, "bf16": 1, "stream": 2, "matmul": 3, "matmul_2d": 4}
+
+
+def launch_fused_describe(packed, ns, weights, layers, n_det, n_det2, n_desc, mode,
                           r2, inv_r, desc, att) -> None:
-    """layers: host int32 tensor of (cin, cout, w_offset, b_offset) rows."""
+    """layers: host int32 tensor of (cin, cout, w_offset, b_offset) rows;
+    mode: a key of DESCRIBE_MODES."""
     batch = packed.shape[1]
     with torch.cuda.device(packed.device):
         check(library().f3d_fused_describe(
             _ptr(packed), ns, batch, _ptr(weights), _ptr(layers), n_det, n_det2,
-            n_desc, r2, inv_r, _ptr(desc), _ptr(att), _stream(packed)),
-            "fused_describe")
+            n_desc, DESCRIBE_MODES[mode], r2, inv_r, _ptr(desc), _ptr(att),
+            _stream(packed)), "fused_describe")
 
 
 def launch_sorted_ball_query(pts4, hit, block, centers, tile, r2, ns, top, cnt) -> None:
@@ -229,13 +235,14 @@ def launch_ball_max(pts4, values, hit, block, centers, tile, r2, out) -> None:
             "ball_max")
 
 
-def launch_fused_detect(clusters, weights, layers, n_det, n_det2, r, r2, out) -> None:
+def launch_fused_detect(clusters, weights, layers, n_det, n_det2, folded, bf16, r, inv_r,
+                        r2, out) -> None:
     """layers: host int32 tensor of (cin, cout, w, b, mu, mul, beta) rows."""
     b, ns, _ = clusters.shape
     with torch.cuda.device(clusters.device):
         check(library().f3d_fused_detect(
-            _ptr(clusters), ns, b, _ptr(weights), _ptr(layers), n_det, n_det2, r, r2,
-            _ptr(out), _stream(clusters)), "fused_detect")
+            _ptr(clusters), ns, b, _ptr(weights), _ptr(layers), n_det, n_det2, int(folded),
+            int(bf16), r, inv_r, r2, _ptr(out), _stream(clusters)), "fused_detect")
 
 
 def launch_train_stats(x, g_total, wts, convs, nblk, part) -> None:

@@ -9,18 +9,23 @@ b' = (b−μ)·γ·rsqrt(σ²+ε)+β).
   lists, same order and the same K=3 -> 8 zero pad.
 * `pack_clusters_lanes`: the (ns·8, B) host layout (numpy).
 * `fused_describe_clusters_t_plain`: the plain version in that layout, the
-  CPU path and the oracle for kernel K3.
+  CPU path and the oracle for kernel K3, in f32, in bf16 activations
+  (`bf16_act`) and as the stream-only / matmul-only decomposition bodies
+  of `_ablate_kernel_t` and `_ablate_kernel_2d` (`ablate`).
 * `fused_describe_clusters_t`: the wrapper of kernel K3
-  (csrc/fused_describe.cu). The JAX package's `_kernel_2d` and `_kernel`
-  compute the same thing in other TPU layouts; the port has this one.
+  (csrc/fused_describe.cu), the same modes. The JAX package's `_kernel_2d`
+  and `_kernel` compute the same thing in other TPU layouts (their
+  `bf16_matmul` equals `bf16_act`); the port has this one.
 * `detector_weights_unfolded` / `transpose_unfolded_detector`: the
   detector's weights with BN NOT folded (the extraction's attention pass
   must round like the model path), and `fused_detect_clusters`, the
-  wrapper of kernel K6 (csrc/fused_detect.cu), with its plain version.
+  wrapper of kernel K6 (csrc/fused_detect.cu), with its plain version, on
+  folded weights (the default), unfolded ones, or unfolded ones with bf16
+  operands.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,26 +107,61 @@ def _n_layers(cfg: ModelConfig) -> Tuple[int, int, int]:
     return len(cfg.detector_mlp), len(cfg.detector_mlp2), len(cfg.descriptor_mlp)
 
 
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to the nearest bf16 (ties to even) and back to float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+_ABLATE = ("stream", "matmul", "matmul_2d")
+
+
+def _describe_mode(bf16_act: bool, ablate: Optional[str]) -> str:
+    """K3's mode: 'f32', 'bf16', 'stream', 'matmul' or 'matmul_2d'. Raises on
+    an unknown `ablate` and on bf16_act together with ablate."""
+    if ablate is not None and ablate not in _ABLATE:
+        raise ValueError(f"fused_describe_clusters_t: ablate must be None or one of "
+                         f"{_ABLATE}, got {ablate!r}")
+    if ablate is not None and bf16_act:
+        raise ValueError("fused_describe_clusters_t: bf16_act and ablate exclude each other")
+    return ablate or ("bf16" if bf16_act else "f32")
+
+
 def fused_describe_clusters_t_plain(weights_t: List[torch.Tensor],
-                                    clusters_p: torch.Tensor, cfg: ModelConfig
+                                    clusters_p: torch.Tensor, cfg: ModelConfig,
+                                    bf16_act: bool = False, ablate: Optional[str] = None
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K3: (ns·8, B) packed clusters + transposed folded
     weights -> (descriptors (B, D), attention (B,)).
 
     Computes what the JAX `_kernel_t` computes, batched over slots: the
     activations are (ns, C, B) and every product is W (Cout, Cin) @ H.
+    bf16_act: every kernel matrix, the scaled input, every ReLU output, the
+    rotated coordinates and the mid conv's output are rounded to bf16, so
+    each product takes bf16 operands and sums in f32 (`_kernel_t`'s
+    bf16_act). ablate: the time-decomposition bodies, whose outputs are not
+    descriptors: 'stream' (what `_ablate_kernel_t` and `_ablate_kernel_2d`
+    both compute), 'matmul' (`_ablate_kernel_t`'s) and 'matmul_2d'
+    (`_ablate_kernel_2d`'s).
     """
+    mode = _describe_mode(bf16_act, ablate)
     rows, b = clusters_p.shape
     ns = rows // 8
     x = clusters_p.to(torch.float32).reshape(ns, 8, b)
+    if mode in _ABLATE:
+        return _describe_ablate_plain(weights_t, x, cfg, mode)
     dev = x.device
+    act = _round_bf16 if bf16_act else _identity
     r = torch.tensor(cfg.base_scale, dtype=torch.float32, device=dev)
     r2 = r * r
     inv_r = 1.0 / r
     ws = iter(weights_t)
 
     def next_w():
-        return next(ws), next(ws)
+        return act(next(ws)), next(ws)
 
     # membership: d2 = (x*x + y*y) + z*z, strict d2 < r^2; an empty cluster
     # keeps the first slot at the minimum distance
@@ -137,14 +177,14 @@ def fused_describe_clusters_t_plain(weights_t: List[torch.Tensor],
 
     xs = x * inv_r                                               # (ns, 8, B)
     n_det, n_det2, n_desc = _n_layers(cfg)
-    h = xs
+    h = act(xs)
     for _ in range(n_det):
         k, bias = next_w()
-        h = torch.relu(torch.matmul(k, h) + bias)
+        h = act(torch.relu(torch.matmul(k, h) + bias))
     g = (h * mask3).amax(0)                                      # (C, B)
     for _ in range(n_det2):
         k, bias = next_w()
-        g = torch.relu(k @ g + bias)
+        g = act(torch.relu(k @ g + bias))
     ka, ba = next_w()
     att = torch.logaddexp(ka @ g + ba, torch.zeros((), dtype=torch.float32, device=dev))
     ko, bo = next_w()
@@ -154,14 +194,14 @@ def fused_describe_clusters_t_plain(weights_t: List[torch.Tensor],
 
     xr = xs[:, 0] * c_r - xs[:, 1] * s_r
     yr = xs[:, 0] * s_r + xs[:, 1] * c_r
-    h = torch.cat([xr[:, None], yr[:, None], xs[:, 2:]], dim=1)  # (ns, 8, B)
+    h = act(torch.cat([xr[:, None], yr[:, None], xs[:, 2:]], dim=1))  # (ns, 8, B)
     for _ in range(n_desc):
         k, bias = next_w()
-        h = torch.relu(torch.matmul(k, h) + bias)
+        h = act(torch.relu(torch.matmul(k, h) + bias))
     dpool = (h * mask3).amax(0, keepdim=True)                    # (1, C, B)
     cat = torch.cat([h, dpool.expand_as(h)], dim=1)              # (ns, 2C, B)
     km, bm = next_w()
-    y = torch.matmul(km, cat) + bm                               # no ReLU
+    y = act(torch.matmul(km, cat) + bm)                          # no ReLU
     y = torch.where(mask3 > 0.5, y, torch.tensor(-1.0e30, dtype=torch.float32, device=dev))
     m = y.amax(0)
     kp, bp = next_w()
@@ -170,25 +210,71 @@ def fused_describe_clusters_t_plain(weights_t: List[torch.Tensor],
     return out.t().contiguous(), att[0]
 
 
-# per-slot layer widths the kernel is instantiated for (csrc/fused_describe.cu)
+def _describe_ablate_plain(weights_t: List[torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+                           mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decomposition bodies on (ns, 8, B) slot blocks. 'stream': desc[b,
+    :] = x of slot 0, att[b] = y of slot 0. 'matmul' (`_ablate_kernel_t`):
+    every product of the forward on the raw coordinates, with no
+    membership, ReLU, mask or rotation and the pools as sums over the
+    slots. 'matmul_2d' (`_ablate_kernel_2d`): the same products, each pool
+    taken as slot 0's row and the mid conv fed [d_s ; d_s]."""
+    b = x.shape[2]
+    if mode == "stream":
+        return x[0, 0][:, None].expand(b, cfg.feature_dim).contiguous(), x[0, 1].clone()
+    ws = iter(weights_t)
+
+    def next_w():
+        return next(ws), next(ws)
+
+    n_det, n_det2, n_desc = _n_layers(cfg)
+    h = x
+    for _ in range(n_det):
+        k, bias = next_w()
+        h = torch.matmul(k, h) + bias
+    g = h[0] if mode == "matmul_2d" else h.sum(0)                # (C, B)
+    for _ in range(n_det2):
+        k, bias = next_w()
+        g = k @ g + bias
+    ka, ba = next_w()
+    att = ka @ g + ba                                            # (1, B)
+    ko, bo = next_w()
+    ori = ko @ g + bo                                            # (2, B)
+    d = x
+    for _ in range(n_desc):
+        k, bias = next_w()
+        d = torch.matmul(k, d) + bias
+    km, bm = next_w()
+    if mode == "matmul_2d":
+        m = (torch.matmul(km, torch.cat([d, d], dim=1)) + bm)[0]
+    else:
+        dpool = d.sum(0, keepdim=True)
+        m = (torch.matmul(km, torch.cat([d, dpool.expand_as(d)], dim=1)) + bm).sum(0)
+    kp, bp = next_w()
+    out = kp @ m + bp                                            # (D, B), unnormalised
+    return out.t().contiguous(), (att + ori[0:1] * 1e-30)[0]
+
+
+# per-slot layer widths the kernel is instantiated for (csrc/slot_layer.cuh)
 _SLOT_WIDTHS = (32, 64, 128, 256)
 
 
-def _kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, device
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, device,
+                    bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat (Cin, Cout) weight buffer + (cin, cout, w_off, b_off) table for
     the kernel. K-padded first layers keep 4 input rows (x, y, z, 0). Every
-    block starts on a 16-byte boundary (the kernel reads W as float4)."""
+    block starts on a 16-byte boundary (the kernel reads W as float4).
+    bf16: the kernel matrices (not the biases) rounded to bf16 values."""
     n_det, n_det2, n_desc = _n_layers(cfg)
     if len(weights_t) != 2 * (n_det + n_det2 + 2 + n_desc + 2):
         raise ValueError(f"fused_describe: {len(weights_t)} weight tensors do not "
                          "match the config's tower")
     slot_layers = (set(range(n_det))
                    | set(range(n_det + n_det2 + 2, n_det + n_det2 + 2 + n_desc + 1)))
+    rnd = _round_bf16 if bf16 else _identity
     pieces, table, off = [], [], 0
     for li in range(len(weights_t) // 2):
         kt, b = weights_t[2 * li], weights_t[2 * li + 1]
-        w = kt.t()
+        w = rnd(kt.t())
         if w.shape[0] == 8:
             w = w[:4]                       # rows 3..7 are the zero pad
         cin, cout = w.shape
@@ -207,16 +293,26 @@ def _kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, device
 
 
 def fused_describe_clusters_t(weights_t: List[torch.Tensor], clusters_p: torch.Tensor,
-                              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                              cfg: ModelConfig, bf16_act: bool = False,
+                              ablate: Optional[str] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Serving forward through kernel K3: (ns·8, B) packed clusters
     (pack_clusters_lanes) + transpose_folded_weights(folded_weights(...))
     -> (descriptors (B, D), attention (B,)).
 
+    bf16_act: the towers' products take bf16 operands and sum in f32, the
+    activations are bf16 values (see the plain version). ablate ('stream' |
+    'matmul' | 'matmul_2d'): the time-decomposition bodies, whose outputs
+    are not descriptors; not with bf16_act. Each launch counts in `launches`
+    and in `mode_launches[mode]` (mode 'f32', 'bf16' or the ablate value).
+
     CPU tensors take `fused_describe_clusters_t_plain`; CUDA tensors launch
-    the kernel, and anything it does not take raises.
+    the kernel in the mode asked for, and anything it does not take raises.
     """
+    mode = _describe_mode(bf16_act, ablate)
     if clusters_p.device.type == "cpu":
-        return fused_describe_clusters_t_plain(weights_t, clusters_p, cfg)
+        return fused_describe_clusters_t_plain(weights_t, clusters_p, cfg,
+                                               bf16_act=bf16_act, ablate=ablate)
     if clusters_p.device.type != "cuda":
         raise ValueError(f"fused_describe_clusters_t: unsupported device "
                          f"{clusters_p.device}")
@@ -230,18 +326,20 @@ def fused_describe_clusters_t(weights_t: List[torch.Tensor], clusters_p: torch.T
     if rows != 8 * ns or ns != cfg.num_samples or not 1 <= ns <= 64:
         raise ValueError(f"fused_describe_clusters_t: {rows} rows is not 8 x "
                          f"num_samples={cfg.num_samples} (<= 64)")
-    flat, table = _kernel_weights(weights_t, cfg, clusters_p.device)
+    flat, table = _kernel_weights(weights_t, cfg, clusters_p.device, bf16=mode == "bf16")
     n_det, n_det2, n_desc = _n_layers(cfg)
     r = np.float32(cfg.base_scale)
     desc = torch.empty((b, cfg.feature_dim), dtype=torch.float32, device=clusters_p.device)
     att = torch.empty((b,), dtype=torch.float32, device=clusters_p.device)
-    kernels.launch_fused_describe(clusters_p, ns, flat, table, n_det, n_det2, n_desc,
+    kernels.launch_fused_describe(clusters_p, ns, flat, table, n_det, n_det2, n_desc, mode,
                                   float(r * r), float(np.float32(1.0) / r), desc, att)
     fused_describe_clusters_t.launches += 1
+    fused_describe_clusters_t.mode_launches[mode] += 1
     return desc, att
 
 
 fused_describe_clusters_t.launches = 0
+fused_describe_clusters_t.mode_launches = dict.fromkeys(kernels.DESCRIBE_MODES, 0)
 fused_describe_clusters_t.plain = fused_describe_clusters_t_plain
 
 
@@ -289,37 +387,68 @@ def transpose_unfolded_detector(weights: List[torch.Tensor]) -> List[torch.Tenso
     return out
 
 
-def _detector_layers(weights_t: List[torch.Tensor], cfg: ModelConfig):
-    """Split transpose_unfolded_detector() into conv layers (k, b, mu, mul,
-    beta) and the two heads (k, b); raise on a list of another tower."""
+def _detect_mode(unfolded: bool, bf16_operands: bool) -> str:
+    """K6's mode: 'unfolded', 'folded' or 'bf16_operands' (unfolded only)."""
+    if bf16_operands and not unfolded:
+        raise ValueError("fused_detect_clusters: bf16_operands needs unfolded=True")
+    return "bf16_operands" if bf16_operands else ("unfolded" if unfolded else "folded")
+
+
+def _detector_layers(weights_t: List[torch.Tensor], cfg: ModelConfig, unfolded: bool):
+    """Split the detector's weights into conv layers (k, b, mu, mul, beta)
+    and the two heads (k, b). unfolded: transpose_unfolded_detector()'s
+    list; else transpose_folded_weights(folded_weights(...)), whole or its
+    detector prefix, with no BN (mu, mul, beta None). Raises on a list of
+    another tower."""
     n_conv = len(cfg.detector_mlp) + len(cfg.detector_mlp2)
-    if len(weights_t) != 5 * n_conv + 4:
-        raise ValueError(f"fused_detect_clusters: {len(weights_t)} weight tensors do not "
-                         "match the config's detector (BN layers need use_bn)")
-    convs = [tuple(weights_t[5 * i:5 * i + 5]) for i in range(n_conv)]
-    heads = (tuple(weights_t[5 * n_conv:5 * n_conv + 2]),
-             tuple(weights_t[5 * n_conv + 2:5 * n_conv + 4]))
+    if unfolded:
+        if len(weights_t) != 5 * n_conv + 4:
+            raise ValueError(f"fused_detect_clusters: {len(weights_t)} weight tensors do not "
+                             "match the config's unfolded detector (BN layers need use_bn)")
+        convs = [tuple(weights_t[5 * i:5 * i + 5]) for i in range(n_conv)]
+        head0 = 5 * n_conv
+    else:
+        n_prefix = 2 * (n_conv + 2)
+        if len(weights_t) not in (n_prefix, n_prefix + 2 * (len(cfg.descriptor_mlp) + 2)):
+            raise ValueError(f"fused_detect_clusters: {len(weights_t)} weight tensors do not "
+                             "match the config's folded tower")
+        convs = [(weights_t[2 * i], weights_t[2 * i + 1], None, None, None)
+                 for i in range(n_conv)]
+        head0 = 2 * n_conv
+    heads = (tuple(weights_t[head0:head0 + 2]), tuple(weights_t[head0 + 2:head0 + 4]))
+    cins = [8] + [k.shape[0] for k, *_ in convs]        # the K-padded input, then each Cout
+    if not all(k.dim() == 2 and k.shape[1] == cin and tuple(b.shape) == (k.shape[0], 1)
+               for (k, b, *_), cin in zip(convs + list(heads), cins + cins[-1:])):
+        raise ValueError("fused_detect_clusters: the weight tensors do not chain as the "
+                         f"config's {'unfolded' if unfolded else 'folded'} detector")
     return convs, heads
 
 
 def fused_detect_clusters_plain(weights_t: List[torch.Tensor], clusters: torch.Tensor,
-                                cfg: ModelConfig, chunk: int = 8192
+                                cfg: ModelConfig, unfolded: bool = False,
+                                bf16_operands: bool = False, chunk: int = 8192
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K6: (B, ns, 3) origin-centred clusters ->
     (attention (B,), orientation (B,) angle), in chunks of `chunk` clusters.
 
     Membership d2 = (x·x + y·y) + z·z < r² (an empty cluster keeps its
-    first slot at the minimum d2); input divided by r; per slot Dense then
-    (v - mean)·mul + bn_bias then ReLU; masked max pool; post layers the
-    same way; attention logaddexp(x, 0); orientation atan2 of the
-    rsqrt(max(|o|², 1e-8))-normalised 2-vector. For the repeat-padded
-    clusters a ball query gives, the membership mask selects the same
-    points as slot < cnt.
+    first slot at the minimum d2); per slot Dense then ReLU; masked max
+    pool; post layers the same way; attention logaddexp(x, 0); orientation
+    atan2 of the rsqrt(max(|o|², 1e-8))-normalised 2-vector. For the
+    repeat-padded clusters a ball query gives, the membership mask selects
+    the same points as slot < cnt. Modes, as `_detect_kernel_2d`'s:
+    unfolded: input divided by r, each Dense followed by the replayed BN
+    (v - mean)·mul + bn_bias; folded (default): BN folded into the weights,
+    input times 1/r; bf16_operands (unfolded only): each product's
+    activation and kernel rounded to bf16, sums and BN in f32.
     """
-    convs, ((ka, ba), (ko, bo)) = _detector_layers(weights_t, cfg)
+    _detect_mode(unfolded, bf16_operands)
+    convs, ((ka, ba), (ko, bo)) = _detector_layers(weights_t, cfg, unfolded)
+    rnd = _round_bf16 if bf16_operands else _identity
     n_det = len(cfg.detector_mlp)
     r = torch.tensor(cfg.base_scale, dtype=torch.float32)
     r2 = (r * r).item()
+    inv_r = 1.0 / r
     atts, oris = [], []
     for c0 in range(0, clusters.shape[0], chunk):
         x = clusters[c0:c0 + chunk].to(torch.float32)                # (b, ns, 3)
@@ -332,18 +461,20 @@ def fused_detect_clusters_plain(weights_t: List[torch.Tensor], clusters: torch.T
         first = torch.where(d2 <= d2.min(dim=1, keepdim=True).values, slots, ns)
         first = first.min(dim=1, keepdim=True).values
         mask = (in_ball | (empty & (slots == first))).to(torch.float32)
-        h = x / r.to(x.device)
+        h = x / r.to(x.device) if unfolded else x * inv_r.to(x.device)
         for li, (k, b, mu, mul, beta) in enumerate(convs):
             if li == n_det:
                 h = (h * mask[..., None]).amax(dim=1)                # (b, C)
             kk = k[:, :h.shape[-1]]
-            v = torch.matmul(h, kk.t()) + b[:, 0]
-            h = torch.relu((v - mu[:, 0]) * mul[:, 0] + beta[:, 0])
+            v = torch.matmul(rnd(h), rnd(kk).t()) + b[:, 0]
+            if mu is not None:
+                v = (v - mu[:, 0]) * mul[:, 0] + beta[:, 0]
+            h = torch.relu(v)
         if len(convs) == n_det:
             h = (h * mask[..., None]).amax(dim=1)
-        a = torch.matmul(h, ka.t()) + ba[:, 0]
+        a = torch.matmul(rnd(h), rnd(ka).t()) + ba[:, 0]
         atts.append(torch.logaddexp(a[:, 0], torch.zeros((), device=x.device)))
-        o = torch.matmul(h, ko.t()) + bo[:, 0]
+        o = torch.matmul(rnd(h), rnd(ko).t()) + bo[:, 0]
         o = o * torch.rsqrt(torch.clamp((o * o).sum(dim=1, keepdim=True), min=1e-8))
         oris.append(torch.atan2(o[:, 1], o[:, 0]))
     if not atts:
@@ -352,14 +483,17 @@ def fused_detect_clusters_plain(weights_t: List[torch.Tensor], clusters: torch.T
     return torch.cat(atts), torch.cat(oris)
 
 
-def _detect_kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, device
+def _detect_kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, device,
+                           unfolded: bool, bf16: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat (Cin, Cout) weight buffer + (cin, cout, w, b, mu, mul, beta)
-    offset table for kernel K6 (-1 for the heads' missing BN). The first
-    layer keeps 4 input rows (x, y, z, 0); every block starts on a 16-byte
-    boundary."""
-    convs, heads = _detector_layers(weights_t, cfg)
+    offset table for kernel K6 (-1 where a layer has no BN: the heads, and
+    every layer of the folded tower). The first layer keeps 4 input rows
+    (x, y, z, 0); every block starts on a 16-byte boundary. bf16: the kernel
+    matrices rounded to bf16 values."""
+    convs, heads = _detector_layers(weights_t, cfg, unfolded)
     n_det = len(cfg.detector_mlp)
+    rnd = _round_bf16 if bf16 else _identity
     pieces, table, off = [], [], 0
 
     def put(t):
@@ -373,7 +507,7 @@ def _detect_kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, devi
 
     for li, layer in enumerate(list(convs) + [h + (None, None, None) for h in heads]):
         k, b, mu, mul, beta = layer
-        w = k.t()
+        w = rnd(k.t())
         if w.shape[0] == 8:
             w = w[:4]                       # rows 3..7 are the zero pad
         cin, cout = w.shape
@@ -390,16 +524,25 @@ def _detect_kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, devi
 
 
 def fused_detect_clusters(weights_t: List[torch.Tensor], clusters: torch.Tensor,
-                          cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                          cfg: ModelConfig, unfolded: bool = False,
+                          bf16_operands: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Detector-only tower through kernel K6: (B, ns, 3) origin-centred
-    clusters + transpose_unfolded_detector(detector_weights_unfolded(...))
-    -> (attention (B,), orientation (B,) angle).
+    clusters -> (attention (B,), orientation (B,) angle).
+
+    weights_t: transpose_folded_weights(folded_weights(...)) (whole, or its
+    detector prefix) for the default folded mode; with unfolded=True,
+    transpose_unfolded_detector(detector_weights_unfolded(...)), the
+    model path's rounding; bf16_operands (unfolded only) rounds each
+    product's operands to bf16. Each launch counts in `launches` and in
+    `mode_launches[mode]` (mode 'unfolded', 'folded' or 'bf16_operands').
 
     CPU tensors take `fused_detect_clusters_plain`; CUDA tensors launch the
     kernel, and anything it does not take raises.
     """
+    mode = _detect_mode(unfolded, bf16_operands)
     if clusters.device.type == "cpu":
-        return fused_detect_clusters_plain(weights_t, clusters, cfg)
+        return fused_detect_clusters_plain(weights_t, clusters, cfg, unfolded=unfolded,
+                                           bf16_operands=bf16_operands)
     if clusters.device.type != "cuda":
         raise ValueError(f"fused_detect_clusters: unsupported device {clusters.device}")
     if clusters.dtype != torch.float32 or clusters.dim() != 3 or clusters.shape[2] != 3:
@@ -410,14 +553,18 @@ def fused_detect_clusters(weights_t: List[torch.Tensor], clusters: torch.Tensor,
         raise ValueError(f"fused_detect_clusters: {ns} samples, num_samples="
                          f"{cfg.num_samples} (<= 64)")
     clusters = clusters.contiguous()
-    flat, table = _detect_kernel_weights(weights_t, cfg, clusters.device)
+    flat, table = _detect_kernel_weights(weights_t, cfg, clusters.device, unfolded,
+                                         bf16=bf16_operands)
     r = np.float32(cfg.base_scale)
     out = torch.empty((b, 3), dtype=torch.float32, device=clusters.device)
     kernels.launch_fused_detect(clusters, flat, table, len(cfg.detector_mlp),
-                                len(cfg.detector_mlp2), float(r), float(r * r), out)
+                                len(cfg.detector_mlp2), not unfolded, bf16_operands, float(r),
+                                float(np.float32(1.0) / r), float(r * r), out)
     fused_detect_clusters.launches += 1
+    fused_detect_clusters.mode_launches[mode] += 1
     return out[:, 0], torch.atan2(out[:, 2], out[:, 1])
 
 
 fused_detect_clusters.launches = 0
+fused_detect_clusters.mode_launches = dict.fromkeys(("unfolded", "folded", "bf16_operands"), 0)
 fused_detect_clusters.plain = fused_detect_clusters_plain

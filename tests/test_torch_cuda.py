@@ -10,7 +10,9 @@ FPS, the ball query, the sorted ball query (K4) and the ball max (K5)
 must be index-exact; the fused describe kernel within max |d| 1e-4 and
 attention relative 1e-4, the detector-only kernel (K6) within attention
 relative 1e-5 and orientation 1e-5 rad (f32 products summed in another
-order than the plain version's), the training passes K7-K10 within the
+order than the plain version's); their bf16 modes within one bf16 step,
+as stated at each test; K3's stream body exact and its matmul body within
+1e-5 max|ref|; the training passes K7-K10 within the
 tolerances of tests/test_fused_train.py (means rtol 1e-5, pooled 1e-4,
 dW / dgamma / dbeta rtol 5e-3 with atol 5e-4 max|ref|, db atol 1e-3, dx
 rtol 5e-3 / atol 5e-5), and bit-equal across two runs. TF32 is off.
@@ -132,12 +134,92 @@ def test_fused_detect_kernel_matches_plain(dev, rs):
     wt = [w.to(dev) for w in tfd.transpose_unfolded_detector(
         tfd.detector_weights_unfolded(init_variables(cfg, seed=2, bn_perturb=0.1), cfg))]
     x = torch.from_numpy(c).to(dev)
-    ak, ok = tfd.fused_detect_clusters(wt, x, cfg)
-    ap, op = tfd.fused_detect_clusters_plain(wt, x, cfg)
+    ak, ok = tfd.fused_detect_clusters(wt, x, cfg, unfolded=True)
+    ap, op = tfd.fused_detect_clusters_plain(wt, x, cfg, unfolded=True)
     torch.cuda.synchronize()
     assert ((ak - ap).abs() / ap.abs().clamp(min=1e-6)).max().item() <= 1e-5
     d = ok - op
     assert ((d + np.pi) % (2 * np.pi) - np.pi).abs().max().item() <= 1e-5
+
+
+def _k3_case(rs, dev):
+    cfg = ModelConfig()
+    c = (rs.randn(300, cfg.num_samples, 3) * 1.6).astype(np.float32)
+    c[5] += 30.0                                   # empty ball -> nearest fallback
+    c[7, 32:] = c[7, :32]                          # duplicates -> first-min ties
+    c[9, 32:] += 30.0                              # partial ball
+    wt = [w.to(dev) for w in tfd.transpose_folded_weights(
+        tfd.folded_weights(init_variables(cfg, seed=2, bn_perturb=0.1), cfg))]
+    return cfg, wt, torch.from_numpy(tfd.pack_clusters_lanes(c)).to(dev)
+
+
+def test_fused_describe_bf16_kernel_matches_plain(dev, rs):
+    """bf16 activations: the products are exact on both sides, the f32 sums
+    run in another order and may flip a bf16 rounding: descriptors within
+    one bf16 step (2^-8) and cosine >= 0.9999, attention relative 1e-2."""
+    cfg, wt, packed = _k3_case(rs, dev)
+    n0 = tfd.fused_describe_clusters_t.mode_launches["bf16"]
+    dk, ak = tfd.fused_describe_clusters_t(wt, packed, cfg, bf16_act=True)
+    dp, ap = tfd.fused_describe_clusters_t_plain(wt, packed, cfg, bf16_act=True)
+    torch.cuda.synchronize()
+    assert tfd.fused_describe_clusters_t.mode_launches["bf16"] == n0 + 1
+    assert (dk - dp).abs().max().item() <= 2.0 ** -8
+    assert torch.nn.functional.cosine_similarity(dk, dp, dim=1).min().item() >= 0.9999
+    assert ((ak - ap).abs() / ap.abs().clamp(min=1e-6)).max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("ablate", ["stream", "matmul", "matmul_2d"])
+def test_fused_describe_ablate_kernel_matches_plain(dev, rs, ablate):
+    """stream exact; matmul and matmul_2d within 1e-5 max|ref|
+    (unnormalised sums)."""
+    cfg, wt, packed = _k3_case(rs, dev)
+    dk, ak = tfd.fused_describe_clusters_t(wt, packed, cfg, ablate=ablate)
+    dp, ap = tfd.fused_describe_clusters_t_plain(wt, packed, cfg, ablate=ablate)
+    torch.cuda.synchronize()
+    if ablate == "stream":
+        assert torch.equal(dk, dp) and torch.equal(ak, ap)
+    else:
+        assert (dk - dp).abs().max().item() <= 1e-5 * dp.abs().max().item()
+        assert (ak - ap).abs().max().item() <= 1e-5 * ap.abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["folded", "bf16_operands"])
+def test_fused_detect_modes_match_plain(dev, rs, mode):
+    """folded: attention relative 1e-5, orientation 1e-5 rad. bf16_operands:
+    both within 1e-4 on >= 99.9 % of centres (a flipped bf16 rounding moves
+    an activation by 2^-8; the kernel read 6e-7 against its plain version at
+    the extraction shapes), and the f32 kernel must fail that limit against
+    the plain bf16_operands version, so the check can tell a kernel that
+    skips the rounding."""
+    cfg = ModelConfig()
+    c = (rs.randn(300, cfg.num_samples, 3) * 1.6).astype(np.float32)
+    c[5] += 30.0
+    c[7, 32:] = c[7, :32]
+    v = init_variables(cfg, seed=2, bn_perturb=0.1)
+    if mode == "folded":
+        wt, kw, tol = tfd.transpose_folded_weights(tfd.folded_weights(v, cfg)), {}, 1e-5
+    else:
+        wt = tfd.transpose_unfolded_detector(tfd.detector_weights_unfolded(v, cfg))
+        kw, tol = dict(unfolded=True, bf16_operands=True), 1e-4
+    wt = [w.to(dev) for w in wt]
+    x = torch.from_numpy(c).to(dev)
+    n0 = tfd.fused_detect_clusters.mode_launches[mode]
+    ak, ok = tfd.fused_detect_clusters(wt, x, cfg, **kw)
+    ap, op = tfd.fused_detect_clusters_plain(wt, x, cfg, **kw)
+    torch.cuda.synchronize()
+    assert tfd.fused_detect_clusters.mode_launches[mode] == n0 + 1
+
+    def within(a, o):
+        a_rel = (a - ap).abs() / ap.abs().clamp(min=1e-6)
+        o_err = ((o - op + np.pi) % (2 * np.pi) - np.pi).abs()
+        return ((a_rel <= tol) & (o_err <= tol)).float().mean().item()
+
+    if mode == "folded":
+        assert within(ak, ok) == 1.0
+    else:
+        assert within(ak, ok) >= 0.999
+        af, of = tfd.fused_detect_clusters(wt, x, cfg, unfolded=True)
+        assert within(af, of) < 0.999
 
 
 def _tower_case(rs, dev, plan_kind, g_total, gp, ns=16):

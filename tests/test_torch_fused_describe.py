@@ -179,13 +179,14 @@ def test_plain_k6_matches_jax_detect_2d(rng, source):
                                           jnp.asarray(clusters), jcfg, tile=8, unfolded=True)
     n0 = tfd.fused_detect_clusters.launches
     wt = tfd.transpose_unfolded_detector(tfd.detector_weights_unfolded(v, tcfg))
-    ta, to = tfd.fused_detect_clusters(wt, torch.from_numpy(clusters), tcfg)
+    ta, to = tfd.fused_detect_clusters(wt, torch.from_numpy(clusters), tcfg, unfolded=True)
     assert tfd.fused_detect_clusters.launches == n0        # CPU: plain version
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-5, atol=1e-7)
     d = to.numpy() - np.asarray(jo)
     assert np.abs((d + np.pi) % (2 * np.pi) - np.pi).max() <= 1e-5
     # chunking changes only the matmuls' blocking (last-ulp differences)
-    ca, _ = tfd.fused_detect_clusters_plain(wt, torch.from_numpy(clusters), tcfg, chunk=7)
+    ca, _ = tfd.fused_detect_clusters_plain(wt, torch.from_numpy(clusters), tcfg, unfolded=True,
+                                            chunk=7)
     np.testing.assert_allclose(ca.numpy(), ta.numpy(), rtol=1e-6)
 
 
@@ -196,8 +197,8 @@ def test_k6_weight_table_layout(rng):
     cfg = ModelConfig(**SMALL)
     wt = tfd.transpose_unfolded_detector(
         tfd.detector_weights_unfolded(init_variables(cfg, seed=1, bn_perturb=0.1), cfg))
-    flat, table = tfd._detect_kernel_weights(wt, cfg, torch.device("cpu"))
-    convs, heads = tfd._detector_layers(wt, cfg)
+    flat, table = tfd._detect_kernel_weights(wt, cfg, torch.device("cpu"), unfolded=True)
+    convs, heads = tfd._detector_layers(wt, cfg, unfolded=True)
     assert table.shape == (len(convs) + 2, 7) and table.dtype == torch.int32
     for row, layer in zip(table.tolist(), list(convs) + list(heads)):
         cin, cout, w_off = row[:3]
@@ -209,4 +210,4 @@ def test_k6_weight_table_layout(rng):
         assert all(o % 4 == 0 for o in row[2:] if o >= 0)
     assert table[0, 0].item() == 4 and (table[-2:, 4:] == -1).all()
     with pytest.raises(ValueError, match="weight tensors"):
-        tfd.fused_detect_clusters(wt[:-1], torch.zeros(2, 8, 3), cfg)
+        tfd.fused_detect_clusters(wt[:-1], torch.zeros(2, 8, 3), cfg, unfolded=True)
