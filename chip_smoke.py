@@ -51,7 +51,10 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      and that 30 steps with the kernels on one batch lower the loss;
   12. times a training step per route (median of 12, synchronised, with
      peak memory and a torch.profiler breakdown) and K7-K10 per call
-     against their plain versions, each beside its bound;
+     against their plain versions, each beside its bound (K10's own
+     products at the TF32 tensor-core peak; also printed at the f32), then
+     splits K10's time by stage (train_bwd_time_split: the kernel leaving
+     each cluster after the recompute, the dy step, dW, dy W^T);
   13. holds K3's bf16-activation mode against its plain version on the 7 680
      serving clusters with phase 1's weights (min cosine >= 0.9999, >= 99.9 %
      of descriptors within 2^-8, attention relative <= 1e-2) and prints it
@@ -71,15 +74,29 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      bf16_operands version must fail that limit) against their plain
      versions at phase 5's shapes and trained weights, after a counted run
      of both modes on every cloud; folded vs unfolded attention <= 1e-3
-     relative; times per mode.
+     relative; times per mode;
+  17. runs the model with ModelConfig.compute_dtype bf16: the eval forward
+     on the vendored clouds against f32 with the JAX package's gate
+     (cosine > 0.98 on > 90 % of descriptors) and a median attention gap
+     to f32 of at least 1e-4 (the bf16 rounding shows), then one training
+     step, which takes the autograd route: a finite loss, no fused-tower
+     launch.
+Option: --parent DIR also builds another tree's training kernels (its
+csrc/fused_train.cu and common.cuh; DIR a checkout, e.g. a parent commit
+unpacked with git archive, or its csrc/) and, at the end of phase 12,
+holds K7-K10 against them on phase 9's inputs (parent_ab: ptxas lines of
+both, K7-K9 bit-equal, K10 at phase 9's tolerances and timed in turns).
 It writes only under build/ in the checkout.
 The line before last is a JSON summary of the sixteen kernel entries (K1-K10
 and K3's and K6's extra modes: times, their bounds from this run's shapes at
-the H100's f32 (bf16 modes: bf16 tensor-core) and HBM peaks, launches on
-their path); the last line is {"ok": true, "device": {...}}. Any failure
+the H100's f32 (bf16 modes: bf16 tensor-core; K10's own products: TF32
+tensor-core) and HBM peaks, launches on their path); the last line is
+{"ok": true, "device": {...}}. Any failure
 raises (non-zero exit). It needs a CUDA device and refuses to run without
 one.
 """
+import contextlib
+import functools
 import itertools
 import json
 import os
@@ -103,6 +120,7 @@ SEED = 0
 # H100 SXM peaks: f32 outside the tensor cores, bf16 dense tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -139,9 +157,11 @@ def nbytes(*tensors):
 
 
 def mean_bound(bounds):
-    """Mean (ms, what bounds the most of them) over per-call bounds."""
-    kinds = [b[1] for b in bounds]
-    return float(np.mean([b[0] for b in bounds])), max(set(kinds), key=kinds.count)
+    """Mean (ms, what bounds the most of that time) over per-call bounds."""
+    per_kind = {}
+    for ms, kind in bounds:
+        per_kind[kind] = per_kind.get(kind, 0.0) + ms
+    return float(np.mean([b[0] for b in bounds])), max(per_kind, key=per_kind.get)
 
 
 def tower_macs(cfg, detector=True, descriptor=True):
@@ -440,6 +460,7 @@ TIE_CLUSTERS = 256       # clusters whose 64 slots are made equal (every slot ti
 # its rival: the kernel and the plain version sum in other orders
 FLIP_SHARE = 1e-5
 TRAIN_KERNELS = ("train_stats", "train_final", "train_bwd_top", "train_bwd")
+PARENT_BUILD = (("fused_train.cu",), ("common.cuh",))    # --parent: sources, headers
 
 
 def compare(name, got, want, rtol, atol, max_share=0.0):
@@ -452,6 +473,27 @@ def compare(name, got, want, rtol, atol, max_share=0.0):
             f"{name}: {100 * share:.5f} % of elements outside rtol {rtol:g} / atol "
             f"{atol:.3g} (max |d| {d.max().item():.3e})")
     return d.max().item(), share
+
+
+def compare_bwd(tag, j, got, want, cot_rtol):
+    """K10's outputs (dW, db, do_prev or dx, the next conv's sums) for conv
+    j against `want` at phase 9's tolerances; returns dW's max |d|."""
+    dw_k, db_k, out_k, bst_k = got
+    dw_p, db_p, out_p, bst_p = want
+    dw_scale = dw_p.abs().max().item()
+    e, _ = compare(f"{tag} dW", dw_k, dw_p, 5e-3, 5e-4 * dw_scale)
+    # db is analytically zero under BN: both sides are the rounding noise of
+    # a sum over ns * G rows, held to the layer's weight-gradient scale
+    compare(f"{tag} db", db_k, db_p, 0.0, 5e-4 * dw_scale)
+    if j > 0:
+        _, share = compare(f"{tag} do_prev", out_k, out_p, cot_rtol, 5e-5, FLIP_SHARE)
+        compare(f"{tag} next sums", bst_k, bst_p, 5e-3, 5e-4 * bst_p.abs().max().item())
+    else:
+        _, share = compare(f"{tag} dx", out_k, out_p, 5e-3, 5e-5, FLIP_SHARE)
+    if share:
+        print(f"  {tag}: {100 * share:.5f} % of the elementwise output past tolerance "
+              f"(<= {100 * FLIP_SHARE:g} %)")
+    return e
 
 
 def training_batch(dev, seed):
@@ -601,34 +643,25 @@ def check_train_passes(tag, x, plan, flat, cot, eps):
         args = (x, plan, folded[:j + 1], means[j], isigs[j], src, bst[0] / count,
                 bst[1] / count, flat[4 * j + 2] * isigs[j], means[j - 1] if j else None,
                 isigs[j - 1] if j else None, gp, cot)
-        dw_k, db_k, out_k, bst_k = ft.bwd_pass(*args)
-        dw_p, db_p, out_p, bst_p = ft.bwd_pass.plain(*args)
-        again = ft.bwd_pass(*args)
-        require(torch.equal(again[0], dw_k) and torch.equal(again[1], db_k)
-                and torch.equal(again[2], out_k)
-                and (j == 0 or torch.equal(again[3], bst_k)), f"{tag} K10 {j}: not bit-equal")
-        dw_scale = dw_p.abs().max().item()
-        e, _ = compare(f"{tag} K10 conv {j} dW", dw_k, dw_p, 5e-3, 5e-4 * dw_scale)
-        errs["train_bwd"] = max(errs["train_bwd"], e)
-        # db is analytically zero under BN: both sides are the rounding noise of
-        # a sum over ns * G rows, held to the layer's weight-gradient scale
-        compare(f"{tag} K10 conv {j} db", db_k, db_p, 0.0, 5e-4 * dw_scale)
-        if j > 0:
-            _, share = compare(f"{tag} K10 conv {j} do_prev", out_k, out_p, cot_rtol, 5e-5,
-                               FLIP_SHARE)
-            compare(f"{tag} K10 conv {j} next sums", bst_k, bst_p, 5e-3,
-                    5e-4 * bst_p.abs().max().item())
-        else:
-            _, share = compare(f"{tag} K10 dx", out_k, out_p, 5e-3, 5e-5, FLIP_SHARE)
-        if share:
-            print(f"  {tag} K10 conv {j}: {100 * share:.5f} % of the elementwise output past "
-                  f"tolerance (<= {100 * FLIP_SHARE:g} %)")
-        extra = macs[j] if j > 0 else 3 * io[0][1]
-        calls["train_bwd"].append((
-            lambda args=args: ft.bwd_pass(*args), lambda args=args: ft.bwd_pass.plain(*args),
-            bound_ms(2.0 * rows * (sum(macs[:j + 1]) + macs[j] + extra),
-                     nbytes(x, src, out_k) + wbytes + nblk * (dw_k.numel() + db_k.numel()) * 4)))
-        src, bst = out_p, bst_p
+        got, want, again = ft.bwd_pass(*args), ft.bwd_pass.plain(*args), ft.bwd_pass(*args)
+        require(all(a is b or torch.equal(a, b) for a, b in zip(again, got)),
+                f"{tag} K10 {j}: not bit-equal")
+        errs["train_bwd"] = max(errs["train_bwd"],
+                                compare_bwd(f"{tag} K10 conv {j}", j, got, want, cot_rtol))
+        # the recompute (f32 FMA on the CUDA cores) and K10's own products, dW
+        # and dy W^T (dx), on the TF32 tensor cores
+        rec, own = 2.0 * rows * sum(macs[:j + 1]), 2.0 * rows * (macs[j] + (
+            macs[j] if j > 0 else 3 * io[0][1]))
+        moved = nbytes(x, src, got[2]) + wbytes + nblk * (got[0].numel() + got[1].numel()) * 4
+        kf = lambda args=args, **kw: ft.bwd_pass(*args, **kw)
+        kf.conv, kf.cot_rtol = j, cot_rtol
+        # printed beside the bound: the same work with every product at the
+        # f32 CUDA-core peak
+        kf.f32_bound = bound_ms(rec + own, moved)[0]
+        # the bound: the recompute at the f32 peak, the own products at TF32's
+        calls["train_bwd"].append((kf, lambda args=args: ft.bwd_pass.plain(*args),
+                                   bound_ms(rec + own * PEAK_F32_FLOPS / PEAK_TF32_FLOPS, moved)))
+        src, bst = want[2], want[3]
     return errs, calls
 
 
@@ -678,30 +711,19 @@ def noise_leaves(grads):
     return {k for k, g in grads.items() if g.abs().max().item() <= 1e-4 * top}
 
 
-def training_phases(dev, card):
-    """Phases 9-12: K7-K10 against their plain versions at the training
-    shapes, the training path through cli.train with counters reset, checks
-    on the step, and times. Returns ({kernel: report} for K7-K10, the
-    training path's launches)."""
-    import statistics
-
+def train_kernel_phase(dev):
+    """Phase 9: K7-K10 against their plain versions at the training shapes.
+    Returns ({kernel: report}, {kernel: [(kernel_fn, plain_fn, bound)]} of
+    the f32-cotangent calls, for the times)."""
     import torch
 
-    from feat3dnet_tpu_torch.cli import train as train_cli
-    from feat3dnet_tpu_torch.config import ModelConfig, TrainConfig
-    from feat3dnet_tpu_torch.data.augment import resolve_augmentations
+    from feat3dnet_tpu_torch.config import ModelConfig
     from feat3dnet_tpu_torch.models import Feat3DNet
-    from feat3dnet_tpu_torch.ops import batch_group, fps
-    from feat3dnet_tpu_torch.ops import fused_train as ft
-    from feat3dnet_tpu_torch.train import init_state, make_fused_train_step, make_train_step
     from feat3dnet_tpu_torch.utils import init_variables, load_variables
 
     cfg = ModelConfig()
-    tcfg = TrainConfig()
     report = {k: {"max_abs_err": 0.0} for k in TRAIN_KERNELS}
     xyz = training_batch(dev, SEED)
-
-    # ---- 9. K7-K10 against their plain versions at the training shapes -------
     t0 = time.perf_counter()
     model = load_variables(Feat3DNet(cfg), init_variables(cfg, seed=SEED, bn_perturb=0.1)).to(dev)
     towers = tower_params(model, cfg)
@@ -722,6 +744,159 @@ def training_phases(dev, card):
     print(f"K7-K10 at (ns, G) = {tuple(xs['detector'].shape[:2])}, both plans, f32 and bf16 "
           f"cotangents, {TIE_CLUSTERS} all-ties clusters: within tolerance, bit-equal on "
           f"repeat; max |d|: {errs} ({time.perf_counter() - t0:.1f} s)")
+    return report, timed
+
+
+def train_kernel_times(timed, report, card):
+    """Phase 12's kernel part: K7-K10 per call against their plain versions
+    (in turns), each beside its bound, then K10's time split."""
+    import torch
+
+    with torch.no_grad():
+        for k, cl in timed.items():
+            per = [(*in_turns(kf, pf, 3, 2), b) for kf, pf, b in cl]
+            report[k]["ms"] = float(np.mean([q[0] for q in per]))
+            report[k]["plain_ms"] = float(np.mean([q[1] for q in per]))
+            report[k]["bound_ms"], report[k]["bound_by"] = mean_bound([q[2] for q in per])
+            print(f"[{card}] {k}: {len(per)} calls (both towers), kernel "
+                  f"{[round(q[0], 4) for q in per]} ms, plain {[round(q[1], 4) for q in per]} ms, "
+                  f"bound {[round(q[2][0], 4) for q in per]} ms")
+        f32 = [kf.f32_bound for kf, _, _ in timed["train_bwd"]]
+        print(f"[{card}] train_bwd bound with its own products at the f32 CUDA-core peak: "
+              f"{[round(b, 4) for b in f32]} ms")
+        for i, (kf, _, _) in enumerate(timed["train_bwd"]):
+            sp = train_bwd_time_split(kf)
+            print(f"[{card}] train_bwd call {i} split: " + ", ".join(
+                f"{k} {v:.4f}" + ("" if k.endswith("share") else " ms") for k, v in sp.items()))
+
+
+def train_bwd_time_split(kernel_fn, reps=3):
+    """K10's time split, as serving_time_split splits K3: ms per call of the
+    kernel that leaves each cluster after the recompute, the dy step, dW and
+    dy W^T, and of the whole kernel (CUDA events, `reps` back-to-back calls,
+    warmed up, in turns forward then backward), with each stage's share of
+    the whole: recompute, dy, dW, dy W^T and the rest (the cotangent's pool
+    routing, rounding and the next conv's sums)."""
+    import torch
+
+    stops = ("recompute", "dy", "dw", "dcat", None)
+    runs = {k or "full": (lambda k=k: kernel_fn(stop=k)) for k in stops}
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    ms = dict.fromkeys(runs, 0.0)
+    for k in list(runs) + list(runs)[::-1]:
+        ms[k] += cuda_ms(runs[k], reps) / 2
+    prev = 0.0
+    for k in runs:
+        ms[f"{k}_share"] = (ms[k] - prev) / ms["full"]
+        prev = ms[k]
+    return ms
+
+
+@functools.lru_cache(maxsize=None)
+def other_library(csrc):
+    """This tree's entry points, but the training passes' (f3d_train_*) from
+    another tree's csrc/fused_train.cu, built alone and declared as this
+    tree's are; one the other tree lacks is left undefined."""
+    import ctypes
+    import types
+
+    from feat3dnet_tpu_torch import kernels
+
+    mine = kernels.library()
+    theirs = ctypes.CDLL(kernels.build(csrc, *PARENT_BUILD).path)
+    lib = types.SimpleNamespace(**{n: getattr(mine, n) for n in dir(mine) if n.startswith("f3d_")})
+    for name in [n for n in vars(lib) if n.startswith("f3d_train_")]:
+        if hasattr(theirs, name):
+            fn, ref = getattr(theirs, name), getattr(mine, name)
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+            setattr(lib, name, fn)
+        else:
+            delattr(lib, name)
+    return lib
+
+
+@contextlib.contextmanager
+def kernels_from(csrc):
+    """Every launch inside goes through other_library(csrc)."""
+    from feat3dnet_tpu_torch import kernels
+
+    saved = kernels.library
+    lib = other_library(os.path.abspath(csrc))
+    kernels.library = lambda: lib
+    try:
+        yield
+    finally:
+        kernels.library = saved
+
+
+def parent_ab(parent, timed, card):
+    """The training kernels of another tree (`--parent`: a checkout or its
+    csrc/, of which only fused_train.cu and common.cuh are built) against
+    this one's on phase 9's f32-cotangent inputs: both trees' ptxas lines
+    for fused_train.cu, K7-K9 bit-equal, K10 at phase 9's tolerances and
+    timed in turns (parent, this, this, parent)."""
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+
+    csrc = os.path.join(parent, "feat3dnet_tpu_torch", "csrc")
+    csrc = os.path.abspath(csrc if os.path.isdir(csrc) else parent)
+    missing = [f for f in sum(PARENT_BUILD, ()) if not os.path.isfile(os.path.join(csrc, f))]
+    require(not missing, f"--parent: {csrc} has no {', '.join(missing)}")
+    for tag, info in (("parent", kernels.build(csrc, *PARENT_BUILD)), ("this", kernels.build())):
+        entry = ""
+        for line in info.ptxas.splitlines():
+            if "Compiling entry" in line:
+                entry = line
+            if "train_" in entry and ("Compiling entry" in line or "Used" in line
+                                      or "spill" in line):
+                print(f"  ptxas ({tag}): {line.strip()}")
+    with torch.no_grad():
+        for k, cl in timed.items():
+            for i, (kf, _, _) in enumerate(cl):
+                def parent_fn(kf=kf):
+                    with kernels_from(csrc):
+                        return kf()
+                mine, theirs = kf(), parent_fn()
+                if k != "train_bwd":
+                    mine = mine if isinstance(mine, tuple) else (mine,)
+                    theirs = theirs if isinstance(theirs, tuple) else (theirs,)
+                    require(all(torch.equal(a, b) for a, b in zip(mine, theirs)),
+                            f"{k} call {i}: not bit-equal to the parent's")
+                    continue
+                e = compare_bwd(f"train_bwd call {i} vs parent", kf.conv, mine, theirs,
+                                kf.cot_rtol)
+                ms, ms_parent = in_turns(kf, parent_fn, 3, 3)
+                print(f"[{card}] train_bwd call {i}: parent {ms_parent:.4f} ms, this {ms:.4f} ms; "
+                      f"within phase 9's tolerances of the parent (dW max |d| {e:.3e})")
+        print("K7-K9 bit-equal to the parent's on phase 9's f32-cotangent inputs")
+
+
+def training_phases(dev, card, parent=None):
+    """Phases 9-12: K7-K10 against their plain versions at the training
+    shapes, the training path through cli.train with counters reset, checks
+    on the step, and times (and `parent_ab` when a parent tree is given).
+    Returns ({kernel: report} for K7-K10, the training path's launches)."""
+    import statistics
+
+    import torch
+
+    from feat3dnet_tpu_torch.cli import train as train_cli
+    from feat3dnet_tpu_torch.config import ModelConfig, TrainConfig
+    from feat3dnet_tpu_torch.data.augment import resolve_augmentations
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.ops import batch_group, fps
+    from feat3dnet_tpu_torch.ops import fused_train as ft
+    from feat3dnet_tpu_torch.train import init_state, make_fused_train_step, make_train_step
+    from feat3dnet_tpu_torch.utils import init_variables, load_variables
+
+    cfg = ModelConfig()
+    tcfg = TrainConfig()
+
+    # ---- 9. K7-K10 against their plain versions at the training shapes -------
+    report, timed = train_kernel_phase(dev)
 
     # ---- 10. the training path, counters from zero -----------------------------
     root = os.path.join(HERE, "build", "chip_smoke_train")
@@ -926,16 +1101,66 @@ def training_phases(dev, card):
               f"augmented): median "
               f"{np.mean([v[0] for v in vals]):.2f} ms (runs {[round(v[0], 2) for v in vals]}), "
               f"peak memory {max(v[1] for v in vals):.2f} GiB")
-    with torch.no_grad():
-        for k, cl in timed.items():
-            per = [(*in_turns(kf, pf, 3, 2), b) for kf, pf, b in cl]
-            report[k]["ms"] = float(np.mean([q[0] for q in per]))
-            report[k]["plain_ms"] = float(np.mean([q[1] for q in per]))
-            report[k]["bound_ms"], report[k]["bound_by"] = mean_bound([q[2] for q in per])
-            print(f"[{card}] {k}: {len(per)} calls (both towers), kernel "
-                  f"{[round(q[0], 4) for q in per]} ms, plain {[round(q[1], 4) for q in per]} ms, "
-                  f"bound {[round(q[2][0], 4) for q in per]} ms")
+    train_kernel_times(timed, report, card)
+    if parent:
+        parent_ab(parent, timed, card)
     return report, launches
+
+
+def bf16_model_phase(dev, card):
+    """Phase 17: the model with ModelConfig.compute_dtype bf16 on the card.
+    The eval forward on the vendored clouds against the f32 forward with the
+    JAX package's own gate (cosine > 0.98 on > 90 % of descriptors), outputs
+    f32; then one training step, which takes the autograd route (the fused
+    towers are f32 only, as in JAX): a finite loss, no fused-tower launch."""
+    import torch
+
+    from feat3dnet_tpu_torch.config import ModelConfig, TrainConfig
+    from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.ops import fused_train as ft
+    from feat3dnet_tpu_torch.train import init_state, make_fused_train_step
+    from feat3dnet_tpu_torch.utils import init_variables, load_variables
+
+    cfg32 = ModelConfig()
+    cfg16 = ModelConfig(compute_dtype=torch.bfloat16, fused_towers=True)
+    variables = init_variables(cfg32, seed=SEED, bn_perturb=0.1)
+    m32 = load_variables(Feat3DNet(cfg32), variables).to(dev).eval()
+    m16 = load_variables(Feat3DNet(cfg16), variables).to(dev).eval()
+    with torch.no_grad():
+        for name in CLOUDS:
+            xyz = torch_from(load_point_cloud(example_cloud_path(name))[None, :, :3], dev)
+            o32, o16 = m32(xyz), m16(xyz)
+            require(all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+                        for t in (o16.features, o16.attention, o16.orientation)),
+                    f"bf16 model outputs on {name}: not finite float32")
+            cos = (o32.features * o16.features).sum(-1)
+            frac = (cos > 0.98).float().mean().item()
+            att = ((o16.attention - o32.attention).abs()
+                   / o32.attention.abs().clamp(min=1e-6)).median().item()
+            print(f"bf16 model {name}: {100 * frac:.2f} % of descriptors at cosine > 0.98 to "
+                  f"f32 (> 90 %), min cosine {cos.min().item():.5f}, attention median "
+                  f"relative {att:.2e} (>= 1e-4)")
+            require(frac > 0.9, f"bf16 model on {name}: {100 * frac:.2f} % at cosine > 0.98")
+            # a model that ignored compute_dtype would pass the gate above:
+            # bf16 rounding (2^-9 relative) must show in the attention
+            require(att >= 1e-4, f"bf16 model on {name}: attention median relative gap to "
+                                 f"f32 {att:.2e}, not computed in bf16")
+    fused = (ft.stats_pass, ft.final_pass, ft.bwd_top_pass, ft.bwd_pass)
+    for w in fused:
+        w.launches = 0
+    state = init_state(Feat3DNet(cfg16), TrainConfig(), cfg16, variables=variables, device=dev)
+    step = make_fused_train_step(state.model, cfg16.margin, cfg16.attention)
+    clouds = training_batch(dev, SEED + 100)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, met = step(state, clouds)
+    loss = met["loss"].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    require(np.isfinite(loss), f"bf16 training step: loss {loss}")
+    require(all(w.launches == 0 for w in fused), "bf16 training step launched a fused kernel")
+    print(f"[{card}] bf16 training step (autograd route, {TRAIN_CLOUDS} x {TRAIN_POINTS} "
+          f"points): loss {loss:.6f}, {ms:.1f} ms (first step, with set-up)")
 
 
 def serving_mode_phases(dev, card, model, server, weights_t, packed, packed_host,
@@ -1167,7 +1392,15 @@ def detector_mode_phase(dev, card, clouds, npz_path):
 
 
 def main():
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", default=None,
+                    help="another tree (a checkout or its csrc/): build its kernels too and "
+                         "hold K7-K10 against them on phase 9's inputs (parent_ab)")
+    opts = ap.parse_args()
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False; "
@@ -1205,7 +1438,6 @@ def main():
     for line in info.ptxas.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-
     clouds = {n: torch.from_numpy(
         np.ascontiguousarray(load_point_cloud(example_cloud_path(n))[:, :3]))[None]
         for n in CLOUDS}
@@ -1419,7 +1651,7 @@ def main():
     launches.update({k: ext_launches[k] for k in ext_report})
 
     # ---- 9-12. triplet training, random weights -------------------------------------
-    train_report, train_launches = training_phases(dev, card)
+    train_report, train_launches = training_phases(dev, card, opts.parent)
     report.update(train_report)
     launches.update({k: train_launches[k] for k in train_report})
 
@@ -1430,6 +1662,9 @@ def main():
                      HERE, "feat3dnet_tpu_torch", "assets", "ckpt4480_variables.npz"))):
         report.update(more[0])
         launches.update(more[1])
+
+    # ---- 17. the model in bf16 (compute_dtype): forward and a training step ------------
+    bf16_model_phase(dev, card)
 
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),

@@ -1,11 +1,16 @@
 """Model and inference configuration (mirror of feat3dnet_tpu/config.py).
 
 Same fields, defaults and derived widths as the JAX dataclasses, with torch
-dtypes in place of jnp ones. The training-only fields (remat, residual
-dtype, fused towers) are kept so that configurations round-trip between
-the two packages; the eval forward ignores them, the training forward
-reads `fused_towers` and `fused_cot_dtype` and refuses the two TPU-era
-memory modes (`remat_towers`, `residual_dtype`).
+dtypes in place of jnp ones. `compute_dtype` is the model's compute dtype
+in eval and training, as flax's `dtype`: the towers' convs, BN outputs and
+heads run in it, parameters and BN statistics stay f32, and the outputs
+are f32. The training-only fields (remat, residual dtype, fused towers) are
+kept so that configurations round-trip between the two packages; the eval
+forward ignores them, the training forward reads `fused_towers` (f32 only,
+as in JAX: other compute dtypes train through autograd) and
+`fused_cot_dtype` and refuses the two TPU-era memory modes
+(`remat_towers`, `residual_dtype`). The extraction pipeline's fused
+detector and the cluster server read their own modes, not `compute_dtype`.
 """
 from __future__ import annotations
 

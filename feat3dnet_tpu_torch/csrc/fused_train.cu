@@ -33,10 +33,22 @@
 // in one fixed order by one device function that every pass calls, so the
 // recompute is bit-identical across passes and the ReLU and tie masks
 // agree. Elementwise steps round op by op (__fmul_rn, __fadd_rn); a thread's
-// running per-channel sums are compensated (Kahan). dW is a
-// second register-tiled product over the slots into the block's partial in
-// device memory. Plain f32 FMA on the CUDA cores; tensor cores are later
-// work.
+// running per-channel sums are compensated (Kahan). The recompute is plain
+// f32 FMA on the CUDA cores.
+//
+// K10 does two products of its own per cluster beside the recompute,
+// dW_j += h^T dy (C_in x C_j over the 64 slots) and dy W_j^T (64 x C_in over
+// C_j; dx for conv 0), as many multiply-adds again as the recompute of the
+// top conv or more; on the CUDA cores they took 56 % of K10 at the paper
+// shapes. They run on the tensor cores (tc_product): mma.sync m16n8k8 with
+// TF32 operands in the 3xTF32 split, f32 accumulators, so the results keep
+// f32 accuracy. Operands come from shared memory (W_j^T through L1): h in
+// the recompute's layout, dy written by the dy step at a swizzled column so
+// that both products read it without bank conflicts. Ragged widths, pad
+// slots and conv 0's 3-wide input load as zeros; each product takes the
+// widest warp tile that still gives all 8 warps work. dW is added into the
+// block's partial in device memory once per cluster from the accumulators
+// (the partial read before the products, so the add waits on no load).
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -145,54 +157,118 @@ __device__ void slot_conv_any(const float* in, int ld, int cin, const float* W, 
   else slot_conv<8>(in, ld, cin, W, cout, bias, y);
 }
 
-// out[i][c] (= or +=) sum_{s < ns} h[s][i] d[s][c], i < cin, c < cout: warps
-// take 8 rows i at a time, lanes the channels. out: the block's partial in
-// device memory, owned element by element by one thread.
-template <int NQ>
-__device__ __forceinline__ void wgrad(const float* __restrict__ h, int ld, int cin,
-                                      const float* __restrict__ d, int cout, int ns,
-                                      float* __restrict__ out, bool first) {
-  const int lane = threadIdx.x & 31;
-  for (int i0 = (threadIdx.x >> 5) * kRows; i0 < cin; i0 += kWarps * kRows) {
-    float acc[kRows][NQ];
+// ---- K10's own products on the tensor cores: mma.sync m16n8k8, TF32
+// operands in the 3xTF32 split (a = a_hi + a_lo, a_hi = tf32(a), a_lo =
+// tf32(a - a_hi); a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi in f32), which
+// keeps f32 accuracy. Fragments (PTX ISA), g = lane / 4, t = lane % 4:
+// A 16x8 a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B 8x8
+// b0 (t, g), b1 (t + 4, g); C 16x8 c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
+// c3 (g + 8, 2t + 1).
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(__fsub_rn(v, __uint_as_float(hi))));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (M x N) = sum_{k < K} A(m, k) B(k, n) on the tensor cores, in warp tiles
+// of (16 MT) x (8 NT) that the block's warps share out. la(m, k) / lb(k, n)
+// return the operand, 0 past M, N or K: ragged widths, pad slots and conv
+// 0's 3-wide input go through the one path as zeros. st(m, n, d, p) takes
+// each row's pair of outputs d = (D[m][n], D[m][n+1]) (m < 16 ceil(M / 16),
+// n even) and p = lp(m, n), which is read before the tile's products so
+// that a read-modify-write of device memory waits on no load.
+template <int MT, int NT, typename LA, typename LB, typename LP, typename ST>
+__device__ __forceinline__ void tc_product(int M, int N, int K, LA la, LB lb, LP lp, ST st) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int tiles_n = (N + 8 * NT - 1) / (8 * NT);
+  const int tiles = (M + 16 * MT - 1) / (16 * MT) * tiles_n;
+  for (int tile = threadIdx.x >> 5; tile < tiles; tile += kWarps) {
+    const int m0 = tile / tiles_n * 16 * MT, n0 = tile % tiles_n * 8 * NT;
+    float2 prev[MT][NT][2];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) acc[r][q] = 0.f;
-    for (int s = 0; s < ns; ++s) {
-      float av[kRows], bv[NQ];
+      for (int q = 0; q < NT; ++q) {
+        prev[i][q][0] = lp(m0 + 16 * i + g, n0 + 8 * q + 2 * t);
+        prev[i][q][1] = lp(m0 + 16 * i + g + 8, n0 + 8 * q + 2 * t);
+      }
+    float acc[MT][NT][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) av[r] = i0 + r < cin ? h[s * ld + i0 + r] : 0.f;
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int c = lane + 32 * q;
-        bv[q] = c < cout ? d[s * cout + c] : 0.f;
+      for (int q = 0; q < NT; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][q][e] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int m = m0 + 16 * i + g;
+        split_tf32(la(m, k0 + t), ah[i][0], al[i][0]);
+        split_tf32(la(m + 8, k0 + t), ah[i][1], al[i][1]);
+        split_tf32(la(m, k0 + t + 4), ah[i][2], al[i][2]);
+        split_tf32(la(m + 8, k0 + t + 4), ah[i][3], al[i][3]);
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (i0 + r >= cin) break;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int c = lane + 32 * q;
-        if (c >= cout) continue;
-        float* p = out + static_cast<size_t>(i0 + r) * cout + c;
-        *p = first ? acc[r][q] : *p + acc[r][q];
+      for (int q = 0; q < NT; ++q) {
+        split_tf32(lb(k0 + t, n0 + 8 * q + g), bh[q][0], bl[q][0]);
+        split_tf32(lb(k0 + t + 4, n0 + 8 * q + g), bh[q][1], bl[q][1]);
       }
+      // three passes over the independent accumulators, the small terms first
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int q = 0; q < NT; ++q) mma_tf32(acc[i][q], al[i], bh[q][0], bh[q][1]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int q = 0; q < NT; ++q) mma_tf32(acc[i][q], ah[i], bl[q][0], bl[q][1]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int q = 0; q < NT; ++q) mma_tf32(acc[i][q], ah[i], bh[q][0], bh[q][1]);
     }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int q = 0; q < NT; ++q) {
+        const int m = m0 + 16 * i + g, n = n0 + 8 * q + 2 * t;
+        st(m, n, make_float2(acc[i][q][0], acc[i][q][1]), prev[i][q][0]);
+        st(m + 8, n, make_float2(acc[i][q][2], acc[i][q][3]), prev[i][q][1]);
+      }
   }
 }
 
-__device__ void wgrad_any(const float* h, int ld, int cin, const float* d, int cout, int ns,
-                          float* out, bool first) {
-  if (cout <= 32) wgrad<1>(h, ld, cin, d, cout, ns, out, first);
-  else if (cout <= 64) wgrad<2>(h, ld, cin, d, cout, ns, out, first);
-  else if (cout <= 128) wgrad<4>(h, ld, cin, d, cout, ns, out, first);
-  else wgrad<8>(h, ld, cin, d, cout, ns, out, first);
+// tc_product in the widest warp tile that still gives every warp a tile
+// (the narrow products: conv 0's 3-wide dW and dx, 32-wide convs).
+template <typename LA, typename LB, typename LP, typename ST>
+__device__ __forceinline__ void tc_product_any(int M, int N, int K, LA la, LB lb, LP lp,
+                                               ST st) {
+  auto tiles = [&](int mt, int nt) {
+    return (M + 16 * mt - 1) / (16 * mt) * ((N + 8 * nt - 1) / (8 * nt));
+  };
+  if (tiles(2, 4) >= kWarps) tc_product<2, 4>(M, N, K, la, lb, lp, st);
+  else if (tiles(1, 4) >= kWarps) tc_product<1, 4>(M, N, K, la, lb, lp, st);
+  else if (tiles(1, 2) >= kWarps) tc_product<1, 2>(M, N, K, la, lb, lp, st);
+  else tc_product<1, 1>(M, N, K, la, lb, lp, st);
+}
+
+// Where K10 writes dy[s][c] in conv j's y rows: c ^ dy_swizzle(s) when C is
+// a multiple of 32 (row stride C maps a column to one bank in every row);
+// the XOR stays inside the 32 channels of a warp.
+// Bits 3-4 from s & 3 and bit 2 from (s >> 2) & 1 spread both fragment
+// patterns over the 32 banks: B of dW (rows k0 + t, columns n0 + g) and A
+// of dy W^T (rows m0 + g, columns k0 + t).
+__device__ __forceinline__ int dy_swizzle(int s, int mask) {
+  return (((s & 3) << 3) | (s & 4)) & mask;
 }
 
 // A thread's share of a (slot, channel) sweep over C channels: channel
@@ -361,6 +437,11 @@ train_bwd_top_kernel(const float* __restrict__ x, const float* __restrict__ wts,
   reduce_phases(ph.on ? s2.s : 0.f, C, red, out + C);
 }
 
+// K10's stages; a split build returns from each cluster after one of them
+// (chip_smoke's train_bwd_time_split), kStopNone runs them all.
+enum Stop { kStopNone, kStopRecompute, kStopDy, kStopDw, kStopDcat };
+
+template <int kStop>
 __global__ void __launch_bounds__(kThreads)
 train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wts,
                  const __grid_constant__ Tower T, const void* __restrict__ src, int src_bf16,
@@ -379,17 +460,22 @@ train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wts,
   const Phase ph = phase_of(C);
   const int cp = j > 0 ? T.l[j - 1].cout : 1;
   const Phase pp = phase_of(cp);
+  const int swz = C % 32 == 0 ? 31 : 0;
   Kahan db, s1, s2;
   float* dw = dw_part + static_cast<size_t>(blockIdx.x) * L.cin * C;
   bool first = true;
   for (int g = blockIdx.x; g < T.gp; g += gridDim.x) {
     recompute(T, x, wts, sm, g);
+    if (kStop == kStopRecompute) continue;
     if (T.is_top) {
       pool_ties(L, wts, y, T.ns, reinterpret_cast<const float*>(src) + static_cast<size_t>(g) * C,
                 pool, unit);
       __syncthreads();
     }
-    // ---- dy = ga * ((dz - m1) - xhat * m2), zero on pad clusters and pad slots
+    // ---- dy = ga * ((dz - m1) - xhat * m2), zero on pad clusters and pad
+    // slots, in place at the swizzled column: the lanes of a warp hold 32
+    // consecutive channels of one slot, so a shuffle hands each lane the
+    // value its own position stores and no thread writes what another reads
     if (ph.on) {
       const int c = ph.c;
       const float a = wts[L.a + c], cc = wts[L.c + c];
@@ -398,43 +484,74 @@ train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wts,
       const float valid = g < T.g_total ? 1.f : 0.f;
       for (int s = ph.p; s < kSlots; s += ph.step) {
         float* p = y + s * C + c;
-        if (s >= T.ns) {
-          *p = 0.f;
-          continue;
+        float dyv = 0.f;
+        if (s < T.ns) {
+          const float yv = *p;
+          const float z = fold(yv, a, cc);
+          float d;
+          if (T.is_top) d = act(z, L.relu) == pool[c] ? unit[c] : 0.f;
+          else d = load_cot(src, src_bf16, (static_cast<size_t>(s) * T.gp + g) * C + c);
+          const float dz = (L.relu && !(z > 0.f)) ? 0.f : d;
+          const float xh = __fmul_rn(__fsub_rn(yv, mu), isig);
+          const float t = __fsub_rn(__fsub_rn(dz, m1), __fmul_rn(xh, m2));
+          dyv = __fmul_rn(__fmul_rn(ga, t), valid);
+          db.add(dyv);
         }
-        const float yv = *p;
-        const float z = fold(yv, a, cc);
-        float d;
-        if (T.is_top) d = act(z, L.relu) == pool[c] ? unit[c] : 0.f;
-        else d = load_cot(src, src_bf16, (static_cast<size_t>(s) * T.gp + g) * C + c);
-        const float dz = (L.relu && !(z > 0.f)) ? 0.f : d;
-        const float xh = __fmul_rn(__fsub_rn(yv, mu), isig);
-        const float t = __fsub_rn(__fsub_rn(dz, m1), __fmul_rn(xh, m2));
-        const float dyv = __fmul_rn(__fmul_rn(ga, t), valid);
-        *p = dyv;
-        db.add(dyv);
+        *p = swz ? __shfl_xor_sync(0xffffffffu, dyv, dy_swizzle(s, swz)) : dyv;
       }
     }
     __syncthreads();
-    // ---- dW_j += h^T dy
-    wgrad_any(hin, j == 0 ? kX : L.cin, L.cin, y, C, T.ns, dw, first);
+    if (kStop == kStopDy) continue;
+    // ---- dW_j += h^T dy: M = C_in, N = C_j, K = the 64 slots (dy is 0 past ns)
+    {
+      const int ldh = j == 0 ? kX : L.cin, cin = L.cin;
+      tc_product_any(
+          cin, C, kSlots, [&](int m, int k) { return m < cin ? hin[k * ldh + m] : 0.f; },
+          [&](int k, int n) { return n < C ? y[k * C + (n ^ dy_swizzle(k, swz))] : 0.f; },
+          [&](int m, int n) {
+            return first || m >= cin || n >= C
+                ? make_float2(0.f, 0.f)
+                : *reinterpret_cast<const float2*>(dw + static_cast<size_t>(m) * C + n);
+          },
+          [&](int m, int n, float2 d, float2 o) {
+            if (m >= cin || n >= C) return;
+            *reinterpret_cast<float2*>(dw + static_cast<size_t>(m) * C + n) =
+                first ? d : make_float2(o.x + d.x, o.y + d.y);
+          });
+    }
     first = false;
     __syncthreads();
+    if (kStop == kStopDw) continue;
+    // dy as the A operand of dy W^T: M = the 64 slots, K = C_j
+    auto dy_a = [&](int m, int k) { return k < C ? y[m * C + (k ^ dy_swizzle(m, swz))] : 0.f; };
+    auto no_prev = [](int, int) { return make_float2(0.f, 0.f); };
     if (j == 0) {
-      // ---- dx = dy W_0^T
+      // ---- dx = dy W_0^T: N = cin0 (W_0 is (cin0, C) row-major)
       float* dx = reinterpret_cast<float*>(out);
       const float* W = wts + L.w;
-      for (int e = threadIdx.x; e < T.ns * T.cin0; e += kThreads) {
-        const int s = e / T.cin0, k = e % T.cin0;
-        float acc = 0.f;
-        for (int c = 0; c < C; ++c) acc = fmaf(y[s * C + c], __ldg(W + k * C + c), acc);
-        dx[(static_cast<size_t>(s) * T.gp + g) * T.cin0 + k] = acc;
-      }
+      const int cin0 = T.cin0;
+      tc_product_any(
+          kSlots, cin0, C, dy_a,
+          [&](int k, int n) { return k < C && n < cin0 ? __ldg(W + n * C + k) : 0.f; },
+          no_prev, [&](int m, int n, float2 d, float2) {
+            if (m >= T.ns) return;
+            float* p = dx + (static_cast<size_t>(m) * T.gp + g) * cin0;
+            if (n < cin0) p[n] = d.x;
+            if (n + 1 < cin0) p[n + 1] = d.y;
+          });
     } else {
       // ---- do_{j-1} = dy W_j^T (through the poolcat), rounded, and conv j-1's sums
       const Conv& P = T.l[j - 1];
-      slot_conv_any(y, C, C, wts + L.wt, L.cin, nullptr, hin);
+      const float* wt = wts + L.wt;   // W_j^T, (C, C_in) row-major
+      const int cin = L.cin;
+      tc_product_any(
+          kSlots, cin, C, dy_a,
+          [&](int k, int n) { return k < C && n < cin ? __ldg(wt + k * cin + n) : 0.f; },
+          no_prev, [&](int m, int n, float2 d, float2) {
+            if (n < cin) *reinterpret_cast<float2*>(hin + m * cin + n) = d;
+          });
       __syncthreads();
+      if (kStop == kStopDcat) continue;
       const float* yp = sm + P.y_off;
       if (L.poolcat) {
         pool_ties(P, wts, yp, T.ns, nullptr, pool, nullptr);
@@ -542,6 +659,41 @@ cudaError_t set_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+template <int kStop>
+cudaError_t launch_bwd(const Tower& T, size_t smem, int nblk, const float* x, const float* wts,
+                       const void* src, int src_bf16, float* dw_part, float* db_part, void* out,
+                       int out_bf16, float* bst_part, cudaStream_t stream) {
+  cudaError_t err = set_smem(train_bwd_kernel<kStop>, smem);
+  if (err != cudaSuccess) return err;
+  train_bwd_kernel<kStop><<<nblk, kThreads, smem, stream>>>(x, wts, T, src, src_bf16, dw_part,
+                                                           db_part, out, out_bf16, bst_part);
+  return cudaGetLastError();
+}
+
+int train_bwd(const float* x, int ns, int gp, int g_total, int cin0, const float* wts,
+              const int* convs, int n, const int* vecs, int nblk, int is_top, const void* src,
+              int src_bf16, float* dw_part, float* db_part, void* out, int out_bf16,
+              float* bst_part, int stop, cudaStream_t stream) {
+  Tower T;
+  const size_t smem = make_tower(&T, kBwd, ns, gp, g_total, cin0, convs, n, vecs, is_top);
+  if (smem == 0 || nblk < 1 || T.l[n - 1].wt < 0 || (n > 1 && bst_part == nullptr))
+    return cudaErrorInvalidValue;
+  switch (stop) {
+#define F3D_BWD(k) \
+  case k:          \
+    return launch_bwd<k>(T, smem, nblk, x, wts, src, src_bf16, dw_part, db_part, out, out_bf16, \
+                         bst_part, stream);
+    F3D_BWD(kStopNone)
+    F3D_BWD(kStopRecompute)
+    F3D_BWD(kStopDy)
+    F3D_BWD(kStopDw)
+    F3D_BWD(kStopDcat)
+#undef F3D_BWD
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Common arguments: x (ns, gp, cin0) f32 slot-major; wts: the flat f32
@@ -595,13 +747,18 @@ F3D_EXPORT int f3d_train_bwd(const float* x, int ns, int gp, int g_total, int ci
                              int nblk, int is_top, const void* src, int src_bf16,
                              float* dw_part, float* db_part, void* out, int out_bf16,
                              float* bst_part, cudaStream_t stream) {
-  Tower T;
-  const size_t smem = make_tower(&T, kBwd, ns, gp, g_total, cin0, convs, n, vecs, is_top);
-  if (smem == 0 || nblk < 1 || T.l[n - 1].wt < 0 || (n > 1 && bst_part == nullptr))
-    return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(train_bwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  train_bwd_kernel<<<nblk, kThreads, smem, stream>>>(x, wts, T, src, src_bf16, dw_part, db_part,
-                                                    out, out_bf16, bst_part);
-  return cudaGetLastError();
+  return train_bwd(x, ns, gp, g_total, cin0, wts, convs, n, vecs, nblk, is_top, src, src_bf16,
+                   dw_part, db_part, out, out_bf16, bst_part, kStopNone, stream);
+}
+
+// K10 returning from each cluster after stage `stop` (1 recompute, 2 dy,
+// 3 dW, 4 dy W^T; 0 = all): the time split, nothing else. Outputs are
+// partial.
+F3D_EXPORT int f3d_train_bwd_split(const float* x, int ns, int gp, int g_total, int cin0,
+                                   const float* wts, const int* convs, int n, const int* vecs,
+                                   int nblk, int is_top, const void* src, int src_bf16,
+                                   float* dw_part, float* db_part, void* out, int out_bf16,
+                                   float* bst_part, int stop, cudaStream_t stream) {
+  return train_bwd(x, ns, gp, g_total, cin0, wts, convs, n, vecs, nblk, is_top, src, src_bf16,
+                   dw_part, db_part, out, out_bf16, bst_part, stop, stream);
 }

@@ -10,6 +10,9 @@ source rebuilds and an unchanged one is reused within a checkout.
 Nothing here runs at import: the CPU tests import every module on a
 machine without nvcc. A missing nvcc or a failed build raises.
 
+`build(csrc_dir)` builds another tree's sources the same way (a parent
+commit's `csrc/`, for A/B runs in `chip_smoke.py --parent`).
+
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()` after the launch; `check` raises on a non-zero code.
 The op wrappers (ops/fps.py, ops/batch_group.py, ops/fused_describe.py,
@@ -62,12 +65,14 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> BuildInfo:
-    """Compile csrc/*.cu into one shared library, once per source hash: one
-    nvcc process per source, all started together, then one link."""
+def build(csrc_dir: str = CSRC_DIR, sources: tuple = SOURCES,
+          headers: tuple = HEADERS) -> BuildInfo:
+    """Compile csrc_dir's `sources` into one shared library, once per hash
+    of them and their `headers`: one nvcc process per source, all started
+    together, then one link."""
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+    for name in sources + headers:
+        with open(os.path.join(csrc_dir, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     out_dir = os.path.join(build_dir(), h.hexdigest()[:16])
@@ -81,9 +86,9 @@ def build() -> BuildInfo:
     tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
     jobs = []
-    for src in SOURCES:
+    for src in sources:
         obj = os.path.join(out_dir, f"{src}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, src), "-o", obj]
+        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(csrc_dir, src), "-o", obj]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
     report, failed = [], []
@@ -163,6 +168,9 @@ def library() -> ctypes.CDLL:
     lib.f3d_train_bwd.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _I, _P,
                                   _P, _P, _I, _P, _P]
     lib.f3d_train_bwd.restype = _I
+    # as f3d_train_bwd, then the stage to stop after, then the stream
+    lib.f3d_train_bwd_split.argtypes = lib.f3d_train_bwd.argtypes[:-1] + [_I, _P]
+    lib.f3d_train_bwd_split.restype = _I
     return lib
 
 
@@ -271,13 +279,23 @@ def launch_train_bwd_top(x, wts, convs, vecs, nblk, dpool, part) -> None:
             _ptr(dpool), _ptr(part), _stream(x)), "train_bwd_top")
 
 
+# K10's stages as csrc/fused_train.cu numbers them: a split launch returns
+# from each cluster after its stage
+BWD_STOPS = {"recompute": 1, "dy": 2, "dw": 3, "dcat": 4}
+
+
 def launch_train_bwd(x, g_total, wts, convs, vecs, nblk, is_top, src, dw_part, db_part,
-                     out, bst_part) -> None:
-    """vecs: host int32 offsets of (mu, isig, m1, m2, ga, mu_p, isig_p)."""
+                     out, bst_part, stop: Optional[str] = None) -> None:
+    """vecs: host int32 offsets of (mu, isig, m1, m2, ga, mu_p, isig_p);
+    stop: a key of BWD_STOPS for the time split (partial outputs)."""
     ns, gp, cin0 = x.shape
-    with torch.cuda.device(x.device):
-        check(library().f3d_train_bwd(
-            _ptr(x), ns, gp, g_total, cin0, _ptr(wts), _ptr(convs), convs.shape[0],
+    args = [_ptr(x), ns, gp, g_total, cin0, _ptr(wts), _ptr(convs), convs.shape[0],
             _ptr(vecs), nblk, int(is_top), _ptr(src), int(src.dtype == torch.bfloat16),
             _ptr(dw_part), _ptr(db_part), _ptr(out), int(out.dtype == torch.bfloat16),
-            _ptr(bst_part), _stream(x)), "train_bwd")
+            _ptr(bst_part)]
+    with torch.cuda.device(x.device):
+        if stop is None:
+            check(library().f3d_train_bwd(*args, _stream(x)), "train_bwd")
+        else:
+            check(library().f3d_train_bwd_split(*args, BWD_STOPS[stop], _stream(x)),
+                  "train_bwd_split")

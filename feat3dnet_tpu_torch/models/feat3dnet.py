@@ -9,6 +9,10 @@ Eval and training forward:
   z-orientation -> MLP -> max pool -> [pointwise | pooled] -> MLP (last
   layer BN, no ReLU) -> max pool -> MLP (no ReLU) -> L2 normalise.
 
+`cfg.compute_dtype` is flax's compute dtype, as in the JAX model: the
+towers' convs, BN outputs, pools and heads run in it (parameters and BN
+statistics stay f32) and the outputs are cast back to f32.
+
 Training (`training=True`) takes flax BatchNorm's batch moments and writes
 their EMA into the BN buffers. With `cfg.fused_towers` (f32) the pre-pool
 segments of both towers run through ops/fused_train.tower_prepool_fused
@@ -27,7 +31,8 @@ import torch
 from torch import nn
 
 from feat3dnet_tpu_torch.config import ModelConfig
-from feat3dnet_tpu_torch.models.layers import ConvBN, l2_normalize
+from feat3dnet_tpu_torch.models.layers import (ConvBN, Dense, from_compute, l2_normalize,
+                                              to_compute)
 from feat3dnet_tpu_torch.ops import (ball_query, farthest_point_sample,
                                      gather_points, group_points)
 from feat3dnet_tpu_torch.ops.fused_train import (descriptor_plan, detector_plan,
@@ -73,7 +78,8 @@ def _convs(module: nn.Module, prefix: str, cin: int, widths, cfg: ModelConfig,
         module.add_module(f"{prefix}{i}", ConvBN(cin, f, use_bn=cfg.use_bn,
                                                  activation=act,
                                                  bn_epsilon=cfg.bn_epsilon,
-                                                 bn_momentum=cfg.bn_momentum))
+                                                 bn_momentum=cfg.bn_momentum,
+                                                 dtype=cfg.compute_dtype))
         cin = f
     return cin
 
@@ -90,7 +96,7 @@ def _use_fused_towers(cfg: ModelConfig, training: bool) -> bool:
     if training and (cfg.remat_towers or cfg.residual_dtype is not None):
         raise NotImplementedError(
             "remat_towers / residual_dtype are TPU-era memory modes that the port does "
-            "not have (ROADMAP.md, slice 3, not ported)")
+            "not have (ROADMAP.md: not ported, on purpose)")
     use = cfg.fused_towers and training and cfg.compute_dtype == torch.float32
     if use and not cfg.use_bn:
         raise ValueError("fused_towers needs use_bn=True (the kernels train ConvBN)")
@@ -124,13 +130,14 @@ class Detector(nn.Module):
         self.cfg = cfg
         c = _convs(self, "conv", 3, cfg.detector_mlp, cfg)
         c = _convs(self, "conv_post_", c, cfg.detector_mlp2, cfg)
-        self.attention = nn.Linear(c, 1)
-        self.orientation = nn.Linear(c, 2)
+        self.attention = Dense(c, 1, cfg.compute_dtype)
+        self.orientation = Dense(c, 2, cfg.compute_dtype)
 
     def forward(self, grouped: torch.Tensor, training: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         n = len(cfg.detector_mlp)
+        grouped = to_compute(grouped, cfg.compute_dtype)
         if _use_fused_towers(cfg, training):
             x = _fused_prepool(self, grouped, [f"conv{i}" for i in range(n)],
                                detector_plan(n), cfg)
@@ -139,9 +146,11 @@ class Detector(nn.Module):
             x = torch.amax(x, dim=2, keepdim=True)                # pool over samples
         x = _run(self, "conv_post_", len(cfg.detector_mlp2), x, training)
         att = self.attention(x)[..., 0, 0]
-        attention = torch.logaddexp(att, torch.zeros((), dtype=att.dtype,
-                                                     device=att.device))
-        ori = l2_normalize(self.orientation(x)[..., 0, :], dim=-1, epsilon=1e-8)
+        attention = from_compute(torch.logaddexp(att, torch.zeros((), dtype=att.dtype,
+                                                                  device=att.device)),
+                                 cfg.compute_dtype)
+        ori = l2_normalize(from_compute(self.orientation(x)[..., 0, :], cfg.compute_dtype),
+                           dim=-1, epsilon=1e-8)
         orientation = torch.atan2(ori[..., 1], ori[..., 0])
         return attention, orientation
 
@@ -163,13 +172,13 @@ class Descriptor(nn.Module):
             names = [f"conv{i}" for i in range(n_pre)] + [f"conv_mid_{i}" for i in range(n_mid)]
             x = _fused_prepool(self, grouped, names, descriptor_plan(n_pre, n_mid), cfg)
         else:
-            h = _run(self, "conv", n_pre, grouped, training)
+            h = _run(self, "conv", n_pre, to_compute(grouped, cfg.compute_dtype), training)
             pooled = torch.amax(h, dim=2, keepdim=True).expand_as(h)
             h = torch.cat([h, pooled], dim=-1)
             h = _run(self, "conv_mid_", n_mid, h, training)
             x = torch.amax(h, dim=2, keepdim=True)
         x = _run(self, "conv_post_", len(cfg.descriptor_mlp3), x, training)
-        return l2_normalize(x[..., 0, :], dim=-1, epsilon=1e-8)
+        return l2_normalize(from_compute(x[..., 0, :], cfg.compute_dtype), dim=-1, epsilon=1e-8)
 
 
 class Feat3DNet(nn.Module):

@@ -6,14 +6,22 @@ activation. Submodule and variable names mirror the flax tree
 (`conv2d/{kernel,bias}`, `bn/{scale,bias}`, batch_stats `bn/{mean,var}`)
 so utils/convert.py maps them mechanically.
 
-BatchNorm follows flax.linen.BatchNorm in both modes:
+`dtype` is flax's compute dtype; parameters and BN buffers stay f32.
+Dense follows flax's nn.Dense: input, kernel and bias cast to `dtype`,
+the product in `dtype` (rounded), then the bias added in `dtype`. The f32
+default casts nothing: the layers compute in their tensors' own dtype, so
+a model moved to float64 (a reference) stays float64.
+
+BatchNorm follows flax.linen.BatchNorm (`force_float32_reductions`) in
+both modes:
 * eval: `(x - mean) * (rsqrt(var + eps) * scale) + bias` on the running
-  statistics;
-* training: the batch moments over every non-channel axis, with the fast
-  biased variance `max(0, mean(x^2) - mean(x)^2)`, the same normalise
-  formula (the loss differentiates through the moments), and the EMA
-  `ra = m * ra + (1 - m) * batch` (m = 0.9) written to the buffers
-  without grad.
+  statistics, in f32, cast to `dtype` once at the end (another `dtype`
+  than f32);
+* training: the batch moments of the f32 input over every non-channel
+  axis, with the fast biased variance `max(0, mean(x^2) - mean(x)^2)`,
+  the same normalise formula (the loss differentiates through the
+  moments), and the f32 EMA `ra = m * ra + (1 - m) * batch` (m = 0.9)
+  written to the buffers without grad.
 `nn.BatchNorm*` / `F.batch_norm` are not used: their momentum runs the
 other way (flax's 0.9 is torch's 0.1) and their running variance is the
 unbiased one.
@@ -23,16 +31,36 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
-class BatchNorm(nn.Module):
-    """flax BatchNorm: params scale/bias, buffers mean/var."""
+class Dense(nn.Linear):
+    """flax nn.Dense with compute dtype `dtype` (f32 parameters)."""
 
-    def __init__(self, features: int, epsilon: float = 1e-3, momentum: float = 0.9):
+    def __init__(self, cin: int, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(cin, features)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            # one f32 rounding apart from flax's product-then-add; the bias
+            # rides the GEMM
+            return F.linear(x, self.weight, self.bias)
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class BatchNorm(nn.Module):
+    """flax BatchNorm: params scale/bias, buffers mean/var (all f32); the
+    output in `dtype`."""
+
+    def __init__(self, features: int, epsilon: float = 1e-3, momentum: float = 0.9,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -46,27 +74,33 @@ class BatchNorm(nn.Module):
         self.var.copy_(m * self.var + (1.0 - m) * batch_var)
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        low = self.dtype != torch.float32
+        if low:
+            x = x.to(torch.float32)
         if not training:
-            mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-            return (x - self.mean) * mul + self.bias
-        axes = tuple(range(x.dim() - 1))
-        mean = x.mean(dim=axes)
-        mean2 = (x * x).mean(dim=axes)
-        var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
-        self.update_stats(mean.detach(), var.detach())
+            mean, var = self.mean, self.var
+        else:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            mean2 = (x * x).mean(dim=axes)
+            var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
+            self.update_stats(mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.epsilon) * self.scale
-        return (x - mean) * mul + self.bias
+        y = (x - mean) * mul + self.bias
+        return y.to(self.dtype) if low else y
 
 
 class ConvBN(nn.Module):
-    """Dense (= 1x1 conv) + optional BN + activation (after BN)."""
+    """Dense (= 1x1 conv) + optional BN + activation (after BN), computed in
+    `dtype`."""
 
     def __init__(self, cin: int, features: int, use_bn: bool = True,
                  activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = torch.relu,
-                 bn_epsilon: float = 1e-3, bn_momentum: float = 0.9):
+                 bn_epsilon: float = 1e-3, bn_momentum: float = 0.9,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv2d = nn.Linear(cin, features)
-        self.bn = BatchNorm(features, bn_epsilon, bn_momentum) if use_bn else None
+        self.conv2d = Dense(cin, features, dtype)
+        self.bn = BatchNorm(features, bn_epsilon, bn_momentum, dtype) if use_bn else None
         self.activation = activation
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
@@ -76,6 +110,16 @@ class ConvBN(nn.Module):
         if self.activation is not None:
             x = self.activation(x)
         return x
+
+
+def to_compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x in the compute dtype; f32, the default, leaves x's own dtype."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def from_compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An output back in f32 from another compute dtype."""
+    return x if dtype == torch.float32 else x.to(torch.float32)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, epsilon: float = 1e-8) -> torch.Tensor:

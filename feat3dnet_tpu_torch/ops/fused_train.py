@@ -323,8 +323,11 @@ def bwd_top_pass(x_sm, plan, convs, mu, isig, dpooled):
 
 
 def bwd_pass(x_sm, plan, convs, mu, isig, src, m1, m2, ga_sig, mu_p, isig_p,
-             g_total, cot_dtype=torch.bfloat16):
-    """K10: the backward of conv j = len(convs) - 1 (see bwd_pass_plain)."""
+             g_total, cot_dtype=torch.bfloat16, stop=None):
+    """K10: the backward of conv j = len(convs) - 1 (see bwd_pass_plain).
+    stop (CUDA only, for the time split): a stage of kernels.BWD_STOPS after
+    which the kernel leaves each cluster; the outputs are then partial and
+    the launch is not counted."""
     if x_sm.device.type == "cpu":
         return bwd_pass_plain(x_sm, plan, convs, mu, isig, src, m1, m2, ga_sig, mu_p,
                               isig_p, g_total, cot_dtype)
@@ -354,8 +357,9 @@ def bwd_pass(x_sm, plan, convs, mu, isig, src, m1, m2, ga_sig, mu_p, isig_p,
         out = torch.empty((ns, gp, cin0), dtype=torch.float32, device=dev)
         bst_part = None
     kernels.launch_train_bwd(x_sm, g_total, wts, table, vecs, nblk, top, src, dw_part,
-                             db_part, out, bst_part)
-    bwd_pass.launches += 1
+                             db_part, out, bst_part, stop)
+    if stop is None:
+        bwd_pass.launches += 1
     return (dw_part.sum(dim=0), db_part.sum(dim=0), out,
             None if bst_part is None else bst_part.sum(dim=0))
 

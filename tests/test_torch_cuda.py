@@ -226,6 +226,9 @@ def _tower_case(rs, dev, plan_kind, g_total, gp, ns=16):
     if plan_kind == "detector":
         widths = (8, 16, 32)
         plan = tft.detector_plan(3)
+    elif plan_kind == "detector_paper":
+        widths = (64, 128, 256)
+        plan = tft.detector_plan(3)
     else:
         widths = (8, 16, 24, 16)
         plan = tft.descriptor_plan(2, 2)
@@ -245,11 +248,14 @@ def _close(got, want, rtol, atol_rel=None, atol=0.0):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("plan_kind,g_total,gp", [("detector", 96, 96), ("detector", 80, 96),
-                                                  ("descriptor", 80, 96)])
+@pytest.mark.parametrize("plan_kind,g_total,gp,ns", [
+    ("detector", 96, 96, 16), ("detector", 80, 96, 16), ("descriptor", 80, 96, 16),
+    ("detector_paper", 40, 48, 64)])
 @pytest.mark.parametrize("cot", [torch.float32, torch.bfloat16])
-def test_train_passes_match_plain(dev, rs, plan_kind, g_total, gp, cot):
-    x, plan, widths, flat = _tower_case(rs, dev, plan_kind, g_total, gp)
+def test_train_passes_match_plain(dev, rs, plan_kind, g_total, gp, ns, cot):
+    """The last case is at the paper widths with 64 slots: K10's tensor-core
+    tiles unpadded."""
+    x, plan, widths, flat = _tower_case(rs, dev, plan_kind, g_total, gp, ns)
     ns, n = x.shape[0], len(widths)
     count = float(ns * g_total)
     folded, means, isigs = [], [], []
