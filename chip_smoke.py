@@ -51,10 +51,12 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      and that 30 steps with the kernels on one batch lower the loss;
   12. times a training step per route (median of 12, synchronised, with
      peak memory and a torch.profiler breakdown) and K7-K10 per call
-     against their plain versions, each beside its bound (K10's own
-     products at the TF32 tensor-core peak; also printed at the f32), then
-     splits K10's time by stage (train_bwd_time_split: the kernel leaving
-     each cluster after the recompute, the dy step, dW, dy W^T);
+     against their plain versions, each beside its bound (the products on
+     the tensor cores at the TF32 peak, conv 0's on the CUDA cores at the
+     f32 peak; the all-f32 bound printed beside it) and their ptxas and SASS
+     lines, then splits K10's time by stage
+     (train_bwd_time_split: the kernel leaving each cluster after the
+     recompute, the dy step, dW, dy W^T);
   13. holds K3's bf16-activation mode against its plain version on the 7 680
      serving clusters with phase 1's weights (min cosine >= 0.9999, >= 99.9 %
      of descriptors within 2^-8, attention relative <= 1e-2) and prints it
@@ -85,11 +87,11 @@ Option: --parent DIR also builds another tree's training kernels (its
 csrc/fused_train.cu and common.cuh; DIR a checkout, e.g. a parent commit
 unpacked with git archive, or its csrc/) and, at the end of phase 12,
 holds K7-K10 against them on phase 9's inputs (parent_ab: ptxas lines of
-both, K7-K9 bit-equal, K10 at phase 9's tolerances and timed in turns).
+both, each kernel at phase 9's tolerances and timed in turns).
 It writes only under build/ in the checkout.
 The line before last is a JSON summary of the sixteen kernel entries (K1-K10
 and K3's and K6's extra modes: times, their bounds from this run's shapes at
-the H100's f32 (bf16 modes: bf16 tensor-core; K10's own products: TF32
+the H100's f32 (bf16 modes: bf16 tensor-core; K7-K10's products: TF32
 tensor-core) and HBM peaks, launches on their path); the last line is
 {"ok": true, "device": {...}}. Any failure
 raises (non-zero exit). It needs a CUDA device and refuses to run without
@@ -475,7 +477,7 @@ def compare(name, got, want, rtol, atol, max_share=0.0):
     return d.max().item(), share
 
 
-def compare_bwd(tag, j, got, want, cot_rtol):
+def compare_bwd(tag, got, want, j, cot_rtol):
     """K10's outputs (dW, db, do_prev or dx, the next conv's sums) for conv
     j against `want` at phase 9's tolerances; returns dW's max |d|."""
     dw_k, db_k, out_k, bst_k = got
@@ -583,6 +585,26 @@ def tower_params(model, cfg):
                                               len(cfg.descriptor_mlp2)), flat(desc))}
 
 
+def compare_stats(tag, got, want, count):
+    """K7's (sum y, sum y^2) against `want` at phase 9's tolerances, as
+    means and variances; returns the means' max |d|."""
+    mk, mp = got[0] / count, want[0] / count
+    e, _ = compare(f"{tag} means", mk, mp, 1e-5, 1e-6)
+    compare(f"{tag} vars", got[1] / count - mk * mk, want[1] / count - mp * mp, 1e-4, 1e-6)
+    return e
+
+
+def timed_call(kernel_fn, plain_fn, flops, moved, check):
+    """(kernel_fn, plain_fn, bound) for the timing phase. flops: (on the CUDA
+    cores, on the tensor cores); the bound prices each at its peak (f32,
+    TF32). The kernel_fn carries the all-f32 bound (`f32_bound`, printed
+    beside it) and `check(tag, got, want)`, phase 9's comparison of two of
+    its outputs."""
+    cuda, tc = flops
+    kernel_fn.f32_bound, kernel_fn.check = bound_ms(cuda + tc, moved)[0], check
+    return kernel_fn, plain_fn, bound_ms(cuda + tc * PEAK_F32_FLOPS / PEAK_TF32_FLOPS, moved)
+
+
 def check_train_passes(tag, x, plan, flat, cot, eps):
     """Phase 9 for one tower and cotangent type: K7-K10 against their plain
     versions on the same inputs (each backward pass gets the plain chain's
@@ -603,64 +625,73 @@ def check_train_passes(tag, x, plan, flat, cot, eps):
     errs = {k: 0.0 for k in TRAIN_KERNELS}
     calls = {k: [] for k in TRAIN_KERNELS}
     folded, means, isigs = [], [], []
+
+    def recompute_flops(upto):
+        """(CUDA-core, tensor-core) flops of convs < upto: a conv whose input
+        is narrower than one mma step (conv 0's x) runs on the CUDA cores."""
+        split = [0.0, 0.0]
+        for (ci, _), m in zip(io[:upto], macs[:upto]):
+            split[ci >= 8] += 2.0 * rows * m
+        return tuple(split)
+
+    def rerun_equal(name, fn, got):
+        again = fn()
+        got, again = (got, again) if isinstance(got, tuple) else ((got,), (again,))
+        require(all(a is b or torch.equal(a, b) for a, b in zip(again, got)),
+                f"{tag} {name}: not bit-equal")
+
     for j in range(n):
         w, b, g, be = flat[4 * j:4 * j + 4]
         pre = list(folded)
-        st_k = ft.stats_pass(x, plan, pre, w, b, gp)
-        st_p = ft.stats_pass.plain(x, plan, pre, w, b, gp)
-        require(torch.equal(st_k, ft.stats_pass(x, plan, pre, w, b, gp)), f"{tag} K7 {j}: not bit-equal")
-        mk, mp = st_k[0] / count, st_p[0] / count
-        e, _ = compare(f"{tag} K7 conv {j} means", mk, mp, 1e-5, 1e-6)
-        compare(f"{tag} K7 conv {j} vars", st_k[1] / count - mk * mk, st_p[1] / count - mp * mp,
-                1e-4, 1e-6)
+        kf = lambda pre=pre, w=w, b=b: ft.stats_pass(x, plan, pre, w, b, gp)
+        st_k, st_p = kf(), ft.stats_pass.plain(x, plan, pre, w, b, gp)
+        rerun_equal(f"K7 {j}", kf, st_k)
+        e = compare_stats(f"{tag} K7 conv {j}", st_k, st_p, count)
         errs["train_stats"] = max(errs["train_stats"], e)
         mean, var, a, c, isig = ft._finalize_stats(st_p, count, g, be, eps)
         folded.append((w, b, a, c))
         means.append(mean)
         isigs.append(isig)
-        calls["train_stats"].append((
-            lambda pre=pre, w=w, b=b: ft.stats_pass(x, plan, pre, w, b, gp),
-            lambda pre=pre, w=w, b=b: ft.stats_pass.plain(x, plan, pre, w, b, gp),
-            bound_ms(2.0 * rows * sum(macs[:j + 1]), nbytes(x) + wbytes + nblk * 2 * w.shape[1] * 4)))
-    pk, pp = ft.final_pass(x, plan, folded), ft.final_pass.plain(x, plan, folded)
-    errs["train_final"], _ = compare(f"{tag} K8 pooled", pk, pp, 0.0, 1e-4)
-    calls["train_final"].append((lambda: ft.final_pass(x, plan, folded),
-                                 lambda: ft.final_pass.plain(x, plan, folded),
-                                 bound_ms(2.0 * rows * sum(macs), nbytes(x, pk) + wbytes)))
+        calls["train_stats"].append(timed_call(
+            kf, lambda pre=pre, w=w, b=b: ft.stats_pass.plain(x, plan, pre, w, b, gp),
+            recompute_flops(j + 1), nbytes(x) + wbytes + nblk * 2 * w.shape[1] * 4,
+            functools.partial(compare_stats, count=count)))
+    kf = lambda: ft.final_pass(x, plan, folded)
+    pk, pp = kf(), ft.final_pass.plain(x, plan, folded)
+    rerun_equal("K8", kf, pk)
+    check = lambda name, got, want: compare(name, got, want, 0.0, 1e-4)[0]
+    errs["train_final"] = check(f"{tag} K8 pooled", pk, pp)
+    calls["train_final"].append(timed_call(kf, lambda: ft.final_pass.plain(x, plan, folded),
+                                           recompute_flops(n), nbytes(x, pk) + wbytes, check))
     g = torch.Generator().manual_seed(SEED + 1)
     dpool = torch.randn(pk.shape, generator=g).to(x.device)
-    bk = ft.bwd_top_pass(x, plan, folded, means[-1], isigs[-1], dpool)
+    kf = lambda: ft.bwd_top_pass(x, plan, folded, means[-1], isigs[-1], dpool)
+    bk = kf()
     bp = ft.bwd_top_pass.plain(x, plan, folded, means[-1], isigs[-1], dpool)
-    errs["train_bwd_top"], _ = compare(f"{tag} K9 sums", bk, bp, 5e-3,
-                                       5e-4 * bp.abs().max().item())
-    calls["train_bwd_top"].append((
-        lambda: ft.bwd_top_pass(x, plan, folded, means[-1], isigs[-1], dpool),
-        lambda: ft.bwd_top_pass.plain(x, plan, folded, means[-1], isigs[-1], dpool),
-        bound_ms(2.0 * rows * sum(macs), nbytes(x, dpool, bk) * 1.0 + wbytes + nblk * bk.numel() * 4)))
+    rerun_equal("K9", kf, bk)
+    check = lambda name, got, want: compare(name, got, want, 5e-3,
+                                            5e-4 * want.abs().max().item())[0]
+    errs["train_bwd_top"] = check(f"{tag} K9 sums", bk, bp)
+    calls["train_bwd_top"].append(timed_call(
+        kf, lambda: ft.bwd_top_pass.plain(x, plan, folded, means[-1], isigs[-1], dpool),
+        recompute_flops(n), nbytes(x, dpool, bk) + wbytes + nblk * bk.numel() * 4, check))
     src, bst = dpool, bp
     cot_rtol = 2.0 ** -7 if cot == torch.bfloat16 else 5e-3     # one bf16 step either way
     for j in range(n - 1, -1, -1):
         args = (x, plan, folded[:j + 1], means[j], isigs[j], src, bst[0] / count,
                 bst[1] / count, flat[4 * j + 2] * isigs[j], means[j - 1] if j else None,
                 isigs[j - 1] if j else None, gp, cot)
-        got, want, again = ft.bwd_pass(*args), ft.bwd_pass.plain(*args), ft.bwd_pass(*args)
-        require(all(a is b or torch.equal(a, b) for a, b in zip(again, got)),
-                f"{tag} K10 {j}: not bit-equal")
-        errs["train_bwd"] = max(errs["train_bwd"],
-                                compare_bwd(f"{tag} K10 conv {j}", j, got, want, cot_rtol))
-        # the recompute (f32 FMA on the CUDA cores) and K10's own products, dW
-        # and dy W^T (dx), on the TF32 tensor cores
-        rec, own = 2.0 * rows * sum(macs[:j + 1]), 2.0 * rows * (macs[j] + (
-            macs[j] if j > 0 else 3 * io[0][1]))
-        moved = nbytes(x, src, got[2]) + wbytes + nblk * (got[0].numel() + got[1].numel()) * 4
         kf = lambda args=args, **kw: ft.bwd_pass(*args, **kw)
-        kf.conv, kf.cot_rtol = j, cot_rtol
-        # printed beside the bound: the same work with every product at the
-        # f32 CUDA-core peak
-        kf.f32_bound = bound_ms(rec + own, moved)[0]
-        # the bound: the recompute at the f32 peak, the own products at TF32's
-        calls["train_bwd"].append((kf, lambda args=args: ft.bwd_pass.plain(*args),
-                                   bound_ms(rec + own * PEAK_F32_FLOPS / PEAK_TF32_FLOPS, moved)))
+        got, want = kf(), ft.bwd_pass.plain(*args)
+        rerun_equal(f"K10 {j}", kf, got)
+        check = functools.partial(compare_bwd, j=j, cot_rtol=cot_rtol)
+        errs["train_bwd"] = max(errs["train_bwd"], check(f"{tag} K10 conv {j}", got, want))
+        # the recompute and K10's own products, dW and dy W^T (dx), on the tensor cores
+        rec = recompute_flops(j + 1)
+        own = 2.0 * rows * (macs[j] + (macs[j] if j > 0 else 3 * io[0][1]))
+        moved = nbytes(x, src, got[2]) + wbytes + nblk * (got[0].numel() + got[1].numel()) * 4
+        calls["train_bwd"].append(timed_call(kf, lambda args=args: ft.bwd_pass.plain(*args),
+                                             (rec[0], rec[1] + own), moved, check))
         src, bst = want[2], want[3]
     return errs, calls
 
@@ -748,9 +779,14 @@ def train_kernel_phase(dev):
 
 
 def train_kernel_times(timed, report, card):
-    """Phase 12's kernel part: K7-K10 per call against their plain versions
-    (in turns), each beside its bound, then K10's time split."""
+    """Phase 12's kernel part: the training kernels' ptxas and SASS lines,
+    K7-K10 per call against their plain versions (in turns), each beside
+    its bound, then K10's time split."""
     import torch
+
+    from feat3dnet_tpu_torch import kernels
+
+    train_build_report("this", kernels.build())
 
     with torch.no_grad():
         for k, cl in timed.items():
@@ -760,10 +796,9 @@ def train_kernel_times(timed, report, card):
             report[k]["bound_ms"], report[k]["bound_by"] = mean_bound([q[2] for q in per])
             print(f"[{card}] {k}: {len(per)} calls (both towers), kernel "
                   f"{[round(q[0], 4) for q in per]} ms, plain {[round(q[1], 4) for q in per]} ms, "
-                  f"bound {[round(q[2][0], 4) for q in per]} ms")
-        f32 = [kf.f32_bound for kf, _, _ in timed["train_bwd"]]
-        print(f"[{card}] train_bwd bound with its own products at the f32 CUDA-core peak: "
-              f"{[round(b, 4) for b in f32]} ms")
+                  f"bound {[round(q[2][0], 4) for q in per]} ms (TF32; at the f32 CUDA-core "
+                  f"peak {[round(kf.f32_bound, 4) for kf, _, _ in cl]} ms, mean "
+                  f"{np.mean([kf.f32_bound for kf, _, _ in cl]):.4f})")
         for i, (kf, _, _) in enumerate(timed["train_bwd"]):
             sp = train_bwd_time_split(kf)
             print(f"[{card}] train_bwd call {i} split: " + ", ".join(
@@ -831,12 +866,45 @@ def kernels_from(csrc):
         kernels.library = saved
 
 
+def train_build_report(tag, info):
+    """A build's lines of its ptxas report for the training kernels
+    (registers, spills) and, from `cuobjdump -sass` of its library, each
+    training kernel's count of tensor-core (HMMA) and f32 CUDA-core (FFMA)
+    instructions."""
+    import re
+
+    from feat3dnet_tpu_torch import kernels
+
+    entry = ""
+    for line in info.ptxas.splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        if "train_" in entry and ("Compiling entry" in line or "Used" in line
+                                  or "spill" in line):
+            print(f"  ptxas ({tag}): {line.strip()}")
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", info.path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"train_(?:stats|final|bwd_top|bwd)_kernel(?:ILi\d)?", line)
+            name = m.group(0) if m else None
+            if name:
+                counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += "HMMA" in line
+            counts[name][1] += "FFMA" in line
+    for name, (hmma, ffma) in counts.items():
+        print(f"  sass ({tag}): {name}: {hmma} HMMA, {ffma} FFMA")
+
+
 def parent_ab(parent, timed, card):
     """The training kernels of another tree (`--parent`: a checkout or its
     csrc/, of which only fused_train.cu and common.cuh are built) against
     this one's on phase 9's f32-cotangent inputs: both trees' ptxas lines
-    for fused_train.cu, K7-K9 bit-equal, K10 at phase 9's tolerances and
-    timed in turns (parent, this, this, parent)."""
+    for fused_train.cu, then each call of K7-K10 at phase 9's tolerances of
+    the parent's and timed in turns (parent, this, this, parent)."""
     import torch
 
     from feat3dnet_tpu_torch import kernels
@@ -845,33 +913,21 @@ def parent_ab(parent, timed, card):
     csrc = os.path.abspath(csrc if os.path.isdir(csrc) else parent)
     missing = [f for f in sum(PARENT_BUILD, ()) if not os.path.isfile(os.path.join(csrc, f))]
     require(not missing, f"--parent: {csrc} has no {', '.join(missing)}")
-    for tag, info in (("parent", kernels.build(csrc, *PARENT_BUILD)), ("this", kernels.build())):
-        entry = ""
-        for line in info.ptxas.splitlines():
-            if "Compiling entry" in line:
-                entry = line
-            if "train_" in entry and ("Compiling entry" in line or "Used" in line
-                                      or "spill" in line):
-                print(f"  ptxas ({tag}): {line.strip()}")
+    train_build_report("parent", kernels.build(csrc, *PARENT_BUILD))
     with torch.no_grad():
         for k, cl in timed.items():
+            total = np.zeros(2)
             for i, (kf, _, _) in enumerate(cl):
                 def parent_fn(kf=kf):
                     with kernels_from(csrc):
                         return kf()
-                mine, theirs = kf(), parent_fn()
-                if k != "train_bwd":
-                    mine = mine if isinstance(mine, tuple) else (mine,)
-                    theirs = theirs if isinstance(theirs, tuple) else (theirs,)
-                    require(all(torch.equal(a, b) for a, b in zip(mine, theirs)),
-                            f"{k} call {i}: not bit-equal to the parent's")
-                    continue
-                e = compare_bwd(f"train_bwd call {i} vs parent", kf.conv, mine, theirs,
-                                kf.cot_rtol)
+                e = kf.check(f"{k} call {i} vs parent", kf(), parent_fn())
                 ms, ms_parent = in_turns(kf, parent_fn, 3, 3)
-                print(f"[{card}] train_bwd call {i}: parent {ms_parent:.4f} ms, this {ms:.4f} ms; "
-                      f"within phase 9's tolerances of the parent (dW max |d| {e:.3e})")
-        print("K7-K9 bit-equal to the parent's on phase 9's f32-cotangent inputs")
+                total += (ms_parent, ms)
+                print(f"[{card}] {k} call {i}: parent {ms_parent:.4f} ms, this {ms:.4f} ms; "
+                      f"within phase 9's tolerances of the parent (max |d| {e:.3e})")
+            print(f"[{card}] {k} over its {len(cl)} calls: parent {total[0]:.4f} ms, "
+                  f"this {total[1]:.4f} ms")
 
 
 def training_phases(dev, card, parent=None):

@@ -25,26 +25,28 @@
 // passes recompute the towers about 2.2e11 multiply-adds, against about
 // 7 MB of input per pass and the streamed bf16 cotangents.
 //
-// What the design does about it: K6's per-slot layer. A block of 256
-// threads walks its share of the clusters one at a time; a cluster's 64
-// slots live in shared memory (the input of every recomputed conv and the
-// pre-BN y of the convs the pass reads back). Each conv is a register-tiled
-// product, each warp owning 8 slots and each lane up to 8 channels, summed
-// in one fixed order by one device function that every pass calls, so the
-// recompute is bit-identical across passes and the ReLU and tie masks
-// agree. Elementwise steps round op by op (__fmul_rn, __fadd_rn); a thread's
-// running per-channel sums are compensated (Kahan). The recompute is plain
-// f32 FMA on the CUDA cores.
+// What the design does about it: a block of 256 threads walks its share
+// of the clusters one at a time; a cluster's 64 slots live in shared memory
+// (the input of every recomputed conv and the pre-BN y of the convs the
+// pass reads back). Every product runs on the tensor cores (tc_product):
+// mma.sync m16n8k8 with TF32 operands in the 3xTF32 split, f32
+// accumulators, so the results keep f32 accuracy; only conv 0's 3-wide
+// input stays on the CUDA cores (conv_fma). The recompute's convs,
+// y = h W + b, take h from shared memory and W through L1; one device
+// function that every pass calls sums each conv in one fixed order (the
+// warp tile depends only on the conv's widths), so the recompute is
+// bit-identical across passes and the ReLU and tie masks agree. A conv's
+// input rows have stride cin + 4 (x: 4), so that the eight rows of a
+// fragment fall in eight bank groups. Elementwise steps round op by op
+// (__fmul_rn, __fadd_rn); a thread's running per-channel sums are
+// compensated (Kahan).
 //
 // K10 does two products of its own per cluster beside the recompute,
 // dW_j += h^T dy (C_in x C_j over the 64 slots) and dy W_j^T (64 x C_in over
 // C_j; dx for conv 0), as many multiply-adds again as the recompute of the
-// top conv or more; on the CUDA cores they took 56 % of K10 at the paper
-// shapes. They run on the tensor cores (tc_product): mma.sync m16n8k8 with
-// TF32 operands in the 3xTF32 split, f32 accumulators, so the results keep
-// f32 accuracy. Operands come from shared memory (W_j^T through L1): h in
-// the recompute's layout, dy written by the dy step at a swizzled column so
-// that both products read it without bank conflicts. Ragged widths, pad
+// top conv or more. Operands come from shared memory (W_j^T through L1): h
+// in the recompute's layout, dy written by the dy step at a swizzled column
+// so that both products read it without bank conflicts. Ragged widths, pad
 // slots and conv 0's 3-wide input load as zeros; each product takes the
 // widest warp tile that still gives all 8 warps work. dW is added into the
 // block's partial in device memory once per cluster from the accumulators
@@ -58,7 +60,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 64;                 // slots per cluster in shared memory
-constexpr int kRows = kSlots / kWarps;     // slots per warp (8)
 constexpr int kMaxConvs = 8;
 constexpr int kMaxC = 256;                 // widest conv input or output
 constexpr int kX = 4;                      // x row stride in shared memory
@@ -66,6 +67,7 @@ constexpr int kX = 4;                      // x row stride in shared memory
 struct Conv {
   int cin, cout, relu, poolcat;   // poolcat: the input is [o_prev | bcast slotmax(o_prev)]
   int w, wt, b, a, c;             // weight-buffer offsets (-1: not in this launch)
+  int ld;                         // input row stride: cin + 4 (x: kX), see make_tower
   int in_off, y_off;              // shared-memory offsets of the input rows and of y
 };
 
@@ -96,68 +98,7 @@ struct Kahan {
   }
 };
 
-__device__ __forceinline__ float lane_of(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-// y[r][c] = sum_k in[r][k] W[k][c] (+ bias[c]) for the 64 slot rows, k in
-// order 0..cin-1, one fmaf chain per output. Warp w owns rows 8w..8w+7, lane
-// l channels l + 32q (q < NQ). in: shared, row stride ld (multiple of 4,
-// 16-byte aligned; columns cin..ld-1 are read but multiply nothing).
-template <int NQ>
-__device__ __forceinline__ void slot_conv(const float* __restrict__ in, int ld, int cin,
-                                          const float* __restrict__ W, int cout,
-                                          const float* __restrict__ bias,
-                                          float* __restrict__ y) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * kRows;
-  float acc[kRows][NQ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) acc[i][q] = 0.f;
-  for (int k = 0; k < cin; k += 4) {
-    float4 av[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      av[i] = *reinterpret_cast<const float4*>(in + (r0 + i) * ld + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (k + kk >= cin) break;
-      float w[NQ];
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int c = lane + 32 * q;
-        w[q] = c < cout ? __ldg(W + (k + kk) * cout + c) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float v = lane_of(av[i], kk);
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) acc[i][q] = fmaf(v, w[q], acc[i][q]);
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int c = lane + 32 * q;
-    if (c >= cout) continue;
-    const float bc = bias ? __ldg(bias + c) : 0.f;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      y[(r0 + i) * cout + c] = bias ? __fadd_rn(acc[i][q], bc) : acc[i][q];
-  }
-}
-
-__device__ void slot_conv_any(const float* in, int ld, int cin, const float* W, int cout,
-                              const float* bias, float* y) {
-  if (cout <= 32) slot_conv<1>(in, ld, cin, W, cout, bias, y);
-  else if (cout <= 64) slot_conv<2>(in, ld, cin, W, cout, bias, y);
-  else if (cout <= 128) slot_conv<4>(in, ld, cin, W, cout, bias, y);
-  else slot_conv<8>(in, ld, cin, W, cout, bias, y);
-}
-
-// ---- K10's own products on the tensor cores: mma.sync m16n8k8, TF32
+// ---- Products on the tensor cores: mma.sync m16n8k8, TF32
 // operands in the 3xTF32 split (a = a_hi + a_lo, a_hi = tf32(a), a_lo =
 // tf32(a - a_hi); a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi in f32), which
 // keeps f32 accuracy. Fragments (PTX ISA), g = lane / 4, t = lane % 4:
@@ -178,6 +119,26 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Three passes over the independent accumulators, the small terms first.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[MT][NT][4], const uint32_t (&ah)[MT][4],
+                                           const uint32_t (&al)[MT][4],
+                                           const uint32_t (&bh)[NT][2],
+                                           const uint32_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int q = 0; q < NT; ++q) mma_tf32(d[i][q], al[i], bh[q][0], bh[q][1]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int q = 0; q < NT; ++q) mma_tf32(d[i][q], ah[i], bl[q][0], bl[q][1]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int q = 0; q < NT; ++q) mma_tf32(d[i][q], ah[i], bh[q][0], bh[q][1]);
+}
+
 // D (M x N) = sum_{k < K} A(m, k) B(k, n) on the tensor cores, in warp tiles
 // of (16 MT) x (8 NT) that the block's warps share out. la(m, k) / lb(k, n)
 // return the operand, 0 past M, N or K: ragged widths, pad slots and conv
@@ -185,7 +146,12 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // each row's pair of outputs d = (D[m][n], D[m][n+1]) (m < 16 ceil(M / 16),
 // n even) and p = lp(m, n), which is read before the tile's products so
 // that a read-modify-write of device memory waits on no load.
-template <int MT, int NT, typename LA, typename LB, typename LP, typename ST>
+// kBlockSums: each 8-deep block's products go into fresh accumulators that
+// are added to the running sums with __fadd_rn. An mma may round its sum
+// toward zero (the tensor cores truncate in alignment), and over a whole K
+// that bias, always against the running sum's sign, shows in a mean over
+// many rows (K7's statistics); block sums shrink it to the blocks' size.
+template <bool kBlockSums, int MT, int NT, typename LA, typename LB, typename LP, typename ST>
 __device__ __forceinline__ void tc_product(int M, int N, int K, LA la, LB lb, LP lp, ST st) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int tiles_n = (N + 8 * NT - 1) / (8 * NT);
@@ -222,19 +188,18 @@ __device__ __forceinline__ void tc_product(int M, int N, int K, LA la, LB lb, LP
         split_tf32(lb(k0 + t, n0 + 8 * q + g), bh[q][0], bl[q][0]);
         split_tf32(lb(k0 + t + 4, n0 + 8 * q + g), bh[q][1], bl[q][1]);
       }
-      // three passes over the independent accumulators, the small terms first
+      if constexpr (kBlockSums) {
+        float blk[MT][NT][4] = {};
+        mma_3xtf32(blk, ah, al, bh, bl);
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int q = 0; q < NT; ++q) mma_tf32(acc[i][q], al[i], bh[q][0], bh[q][1]);
+          for (int q = 0; q < NT; ++q)
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int q = 0; q < NT; ++q) mma_tf32(acc[i][q], ah[i], bl[q][0], bl[q][1]);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int q = 0; q < NT; ++q) mma_tf32(acc[i][q], ah[i], bh[q][0], bh[q][1]);
+            for (int e = 0; e < 4; ++e) acc[i][q][e] = __fadd_rn(acc[i][q][e], blk[i][q][e]);
+      } else {
+        mma_3xtf32(acc, ah, al, bh, bl);
+      }
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -248,17 +213,18 @@ __device__ __forceinline__ void tc_product(int M, int N, int K, LA la, LB lb, LP
 }
 
 // tc_product in the widest warp tile that still gives every warp a tile
-// (the narrow products: conv 0's 3-wide dW and dx, 32-wide convs).
-template <typename LA, typename LB, typename LP, typename ST>
+// (the narrow products: conv 0's 3-wide dW and dx, 32-wide convs). The tile
+// depends only on (M, N, K), so a product's summation order is fixed.
+template <bool kBlockSums = false, typename LA, typename LB, typename LP, typename ST>
 __device__ __forceinline__ void tc_product_any(int M, int N, int K, LA la, LB lb, LP lp,
                                                ST st) {
   auto tiles = [&](int mt, int nt) {
     return (M + 16 * mt - 1) / (16 * mt) * ((N + 8 * nt - 1) / (8 * nt));
   };
-  if (tiles(2, 4) >= kWarps) tc_product<2, 4>(M, N, K, la, lb, lp, st);
-  else if (tiles(1, 4) >= kWarps) tc_product<1, 4>(M, N, K, la, lb, lp, st);
-  else if (tiles(1, 2) >= kWarps) tc_product<1, 2>(M, N, K, la, lb, lp, st);
-  else tc_product<1, 1>(M, N, K, la, lb, lp, st);
+  if (tiles(2, 4) >= kWarps) tc_product<kBlockSums, 2, 4>(M, N, K, la, lb, lp, st);
+  else if (tiles(1, 4) >= kWarps) tc_product<kBlockSums, 1, 4>(M, N, K, la, lb, lp, st);
+  else if (tiles(1, 2) >= kWarps) tc_product<kBlockSums, 1, 2>(M, N, K, la, lb, lp, st);
+  else tc_product<kBlockSums, 1, 1>(M, N, K, la, lb, lp, st);
 }
 
 // Where K10 writes dy[s][c] in conv j's y rows: c ^ dy_swizzle(s) when C is
@@ -298,6 +264,47 @@ __device__ void reduce_phases(float v, int C, float* red, float* out) {
   __syncthreads();
 }
 
+// y (64 x L.cout, row stride cout) = h W + b for the 64 slot rows of conv
+// L's input h (row stride L.ld); the bias added after the product. An input
+// narrower than one mma step (conv 0's x) stays on the CUDA cores, one fmaf
+// chain per output in k order: exact to f32's rounding, so conv 0's ReLU
+// mask sits where an f32 reference puts it (the split's residue, ~2^-22,
+// would move the z ~ 0 entries of ~600 000 rows x C). Thread t keeps
+// channel t % cout's column of W in registers and walks its slots.
+__device__ __forceinline__ void conv_fma(const Conv& L, const float* __restrict__ wts,
+                                         const float* h, float* y) {
+  const Phase ph = phase_of(L.cout);
+  if (!ph.on) return;
+  const int cin = L.cin, cout = L.cout, ld = L.ld;
+  float w[kX];
+#pragma unroll
+  for (int k = 0; k < kX; ++k) w[k] = k < cin ? __ldg(wts + L.w + k * cout + ph.c) : 0.f;
+  const float b = __ldg(wts + L.b + ph.c);
+  for (int s = ph.p; s < kSlots; s += ph.step) {
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < kX; ++k)
+      if (k < cin) acc = fmaf(h[s * ld + k], w[k], acc);
+    y[s * cout + ph.c] = __fadd_rn(acc, b);
+  }
+}
+
+__device__ __forceinline__ void conv_tc(const Conv& L, const float* __restrict__ wts,
+                                        const float* h, float* y) {
+  const int cin = L.cin, cout = L.cout, ld = L.ld;
+  const float* W = wts + L.w;
+  const float* bias = wts + L.b;
+  tc_product_any<true>(
+      kSlots, cout, cin, [&](int m, int k) { return k < cin ? h[m * ld + k] : 0.f; },
+      [&](int k, int n) { return k < cin && n < cout ? __ldg(W + k * cout + n) : 0.f; },
+      [](int, int) { return make_float2(0.f, 0.f); },
+      [&](int m, int n, float2 d, float2) {
+        if (n < cout)
+          *reinterpret_cast<float2*>(y + m * cout + n) =
+              make_float2(__fadd_rn(d.x, __ldg(bias + n)), __fadd_rn(d.y, __ldg(bias + n + 1)));
+      });
+}
+
 // Cluster g through convs 0..T.n-1: x into conv 0's input, then per conv its
 // y, and for every conv but the last its output into the next conv's input
 // (with the poolcat's broadcast half where the plan has one). Ends synced.
@@ -313,22 +320,23 @@ __device__ void recompute(const Tower& T, const float* __restrict__ x,
   for (int l = 0; l < T.n; ++l) {
     const Conv& L = T.l[l];
     float* y = sm + L.y_off;
-    slot_conv_any(sm + L.in_off, l == 0 ? kX : L.cin, L.cin, wts + L.w, L.cout, wts + L.b, y);
+    if (L.cin < 8) conv_fma(L, wts, sm + L.in_off, y);
+    else conv_tc(L, wts, sm + L.in_off, y);
     __syncthreads();
     if (l + 1 == T.n) break;
     const Conv& N = T.l[l + 1];
-    float* nxt = sm + N.in_off;                     // row stride N.cin
-    const int C = L.cout;
+    float* nxt = sm + N.in_off;
+    const int C = L.cout, ld = N.ld;
     for (int e = threadIdx.x; e < kSlots * C; e += kThreads) {
       const int s = e / C, c = e % C;
-      nxt[s * N.cin + c] = act(fold(y[e], wts[L.a + c], wts[L.c + c]), L.relu);
+      nxt[s * ld + c] = act(fold(y[e], wts[L.a + c], wts[L.c + c]), L.relu);
     }
     __syncthreads();
     if (N.poolcat) {
       for (int c = threadIdx.x; c < C; c += kThreads) {
         float m = nxt[c];
-        for (int s = 1; s < T.ns; ++s) m = fmaxf(m, nxt[s * N.cin + c]);
-        for (int s = 0; s < kSlots; ++s) nxt[s * N.cin + C + c] = m;
+        for (int s = 1; s < T.ns; ++s) m = fmaxf(m, nxt[s * ld + c]);
+        for (int s = 0; s < kSlots; ++s) nxt[s * ld + C + c] = m;
       }
       __syncthreads();
     }
@@ -504,7 +512,7 @@ train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wts,
     if (kStop == kStopDy) continue;
     // ---- dW_j += h^T dy: M = C_in, N = C_j, K = the 64 slots (dy is 0 past ns)
     {
-      const int ldh = j == 0 ? kX : L.cin, cin = L.cin;
+      const int ldh = L.ld, cin = L.cin;
       tc_product_any(
           cin, C, kSlots, [&](int m, int k) { return m < cin ? hin[k * ldh + m] : 0.f; },
           [&](int k, int n) { return n < C ? y[k * C + (n ^ dy_swizzle(k, swz))] : 0.f; },
@@ -543,12 +551,12 @@ train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wts,
       // ---- do_{j-1} = dy W_j^T (through the poolcat), rounded, and conv j-1's sums
       const Conv& P = T.l[j - 1];
       const float* wt = wts + L.wt;   // W_j^T, (C, C_in) row-major
-      const int cin = L.cin;
+      const int cin = L.cin, ld = L.ld;
       tc_product_any(
           kSlots, cin, C, dy_a,
           [&](int k, int n) { return k < C && n < cin ? __ldg(wt + k * cin + n) : 0.f; },
           no_prev, [&](int m, int n, float2 d, float2) {
-            if (n < cin) *reinterpret_cast<float2*>(hin + m * cin + n) = d;
+            if (n < cin) *reinterpret_cast<float2*>(hin + m * ld + n) = d;
           });
       __syncthreads();
       if (kStop == kStopDcat) continue;
@@ -557,7 +565,7 @@ train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wts,
         pool_ties(P, wts, yp, T.ns, nullptr, pool, nullptr);
         for (int c = threadIdx.x; c < cp; c += kThreads) {
           float dp = hin[cp + c];
-          for (int s = 1; s < T.ns; ++s) dp = __fadd_rn(dp, hin[s * L.cin + cp + c]);
+          for (int s = 1; s < T.ns; ++s) dp = __fadd_rn(dp, hin[s * L.ld + cp + c]);
           float n = 0.f;
           for (int s = 0; s < T.ns; ++s)
             n += act(fold(yp[s * cp + c], wts[P.a + c], wts[P.c + c]), P.relu) == pool[c]
@@ -573,7 +581,7 @@ train_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wts,
         for (int s = pp.p; s < T.ns; s += pp.step) {
           const float yv = yp[s * cp + c];
           const float z = fold(yv, a, cc);
-          float d = hin[s * L.cin + c];
+          float d = hin[s * L.ld + c];
           if (L.poolcat) d = __fadd_rn(d, act(z, P.relu) == pool[c] ? unit[c] : 0.f);
           const size_t o = (static_cast<size_t>(s) * T.gp + g) * cp + c;
           float dr = d;
@@ -628,12 +636,16 @@ size_t make_tower(Tower* T, int kind, int ns, int gp, int g_total, int cin0, con
   for (int l = 0; l < n; ++l) {
     const int* q = convs + 9 * l;
     Conv& L = T->l[l];
-    L = Conv{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], 0, 0};
+    L = Conv{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], 0, 0, 0};
     const bool ok_in = l == 0 ? L.cin == cin0 : (L.cin % 4 == 0 && L.cin <= kMaxC);
     if (!ok_in || L.cout % 4 || L.cout < 4 || L.cout > kMaxC || (l == 0 && L.poolcat)) return 0;
     if (l > 0 && L.cin != (L.poolcat ? 2 : 1) * T->l[l - 1].cout) return 0;
+    // cin + 4 is 4 mod 32 at the widths that are multiples of 32: a
+    // fragment's rows (g) and columns (t) map to bank 4 g + t, and h^T's in
+    // K10's dW to 4 t + g, all 32 distinct
+    L.ld = l == 0 ? kX : L.cin + 4;
     L.in_off = static_cast<int>(off);
-    off += static_cast<size_t>(kSlots) * (l == 0 ? kX : L.cin);
+    off += static_cast<size_t>(kSlots) * L.ld;
   }
   int scratch = 0;
   for (int l = 0; l < n; ++l) {

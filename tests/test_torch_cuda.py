@@ -229,6 +229,9 @@ def _tower_case(rs, dev, plan_kind, g_total, gp, ns=16):
     elif plan_kind == "detector_paper":
         widths = (64, 128, 256)
         plan = tft.detector_plan(3)
+    elif plan_kind == "descriptor_paper":
+        widths = (32, 64, 128)
+        plan = tft.descriptor_plan(2, 1)
     else:
         widths = (8, 16, 24, 16)
         plan = tft.descriptor_plan(2, 2)
@@ -250,11 +253,12 @@ def _close(got, want, rtol, atol_rel=None, atol=0.0):
 
 @pytest.mark.parametrize("plan_kind,g_total,gp,ns", [
     ("detector", 96, 96, 16), ("detector", 80, 96, 16), ("descriptor", 80, 96, 16),
-    ("detector_paper", 40, 48, 64)])
+    ("detector_paper", 40, 48, 64), ("descriptor_paper", 40, 48, 64)])
 @pytest.mark.parametrize("cot", [torch.float32, torch.bfloat16])
 def test_train_passes_match_plain(dev, rs, plan_kind, g_total, gp, ns, cot):
-    """The last case is at the paper widths with 64 slots: K10's tensor-core
-    tiles unpadded."""
+    """The last two cases are at the paper widths with 64 slots: the
+    tensor-core tiles unpadded, and the descriptor's poolcat conv 128 -> 128,
+    whose input carries the broadcast half at the padded row stride."""
     x, plan, widths, flat = _tower_case(rs, dev, plan_kind, g_total, gp, ns)
     ns, n = x.shape[0], len(widths)
     count = float(ns * g_total)
