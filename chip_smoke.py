@@ -39,7 +39,9 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      at the training shapes: 18 clouds of 4 096 points (the vendored clouds
      cropped to 20 m and resampled under several seeds), FPS + K2 groups
      (64, 9 216, 3), 256 clusters with every slot tied, both tower plans,
-     f32 and bf16 cotangents; two kernel runs must be bit-equal;
+     f32 and bf16 cotangents; two kernel runs must be bit-equal; then K8,
+     K9 and K10's top call on tie- and pad-heavy inputs (check_pool_cases:
+     every slot tied, 40 of 64 slots, ReLU-zero channels);
   10. drives the training path with launch counters reset: cli.train
      --fused_towers for 20 steps at the paper config on a 12-entry dataset
      written under build/ (three z-rotations of each vendored cloud), then
@@ -54,9 +56,10 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      against their plain versions, each beside its bound (the products on
      the tensor cores at the TF32 peak, conv 0's on the CUDA cores at the
      f32 peak; the all-f32 bound printed beside it) and their ptxas and SASS
-     lines, then splits K10's time by stage
-     (train_bwd_time_split: the kernel leaving each cluster after the
-     recompute, the dy step, dW, dy W^T);
+     lines, then splits K8's and K10's time by stage (train_final_time_split:
+     K8 leaving each cluster after the recompute; train_bwd_time_split: K10
+     after the recompute, the dy step, dW, dy W^T) and prints each training
+     launch's shared memory and blocks per SM (occupancy_report);
   13. holds K3's bf16-activation mode against its plain version on the 7 680
      serving clusters with phase 1's weights (min cosine >= 0.9999, >= 99.9 %
      of descriptors within 2^-8, attention relative <= 1e-2) and prints it
@@ -87,7 +90,9 @@ Option: --parent DIR also builds another tree's training kernels (its
 csrc/fused_train.cu and common.cuh; DIR a checkout, e.g. a parent commit
 unpacked with git archive, or its csrc/) and, at the end of phase 12,
 holds K7-K10 against them on phase 9's inputs (parent_ab: ptxas lines of
-both, each kernel at phase 9's tolerances and timed in turns).
+both; K8's pooled and K9's sums equal to the parent's, K7 and K10 at phase
+9's tolerances; each timed in turns; and, where the parent has the split
+build, K8's split of both trees in turns).
 It writes only under build/ in the checkout.
 The line before last is a JSON summary of the sixteen kernel entries (K1-K10
 and K3's and K6's extra modes: times, their bounds from this run's shapes at
@@ -200,23 +205,30 @@ def in_turns(kernel_fn, plain_fn, reps_k, reps_p):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def serving_time_split(k3, weights_t, packed, cfg, reps=10):
-    """K3's time split, as the JAX bench's `pct_matmul_floor` reads it: ms
-    per call of the f32 forward, the bf16 forward and the decomposition
-    bodies (CUDA events, `reps` back-to-back calls, warmed up, in turns
-    forward then backward), plus elementwise_share = (f32 - matmul) / f32
-    and product_share = (matmul - stream) / f32."""
+def ms_in_turns(runs, reps):
+    """{key: ms per call} of each callable in `runs` (CUDA events, `reps`
+    back-to-back calls, warmed up, in turns forward then backward)."""
     import torch
 
-    calls = {"f32": {}, "bf16": {"bf16_act": True}, "matmul": {"ablate": "matmul"},
-             "matmul_2d": {"ablate": "matmul_2d"}, "stream": {"ablate": "stream"}}
-    runs = {k: (lambda kw=kw: k3(weights_t, packed, cfg, **kw)) for k, kw in calls.items()}
     for run in runs.values():
         run()
     torch.cuda.synchronize()
     ms = dict.fromkeys(runs, 0.0)
     for k in list(runs) + list(runs)[::-1]:
         ms[k] += cuda_ms(runs[k], reps) / 2
+    return ms
+
+
+def serving_time_split(k3, weights_t, packed, cfg, reps=10):
+    """K3's time split, as the JAX bench's `pct_matmul_floor` reads it: ms
+    per call of the f32 forward, the bf16 forward and the decomposition
+    bodies (CUDA events, `reps` back-to-back calls, warmed up, in turns
+    forward then backward), plus elementwise_share = (f32 - matmul) / f32
+    and product_share = (matmul - stream) / f32."""
+    calls = {"f32": {}, "bf16": {"bf16_act": True}, "matmul": {"ablate": "matmul"},
+             "matmul_2d": {"ablate": "matmul_2d"}, "stream": {"ablate": "stream"}}
+    ms = ms_in_turns({k: (lambda kw=kw: k3(weights_t, packed, cfg, **kw))
+                      for k, kw in calls.items()}, reps)
     ms["elementwise_share"] = (ms["f32"] - ms["matmul"]) / ms["f32"]
     ms["product_share"] = (ms["matmul"] - ms["stream"]) / ms["f32"]
     return ms
@@ -457,11 +469,20 @@ TRAIN_CLOUDS = 18        # 3B: TrainConfig().batch_size = 6 triplets of clouds
 TRAIN_POINTS = 4096      # TrainConfig().num_points
 TRAIN_EPOCHS, RESUME_EPOCHS = 10, 2   # 12 entries / 6 per step: 20, then 4 more steps
 TIE_CLUSTERS = 256       # clusters whose 64 slots are made equal (every slot ties)
+POOL_PAD_SLOTS = 40      # check_pool_cases: slots kept (24 pad slots)
+RELU_ZERO_CHANNELS = 8   # check_pool_cases: top-conv channels with every pre-ReLU value < 0
 # elementwise outputs (dx, the streamed cotangent) may differ past their
 # tolerance where a ReLU input or a pool candidate sits within rounding of
 # its rival: the kernel and the plain version sum in other orders
 FLIP_SHARE = 1e-5
+# check_pool_cases: there a flip at a pool near-tie moves every slot of the
+# tie group (up to ns rows of one cluster) and with them dW; at most this
+# share of the clusters may flip, and K10 is held on the others
+FLIP_CLUSTER_SHARE = 1e-3
 TRAIN_KERNELS = ("train_stats", "train_final", "train_bwd_top", "train_bwd")
+# --parent: the passes whose outputs must equal the parent tree's bit for bit
+# (a max and a tie count are exact in any order)
+EXACT_TO_PARENT = ("train_final", "train_bwd_top")
 PARENT_BUILD = (("fused_train.cu",), ("common.cuh",))    # --parent: sources, headers
 
 
@@ -594,14 +615,16 @@ def compare_stats(tag, got, want, count):
     return e
 
 
-def timed_call(kernel_fn, plain_fn, flops, moved, check):
+def timed_call(kernel_fn, plain_fn, flops, moved, check, label, occupancy):
     """(kernel_fn, plain_fn, bound) for the timing phase. flops: (on the CUDA
     cores, on the tensor cores); the bound prices each at its peak (f32,
     TF32). The kernel_fn carries the all-f32 bound (`f32_bound`, printed
-    beside it) and `check(tag, got, want)`, phase 9's comparison of two of
-    its outputs."""
+    beside it), `check(tag, got, want)`, phase 9's comparison of two of its
+    outputs, its `label` (tower and conv) and `occupancy()`, its launch's
+    (shared-memory bytes, blocks per SM) in the library in use."""
     cuda, tc = flops
     kernel_fn.f32_bound, kernel_fn.check = bound_ms(cuda + tc, moved)[0], check
+    kernel_fn.label, kernel_fn.occupancy = label, occupancy
     return kernel_fn, plain_fn, bound_ms(cuda + tc * PEAK_F32_FLOPS / PEAK_TF32_FLOPS, moved)
 
 
@@ -612,11 +635,13 @@ def check_train_passes(tag, x, plan, flat, cot, eps):
     {kernel: [(kernel_fn, plain_fn, bound)]}) for the timing phase."""
     import torch
 
+    from feat3dnet_tpu_torch import kernels
     from feat3dnet_tpu_torch.ops import fused_train as ft
 
     ns, gp, _ = x.shape
     count = float(ns * gp)
     n = len(flat) // 4
+    tower = tag.split("/")[0]
     io = ft.plan_conv_widths(plan, [flat[4 * j].shape[1] for j in range(n)], x.shape[2])
     macs = [ci * co for ci, co in io]
     rows = ns * gp
@@ -633,6 +658,10 @@ def check_train_passes(tag, x, plan, flat, cot, eps):
         for (ci, _), m in zip(io[:upto], macs[:upto]):
             split[ci >= 8] += 2.0 * rows * m
         return tuple(split)
+
+    def occupancy(kind, convs, is_top=False):
+        table = ft._pack(kind, x, plan, convs)[1]
+        return lambda: kernels.train_occupancy(kind, x, table, is_top)
 
     def rerun_equal(name, fn, got):
         again = fn()
@@ -655,14 +684,16 @@ def check_train_passes(tag, x, plan, flat, cot, eps):
         calls["train_stats"].append(timed_call(
             kf, lambda pre=pre, w=w, b=b: ft.stats_pass.plain(x, plan, pre, w, b, gp),
             recompute_flops(j + 1), nbytes(x) + wbytes + nblk * 2 * w.shape[1] * 4,
-            functools.partial(compare_stats, count=count)))
-    kf = lambda: ft.final_pass(x, plan, folded)
+            functools.partial(compare_stats, count=count), f"{tower} conv {j}",
+            occupancy("train_stats", pre + [(w, b)])))
+    kf = lambda **kw: ft.final_pass(x, plan, folded, **kw)
     pk, pp = kf(), ft.final_pass.plain(x, plan, folded)
     rerun_equal("K8", kf, pk)
     check = lambda name, got, want: compare(name, got, want, 0.0, 1e-4)[0]
     errs["train_final"] = check(f"{tag} K8 pooled", pk, pp)
     calls["train_final"].append(timed_call(kf, lambda: ft.final_pass.plain(x, plan, folded),
-                                           recompute_flops(n), nbytes(x, pk) + wbytes, check))
+                                           recompute_flops(n), nbytes(x, pk) + wbytes, check,
+                                           tower, occupancy("train_final", folded)))
     g = torch.Generator().manual_seed(SEED + 1)
     dpool = torch.randn(pk.shape, generator=g).to(x.device)
     kf = lambda: ft.bwd_top_pass(x, plan, folded, means[-1], isigs[-1], dpool)
@@ -674,7 +705,8 @@ def check_train_passes(tag, x, plan, flat, cot, eps):
     errs["train_bwd_top"] = check(f"{tag} K9 sums", bk, bp)
     calls["train_bwd_top"].append(timed_call(
         kf, lambda: ft.bwd_top_pass.plain(x, plan, folded, means[-1], isigs[-1], dpool),
-        recompute_flops(n), nbytes(x, dpool, bk) + wbytes + nblk * bk.numel() * 4, check))
+        recompute_flops(n), nbytes(x, dpool, bk) + wbytes + nblk * bk.numel() * 4, check,
+        tower, occupancy("train_bwd_top", folded)))
     src, bst = dpool, bp
     cot_rtol = 2.0 ** -7 if cot == torch.bfloat16 else 5e-3     # one bf16 step either way
     for j in range(n - 1, -1, -1):
@@ -690,10 +722,86 @@ def check_train_passes(tag, x, plan, flat, cot, eps):
         rec = recompute_flops(j + 1)
         own = 2.0 * rows * (macs[j] + (macs[j] if j > 0 else 3 * io[0][1]))
         moved = nbytes(x, src, got[2]) + wbytes + nblk * (got[0].numel() + got[1].numel()) * 4
-        calls["train_bwd"].append(timed_call(kf, lambda args=args: ft.bwd_pass.plain(*args),
-                                             (rec[0], rec[1] + own), moved, check))
+        calls["train_bwd"].append(timed_call(
+            kf, lambda args=args: ft.bwd_pass.plain(*args), (rec[0], rec[1] + own), moved, check,
+            f"{tower} conv {j}", occupancy("train_bwd", folded[:j + 1], j == n - 1)))
         src, bst = want[2], want[3]
     return errs, calls
+
+
+def check_pool_cases(tower, x, plan, flat, eps):
+    """Phase 9's tie- and pad-heavy inputs for the passes that read the top
+    conv's slot max-pool: K8, K9 and K10's top call against their plain
+    versions (f32 cotangents), each twice for bit-equality, on x with every
+    slot of every cluster made equal to its slot 0 (each channel ties ns
+    ways), on its first POOL_PAD_SLOTS slots (pad slots past ns), and, where
+    the top conv has a ReLU, with RELU_ZERO_CHANNELS of its channels shifted
+    so that every pre-ReLU value is negative (a ReLU-zero tie). The folded
+    affines come from the plain statistics of each input. K10 is held on
+    the clusters whose elementwise output agrees; the others, rounding flips
+    at a pool near-tie, may be at most FLIP_CLUSTER_SHARE of them. Returns
+    {kernel: max |d|}."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import fused_train as ft
+
+    n = len(flat) // 4
+    cases = {"all slots tied": x[0:1].expand_as(x).contiguous(),
+             "pad slots": x[:POOL_PAD_SLOTS].contiguous()}
+    if ft._relu_of(plan, n - 1):
+        cases["ReLU-zero channels"] = x
+    errs = {k: 0.0 for k in TRAIN_KERNELS[1:]}
+    for case, xc in cases.items():
+        ns, gp, _ = xc.shape
+        count = float(ns * gp)
+        folded, means, isigs = [], [], []
+        for j in range(n):
+            w, b, g, be = flat[4 * j:4 * j + 4]
+            st = ft.stats_pass.plain(xc, plan, folded, w, b, gp)
+            mean, _, a, c, isig = ft._finalize_stats(st, count, g, be, eps)
+            if case == "ReLU-zero channels" and j == n - 1:
+                c = c.clone()
+                c[:RELU_ZERO_CHANNELS] -= 1e3
+            folded.append((w, b, a, c))
+            means.append(mean)
+            isigs.append(isig)
+        tag = f"{tower} {case}"
+        runs = {"train_final": lambda: ft.final_pass(xc, plan, folded)}
+        pk = runs["train_final"]()
+        errs["train_final"] = max(errs["train_final"], compare(
+            f"{tag} K8 pooled", pk, ft.final_pass.plain(xc, plan, folded), 0.0, 1e-4)[0])
+        dpool = torch.randn(pk.shape, generator=torch.Generator().manual_seed(SEED + 2))
+        dpool = dpool.to(xc.device)
+        top = (xc, plan, folded, means[-1], isigs[-1], dpool)
+        runs["train_bwd_top"] = lambda: ft.bwd_top_pass(*top)
+        bk, bp = runs["train_bwd_top"](), ft.bwd_top_pass.plain(*top)
+        errs["train_bwd_top"] = max(errs["train_bwd_top"], compare(
+            f"{tag} K9 sums", bk, bp, 5e-3, 5e-4 * bp.abs().max().item())[0])
+        rest = (bp[0] / count, bp[1] / count, flat[4 * n - 2] * isigs[-1],
+                means[-2] if n > 1 else None, isigs[-2] if n > 1 else None)
+        args = (*top, *rest, gp, torch.float32)
+        runs["train_bwd"] = lambda: ft.bwd_pass(*args)
+        # clusters whose elementwise output (do_prev or dx) differs past phase
+        # 9's tolerance: rounding flips at a pool near-tie or a ReLU input ~ 0
+        got, want = runs["train_bwd"]()[2], ft.bwd_pass.plain(*args)[2]
+        flip = ((got - want).abs() > 5e-5 + 5e-3 * want.abs()).any(2).any(0)
+        flips = int(flip.sum().item())
+        require(flips <= FLIP_CLUSTER_SHARE * gp,
+                f"{tag} K10 conv {n - 1}: {flips} of {gp} clusters differ")
+        keep = (~flip).nonzero().squeeze(1)
+        kept = (xc[:, keep].contiguous(), *top[1:5], dpool[keep].contiguous(), *rest,
+                keep.numel(), torch.float32)
+        errs["train_bwd"] = max(errs["train_bwd"], compare_bwd(
+            f"{tag} K10 conv {n - 1}", ft.bwd_pass(*kept), ft.bwd_pass.plain(*kept), n - 1,
+            5e-3))
+        for k, fn in runs.items():
+            got, again = fn(), fn()
+            got, again = (got, again) if isinstance(got, tuple) else ((got,), (again,))
+            require(all(a is b or torch.equal(a, b) for a, b in zip(got, again)),
+                    f"{tag} {k}: not bit-equal")
+        print(f"  {tag} (ns {ns}): K8, K9 and K10's top call within phase 9's tolerances "
+              f"(K10 on {keep.numel()} of {gp} clusters, {flips} flipped left out), bit-equal on repeat")
+    return errs
 
 
 def model_grads(model, clouds, margin):
@@ -770,11 +878,15 @@ def train_kernel_phase(dev):
             if cot == torch.float32:
                 for k, c in calls.items():
                     timed[k] += c
+                errs = check_pool_cases(tower, xs[tower], plan, flat, cfg.bn_epsilon)
+                for k, e in errs.items():
+                    report[k]["max_abs_err"] = max(report[k]["max_abs_err"], e)
             torch.cuda.empty_cache()
     errs = ", ".join(f"{k} {v['max_abs_err']:.3e}" for k, v in report.items())
     print(f"K7-K10 at (ns, G) = {tuple(xs['detector'].shape[:2])}, both plans, f32 and bf16 "
-          f"cotangents, {TIE_CLUSTERS} all-ties clusters: within tolerance, bit-equal on "
-          f"repeat; max |d|: {errs} ({time.perf_counter() - t0:.1f} s)")
+          f"cotangents, {TIE_CLUSTERS} all-ties clusters, and the tie- and pad-heavy cases: "
+          f"within tolerance, bit-equal on repeat; max |d|: {errs} "
+          f"({time.perf_counter() - t0:.1f} s)")
     return report, timed
 
 
@@ -799,34 +911,47 @@ def train_kernel_times(timed, report, card):
                   f"bound {[round(q[2][0], 4) for q in per]} ms (TF32; at the f32 CUDA-core "
                   f"peak {[round(kf.f32_bound, 4) for kf, _, _ in cl]} ms, mean "
                   f"{np.mean([kf.f32_bound for kf, _, _ in cl]):.4f})")
+        for i, (kf, _, _) in enumerate(timed["train_final"]):
+            print_split(card, f"train_final call {i} ({kf.label})", train_final_time_split(kf))
         for i, (kf, _, _) in enumerate(timed["train_bwd"]):
-            sp = train_bwd_time_split(kf)
-            print(f"[{card}] train_bwd call {i} split: " + ", ".join(
-                f"{k} {v:.4f}" + ("" if k.endswith("share") else " ms") for k, v in sp.items()))
+            print_split(card, f"train_bwd call {i}", train_bwd_time_split(kf))
+        occupancy_report("this", timed)
 
 
-def train_bwd_time_split(kernel_fn, reps=3):
-    """K10's time split, as serving_time_split splits K3: ms per call of the
-    kernel that leaves each cluster after the recompute, the dy step, dW and
-    dy W^T, and of the whole kernel (CUDA events, `reps` back-to-back calls,
-    warmed up, in turns forward then backward), with each stage's share of
-    the whole: recompute, dy, dW, dy W^T and the rest (the cotangent's pool
-    routing, rounding and the next conv's sums)."""
-    import torch
-
-    stops = ("recompute", "dy", "dw", "dcat", None)
-    runs = {k or "full": (lambda k=k: kernel_fn(stop=k)) for k in stops}
-    for run in runs.values():
-        run()
-    torch.cuda.synchronize()
-    ms = dict.fromkeys(runs, 0.0)
-    for k in list(runs) + list(runs)[::-1]:
-        ms[k] += cuda_ms(runs[k], reps) / 2
+def stage_split(kernel_fn, stops, reps=3):
+    """A training kernel's time split by stage: ms per call of the kernel
+    that leaves each cluster after each stage in `stops` (in order) and of
+    the whole kernel ("full"), timed by ms_in_turns, with each stage's
+    share of the whole (the last share, "full_share", is the rest)."""
+    ms = ms_in_turns({k or "full": (lambda k=k: kernel_fn(stop=k)) for k in stops + (None,)},
+                     reps)
     prev = 0.0
-    for k in runs:
+    for k in list(ms):
         ms[f"{k}_share"] = (ms[k] - prev) / ms["full"]
         prev = ms[k]
     return ms
+
+
+def train_bwd_time_split(kernel_fn, reps=3):
+    """K10's time split, as serving_time_split splits K3: the kernel that
+    leaves each cluster after the recompute, the dy step, dW and dy W^T, and
+    the whole kernel; the rest is the cotangent's pool routing, rounding and
+    the next conv's sums."""
+    return stage_split(kernel_fn, ("recompute", "dy", "dw", "dcat"), reps)
+
+
+def train_final_time_split(kernel_fn, reps=3):
+    """K8's time split, modelled on train_bwd_time_split: the kernel that
+    leaves each cluster after the recompute (every conv, the top one's
+    product included, and in this tree the pool's reduction into its
+    per-tile partials) against the whole kernel; the rest is the pool
+    epilogue and the pooled write."""
+    return stage_split(kernel_fn, ("recompute",), reps)
+
+
+def print_split(card, what, sp):
+    print(f"[{card}] {what} split: " + ", ".join(
+        f"{k} {v:.4f}" + ("" if k.endswith("share") else " ms") for k, v in sp.items()))
 
 
 @functools.lru_cache(maxsize=None)
@@ -899,12 +1024,26 @@ def train_build_report(tag, info):
         print(f"  sass ({tag}): {name}: {hmma} HMMA, {ffma} FFMA")
 
 
-def parent_ab(parent, timed, card):
+def occupancy_report(tag, timed):
+    """Each training kernel's launches: dynamic shared memory and the blocks
+    that fit on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), per
+    call, in the library in use."""
+    for k, cl in timed.items():
+        print(f"  occupancy ({tag}): {k}: " + "; ".join(
+            "{} {} B, {} blocks/SM".format(kf.label, *kf.occupancy()) for kf, _, _ in cl))
+
+
+def parent_ab(parent, timed, card, fused_step_ms):
     """The training kernels of another tree (`--parent`: a checkout or its
     csrc/, of which only fused_train.cu and common.cuh are built) against
     this one's on phase 9's f32-cotangent inputs: both trees' ptxas lines
-    for fused_train.cu, then each call of K7-K10 at phase 9's tolerances of
-    the parent's and timed in turns (parent, this, this, parent)."""
+    for fused_train.cu (and occupancy, where the parent reports it), then
+    each call of K7-K10 against the parent's, K8 and K9 bit for bit
+    (EXACT_TO_PARENT), K7 and K10 at phase 9's tolerances, timed in turns
+    (parent, this, this, parent); then, where the parent has K8's split
+    build, K8's split of both trees in turns; then the fused training step
+    (`fused_step_ms()`: median ms, peak GiB) with either tree's kernels, in
+    turns."""
     import torch
 
     from feat3dnet_tpu_torch import kernels
@@ -914,20 +1053,49 @@ def parent_ab(parent, timed, card):
     missing = [f for f in sum(PARENT_BUILD, ()) if not os.path.isfile(os.path.join(csrc, f))]
     require(not missing, f"--parent: {csrc} has no {', '.join(missing)}")
     train_build_report("parent", kernels.build(csrc, *PARENT_BUILD))
+    lib = other_library(csrc)
+    if hasattr(lib, "f3d_train_occupancy"):
+        with kernels_from(csrc):
+            occupancy_report("parent", timed)
+
+    def parent_fn(kf, **kw):
+        with kernels_from(csrc):
+            return kf(**kw)
+
     with torch.no_grad():
         for k, cl in timed.items():
             total = np.zeros(2)
             for i, (kf, _, _) in enumerate(cl):
-                def parent_fn(kf=kf):
-                    with kernels_from(csrc):
-                        return kf()
-                e = kf.check(f"{k} call {i} vs parent", kf(), parent_fn())
-                ms, ms_parent = in_turns(kf, parent_fn, 3, 3)
+                pf = functools.partial(parent_fn, kf)
+                if k in EXACT_TO_PARENT:
+                    compare(f"{k} call {i} vs parent", kf(), pf(), 0.0, 0.0)
+                    held = "exact: max |d| 0"
+                else:
+                    e = kf.check(f"{k} call {i} vs parent", kf(), pf())
+                    held = f"within phase 9's tolerances of the parent (max |d| {e:.3e})"
+                ms, ms_parent = in_turns(kf, pf, 3, 3)
                 total += (ms_parent, ms)
-                print(f"[{card}] {k} call {i}: parent {ms_parent:.4f} ms, this {ms:.4f} ms; "
-                      f"within phase 9's tolerances of the parent (max |d| {e:.3e})")
+                print(f"[{card}] {k} call {i} ({kf.label}): parent {ms_parent:.4f} ms, this "
+                      f"{ms:.4f} ms; {held}")
             print(f"[{card}] {k} over its {len(cl)} calls: parent {total[0]:.4f} ms, "
                   f"this {total[1]:.4f} ms")
+        if hasattr(lib, "f3d_train_final_split"):
+            for i, (kf, _, _) in enumerate(timed["train_final"]):
+                sp = ms_in_turns({
+                    "parent recompute": functools.partial(parent_fn, kf, stop="recompute"),
+                    "parent full": functools.partial(parent_fn, kf),
+                    "this recompute": lambda kf=kf: kf(stop="recompute"),
+                    "this full": kf}, 3)
+                print_split(card, f"train_final call {i} ({kf.label}), parent and this in turns",
+                            sp)
+    steps = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        with kernels_from(csrc) if who == "parent" else contextlib.nullcontext():
+            steps[who].append(fused_step_ms())
+    print(f"[{card}] fused train step, parent and this in turns: " + "; ".join(
+        f"{who} median {np.mean([v[0] for v in vals]):.2f} ms (runs "
+        f"{[round(v[0], 2) for v in vals]}), peak {max(v[1] for v in vals):.2f} GiB"
+        for who, vals in steps.items()))
 
 
 def training_phases(dev, card, parent=None):
@@ -1118,8 +1286,11 @@ def training_phases(dev, card, parent=None):
 
     # ---- 12. times -------------------------------------------------------------------
     aug = tuple(resolve_augmentations(tcfg.augmentations, tcfg.upright_axis))
-    route_ms = {}
-    for route, fused in (("autograd", False), ("fused", True), ("fused", True), ("autograd", False)):
+
+    def step_ms(fused, profile_as=None):
+        """(median ms of 12 synchronised training steps after 2, peak GiB) of
+        a fresh model on the fused or the autograd route; `profile_as`: also
+        profile one more step and print it under that name."""
         m = Feat3DNet(ModelConfig(fused_towers=fused))
         s4 = init_state(m, tcfg, cfg, variables=variables, device=dev)
         step = make_fused_train_step(m, cfg.margin, cfg.attention, augmentations=aug, aug_seed=1)
@@ -1134,8 +1305,7 @@ def training_phases(dev, card, parent=None):
             torch.cuda.synchronize()
             per.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        route_ms.setdefault(route, []).append((statistics.median(per), peak))
-        if len(route_ms[route]) == 2:
+        if profile_as:
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -1146,12 +1316,18 @@ def training_phases(dev, card, parent=None):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
             ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
             busy = sum(e.self_device_time_total for e in ev) / 1e3
-            print(f"[{card}] profile train step ({route}): wall {wall:.2f} ms, device busy "
+            print(f"[{card}] profile train step ({profile_as}): wall {wall:.2f} ms, device busy "
                   f"{busy:.2f} ms ({100 * busy / wall:.1f} %)")
             for e in ev[:10]:
                 print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
         del s4, m, step
         torch.cuda.empty_cache()
+        return statistics.median(per), peak
+
+    route_ms = {}
+    for route, fused in (("autograd", False), ("fused", True), ("fused", True), ("autograd", False)):
+        again = route in route_ms       # the second run of a route is profiled
+        route_ms.setdefault(route, []).append(step_ms(fused, route if again else None))
     for route, vals in route_ms.items():
         print(f"[{card}] train step ({route} route, {TRAIN_CLOUDS} x {TRAIN_POINTS} points, "
               f"augmented): median "
@@ -1159,7 +1335,7 @@ def training_phases(dev, card, parent=None):
               f"peak memory {max(v[1] for v in vals):.2f} GiB")
     train_kernel_times(timed, report, card)
     if parent:
-        parent_ab(parent, timed, card)
+        parent_ab(parent, timed, card, functools.partial(step_ms, True))
     return report, launches
 
 

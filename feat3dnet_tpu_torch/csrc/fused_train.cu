@@ -41,6 +41,13 @@
 // (__fmul_rn, __fadd_rn); a thread's running per-channel sums are
 // compensated (Kahan).
 //
+// K8 and K9 take the slot max-pool of the top conv's output, and its tie
+// count, where the top conv's product leaves its accumulators (conv_pool):
+// a max and a tie count are exact in any order, so the reduction runs per
+// thread, across a warp tile's row groups by shuffles and across the warp
+// tiles through shared memory, and gives pool_ties' results bit for bit.
+// K8 then keeps no top y, and two detector blocks fit on an SM.
+//
 // K10 does two products of its own per cluster beside the recompute,
 // dW_j += h^T dy (C_in x C_j over the 64 slots) and dy W_j^T (64 x C_in over
 // C_j; dx for conv 0), as many multiply-adds again as the recompute of the
@@ -54,6 +61,10 @@
 #include "common.cuh"
 
 #include <cuda_bf16.h>
+
+#include <algorithm>
+#include <cmath>
+#include <type_traits>
 
 namespace {
 
@@ -76,7 +87,8 @@ struct Tower {
   int ns, gp, g_total, cin0;
   int is_top;                     // K10: conv n-1 is the plan's last conv
   int mu, isig, m1, m2, ga, mu_p, isig_p;   // vector offsets (K9, K10)
-  int vec_off;                    // shared memory: 2 * kMaxC + kThreads floats
+  int vec_off;                    // shared memory: 2 * kMaxC + kThreads floats (K9: + 4 kThreads)
+  int part_off;                   // K8, K9: conv_pool's partials (the scratch y region)
   Conv l[kMaxConvs];
 };
 
@@ -140,7 +152,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[MT][NT][4], const uint32_t
 }
 
 // D (M x N) = sum_{k < K} A(m, k) B(k, n) on the tensor cores, in warp tiles
-// of (16 MT) x (8 NT) that the block's warps share out. la(m, k) / lb(k, n)
+// of (16 MT) x (8 NT) that the block's warps share out; tc_tile sums one. la(m, k) / lb(k, n)
 // return the operand, 0 past M, N or K: ragged widths, pad slots and conv
 // 0's 3-wide input go through the one path as zeros. st(m, n, d, p) takes
 // each row's pair of outputs d = (D[m][n], D[m][n+1]) (m < 16 ceil(M / 16),
@@ -151,6 +163,46 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[MT][NT][4], const uint32_t
 // toward zero (the tensor cores truncate in alignment), and over a whole K
 // that bias, always against the running sum's sign, shows in a mean over
 // many rows (K7's statistics); block sums shrink it to the blocks' size.
+template <bool kBlockSums, int MT, int NT, typename LA, typename LB>
+__device__ __forceinline__ void tc_tile(int m0, int n0, int K, LA la, LB lb,
+                                        float (&acc)[MT][NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][q][e] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int m = m0 + 16 * i + g;
+      split_tf32(la(m, k0 + t), ah[i][0], al[i][0]);
+      split_tf32(la(m + 8, k0 + t), ah[i][1], al[i][1]);
+      split_tf32(la(m, k0 + t + 4), ah[i][2], al[i][2]);
+      split_tf32(la(m + 8, k0 + t + 4), ah[i][3], al[i][3]);
+    }
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      split_tf32(lb(k0 + t, n0 + 8 * q + g), bh[q][0], bl[q][0]);
+      split_tf32(lb(k0 + t + 4, n0 + 8 * q + g), bh[q][1], bl[q][1]);
+    }
+    if constexpr (kBlockSums) {
+      float blk[MT][NT][4] = {};
+      mma_3xtf32(blk, ah, al, bh, bl);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int q = 0; q < NT; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][q][e] = __fadd_rn(acc[i][q][e], blk[i][q][e]);
+    } else {
+      mma_3xtf32(acc, ah, al, bh, bl);
+    }
+  }
+}
+
 template <bool kBlockSums, int MT, int NT, typename LA, typename LB, typename LP, typename ST>
 __device__ __forceinline__ void tc_product(int M, int N, int K, LA la, LB lb, LP lp, ST st) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -167,40 +219,7 @@ __device__ __forceinline__ void tc_product(int M, int N, int K, LA la, LB lb, LP
         prev[i][q][1] = lp(m0 + 16 * i + g + 8, n0 + 8 * q + 2 * t);
       }
     float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int q = 0; q < NT; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][q][e] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += 8) {
-      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int m = m0 + 16 * i + g;
-        split_tf32(la(m, k0 + t), ah[i][0], al[i][0]);
-        split_tf32(la(m + 8, k0 + t), ah[i][1], al[i][1]);
-        split_tf32(la(m, k0 + t + 4), ah[i][2], al[i][2]);
-        split_tf32(la(m + 8, k0 + t + 4), ah[i][3], al[i][3]);
-      }
-#pragma unroll
-      for (int q = 0; q < NT; ++q) {
-        split_tf32(lb(k0 + t, n0 + 8 * q + g), bh[q][0], bl[q][0]);
-        split_tf32(lb(k0 + t + 4, n0 + 8 * q + g), bh[q][1], bl[q][1]);
-      }
-      if constexpr (kBlockSums) {
-        float blk[MT][NT][4] = {};
-        mma_3xtf32(blk, ah, al, bh, bl);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int q = 0; q < NT; ++q)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][q][e] = __fadd_rn(acc[i][q][e], blk[i][q][e]);
-      } else {
-        mma_3xtf32(acc, ah, al, bh, bl);
-      }
-    }
+    tc_tile<kBlockSums>(m0, n0, K, la, lb, acc);
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -212,19 +231,33 @@ __device__ __forceinline__ void tc_product(int M, int N, int K, LA la, LB lb, LP
   }
 }
 
-// tc_product in the widest warp tile that still gives every warp a tile
-// (the narrow products: conv 0's 3-wide dW and dx, 32-wide convs). The tile
-// depends only on (M, N, K), so a product's summation order is fixed.
-template <bool kBlockSums = false, typename LA, typename LB, typename LP, typename ST>
-__device__ __forceinline__ void tc_product_any(int M, int N, int K, LA la, LB lb, LP lp,
-                                               ST st) {
+template <int kMT, int kNT>
+struct WarpTile {
+  static constexpr int MT = kMT, NT = kNT;
+};
+
+// f(WarpTile<MT, NT>{}) with the widest warp tile that still gives every
+// warp a tile of an M x N product (the narrow products: conv 0's 3-wide dW
+// and dx, 32-wide convs). The tile depends only on (M, N), so a product's
+// summation order is fixed.
+template <typename F>
+__device__ __forceinline__ void with_warp_tile(int M, int N, F f) {
   auto tiles = [&](int mt, int nt) {
     return (M + 16 * mt - 1) / (16 * mt) * ((N + 8 * nt - 1) / (8 * nt));
   };
-  if (tiles(2, 4) >= kWarps) tc_product<kBlockSums, 2, 4>(M, N, K, la, lb, lp, st);
-  else if (tiles(1, 4) >= kWarps) tc_product<kBlockSums, 1, 4>(M, N, K, la, lb, lp, st);
-  else if (tiles(1, 2) >= kWarps) tc_product<kBlockSums, 1, 2>(M, N, K, la, lb, lp, st);
-  else tc_product<kBlockSums, 1, 1>(M, N, K, la, lb, lp, st);
+  if (tiles(2, 4) >= kWarps) f(WarpTile<2, 4>{});
+  else if (tiles(1, 4) >= kWarps) f(WarpTile<1, 4>{});
+  else if (tiles(1, 2) >= kWarps) f(WarpTile<1, 2>{});
+  else f(WarpTile<1, 1>{});
+}
+
+// tc_product in with_warp_tile's tile.
+template <bool kBlockSums = false, typename LA, typename LB, typename LP, typename ST>
+__device__ __forceinline__ void tc_product_any(int M, int N, int K, LA la, LB lb, LP lp,
+                                               ST st) {
+  with_warp_tile(M, N, [&](auto w) {
+    tc_product<kBlockSums, decltype(w)::MT, decltype(w)::NT>(M, N, K, la, lb, lp, st);
+  });
 }
 
 // Where K10 writes dy[s][c] in conv j's y rows: c ^ dy_swizzle(s) when C is
@@ -289,14 +322,25 @@ __device__ __forceinline__ void conv_fma(const Conv& L, const float* __restrict_
   }
 }
 
+// Conv L's operands on the tensor cores: A (m, k) its input rows h (row
+// stride L.ld), B (k, n) its W through L1; 0 past cin and cout.
+__device__ __forceinline__ auto conv_a(const Conv& L, const float* h) {
+  const int cin = L.cin, ld = L.ld;
+  return [=](int m, int k) { return k < cin ? h[m * ld + k] : 0.f; };
+}
+
+__device__ __forceinline__ auto conv_b(const Conv& L, const float* __restrict__ wts) {
+  const int cin = L.cin, cout = L.cout;
+  const float* W = wts + L.w;
+  return [=](int k, int n) { return k < cin && n < cout ? __ldg(W + k * cout + n) : 0.f; };
+}
+
 __device__ __forceinline__ void conv_tc(const Conv& L, const float* __restrict__ wts,
                                         const float* h, float* y) {
-  const int cin = L.cin, cout = L.cout, ld = L.ld;
-  const float* W = wts + L.w;
+  const int cout = L.cout;
   const float* bias = wts + L.b;
   tc_product_any<true>(
-      kSlots, cout, cin, [&](int m, int k) { return k < cin ? h[m * ld + k] : 0.f; },
-      [&](int k, int n) { return k < cin && n < cout ? __ldg(W + k * cout + n) : 0.f; },
+      kSlots, cout, L.cin, conv_a(L, h), conv_b(L, wts),
       [](int, int) { return make_float2(0.f, 0.f); },
       [&](int m, int n, float2 d, float2) {
         if (n < cout)
@@ -305,11 +349,184 @@ __device__ __forceinline__ void conv_tc(const Conv& L, const float* __restrict__
       });
 }
 
+// (v, count) into a channel's running slot max-pool m and tie count n
+// (start: -inf, 0): the larger max wins, equal maxima (==, so +0 and -0
+// alike) add their counts. Exact in any order, so every order gives
+// pool_ties' pool (up to the sign of a zero) and count; a NaN takes no
+// part, as in pool_ties past slot 0. Without kTies only the max.
+template <bool kTies>
+__device__ __forceinline__ void pool_add(float& m, float& n, float v, float count) {
+  const float x = fmaxf(m, v);
+  if (kTies) n = (m == x ? n : 0.f) + (v == x ? count : 0.f);
+  m = x;
+}
+
+// One level of a warp tile's reduction across its eight row groups g, on
+// lane bit `bit` (16, 8, 4): with kC > 1 columns left in (m, n), a lane
+// keeps half of them (the upper half where its bit is set), adds its
+// partner's values of that half and records in idx which half; with one
+// left, both lanes add it, and of the two only the one without the bit
+// goes on writing (writer).
+template <bool kTies, int kC, int kN>
+__device__ __forceinline__ void pool_level(float (&m)[kN], float (&n)[kN], int bit, int& idx,
+                                           bool& writer) {
+  const bool up = threadIdx.x & bit;
+  if constexpr (kC == 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, m[0], bit);
+    const float on = kTies ? __shfl_xor_sync(0xffffffffu, n[0], bit) : 0.f;
+    pool_add<kTies>(m[0], n[0], om, on);
+    writer = writer && !up;
+  } else {
+    constexpr int kH = kC / 2;
+#pragma unroll
+    for (int i = 0; i < kH; ++i) {
+      const float om = __shfl_xor_sync(0xffffffffu, up ? m[i] : m[i + kH], bit);
+      const float on = kTies ? __shfl_xor_sync(0xffffffffu, up ? n[i] : n[i + kH], bit) : 0.f;
+      if (up) {
+        m[i] = m[i + kH];
+        n[i] = n[i + kH];
+      }
+      pool_add<kTies>(m[i], n[i], om, on);
+    }
+    idx += up ? kH : 0;
+  }
+}
+
+// conv_pool's partials in shared memory: maxima at part[k * C + c], counts
+// at part[kPartCount + k * C + c]; k < the 64 slots' warp tiles (at most 4)
+// or conv_fma's phases (256 / C, k * C < 256)
+constexpr int kPartCount = 4 * kMaxC;
+
+// The top conv's y = h W + b, as conv_fma / conv_tc compute it, with the
+// slot max-pool of its output o = act(fold(y)) and (kTies) the pool's tie
+// count taken where y is made, over the slots < ns (pad slots take no
+// part). On the tensor cores: each thread over its 2 MT rows of each of
+// its 2 NT columns, then across the warp tile's eight row groups
+// (pool_level: shuffles on lane bits 4, 3, 2, halving the columns a lane
+// holds); on the CUDA cores each thread over its slots. Then across the
+// partials (the warp tiles of the 64 slots, or conv_fma's phases) through
+// `part` (2 kPartCount floats of shared memory), in partial order. y is
+// stored only when given (K9 reads it back; K8 keeps none). Ends with
+// out(c, pool, count) for every channel (count 0 without kTies), not
+// synced.
+template <bool kTies, typename Out>
+__device__ __forceinline__ void conv_pool(const Conv& L, const float* __restrict__ wts,
+                                          const float* h, float* y, int ns, float* part,
+                                          Out out) {
+  const int cout = L.cout, relu = L.relu;
+  const float* bias = wts + L.b;
+  const float* fa = wts + L.a;
+  const float* fc = wts + L.c;
+  int parts;
+  if (L.cin < 8) {
+    const Phase ph = phase_of(cout);
+    parts = ph.step;
+    if (ph.on) {
+      const int cin = L.cin, ld = L.ld;
+      float w[kX];
+#pragma unroll
+      for (int k = 0; k < kX; ++k) w[k] = k < cin ? __ldg(wts + L.w + k * cout + ph.c) : 0.f;
+      const float b = __ldg(bias + ph.c), a = fa[ph.c], c = fc[ph.c];
+      float pm = -INFINITY, pn = 0.f;
+      for (int s = ph.p; s < kSlots; s += ph.step) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < kX; ++k)
+          if (k < cin) acc = fmaf(h[s * ld + k], w[k], acc);
+        const float yv = __fadd_rn(acc, b);
+        if (y) y[s * cout + ph.c] = yv;
+        if (s < ns) pool_add<kTies>(pm, pn, act(fold(yv, a, c), relu), 1.f);
+      }
+      part[ph.p * cout + ph.c] = pm;
+      if (kTies) part[kPartCount + ph.p * cout + ph.c] = pn;
+    }
+  } else {
+    with_warp_tile(kSlots, cout, [&](auto wt) {
+      constexpr int MT = decltype(wt)::MT, NT = decltype(wt)::NT, kCols = 2 * NT;
+      const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+      const int tiles_n = (cout + 8 * NT - 1) / (8 * NT);
+      parts = kSlots / (16 * MT);
+      for (int tile = threadIdx.x >> 5; tile < parts * tiles_n; tile += kWarps) {
+        const int mt = tile / tiles_n, m0 = mt * 16 * MT, n0 = tile % tiles_n * 8 * NT;
+        float acc[MT][NT][4];
+        tc_tile<true>(m0, n0, L.cin, conv_a(L, h), conv_b(L, wts), acc);
+        bool valid[MT][2];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) valid[i][r] = m0 + 16 * i + 8 * r + g < ns;
+        // column j = 2 q + e: n0 + 8 q + 2 t + e; its rows m0 + 16 i + 8 r + g
+        float pm[kCols], pn[kCols];
+#pragma unroll
+        for (int q = 0; q < NT; ++q) {
+          const int n = n0 + 8 * q + 2 * t;     // columns n, n + 1: cout % 4 == 0
+          if (n >= cout) {
+            pm[2 * q] = pm[2 * q + 1] = -INFINITY;
+            pn[2 * q] = pn[2 * q + 1] = 0.f;
+            continue;
+          }
+          const float b0 = __ldg(bias + n), b1 = __ldg(bias + n + 1);
+          const float a0 = fa[n], a1 = fa[n + 1], c0 = fc[n], c1 = fc[n + 1];
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float2 v = make_float2(__fadd_rn(acc[i][q][2 * r], b0),
+                                           __fadd_rn(acc[i][q][2 * r + 1], b1));
+              if (y) *reinterpret_cast<float2*>(y + (m0 + 16 * i + 8 * r + g) * cout + n) = v;
+              acc[i][q][2 * r] = act(fold(v.x, a0, c0), relu);
+              acc[i][q][2 * r + 1] = act(fold(v.y, a1, c1), relu);
+            }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float mx = -INFINITY, cnt = 0.f;
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                if (valid[i][r]) mx = fmaxf(mx, acc[i][q][2 * r + e]);
+            if (kTies)
+#pragma unroll
+              for (int i = 0; i < MT; ++i)
+#pragma unroll
+                for (int r = 0; r < 2; ++r)
+                  cnt += valid[i][r] && acc[i][q][2 * r + e] == mx ? 1.f : 0.f;
+            pm[2 * q + e] = mx;
+            pn[2 * q + e] = cnt;
+          }
+        }
+        int idx = 0;
+        bool writer = true;
+        pool_level<kTies, kCols>(pm, pn, 16, idx, writer);
+        pool_level<kTies, (kCols > 1 ? kCols / 2 : 1)>(pm, pn, 8, idx, writer);
+        pool_level<kTies, (kCols > 2 ? kCols / 4 : 1)>(pm, pn, 4, idx, writer);
+        const int n = n0 + 8 * (idx / 2) + 2 * t + idx % 2;
+        if (writer && n < cout) {
+          part[mt * cout + n] = pm[0];
+          if (kTies) part[kPartCount + mt * cout + n] = pn[0];
+        }
+      }
+    });
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < cout; c += kThreads) {
+    float m = -INFINITY, n = 0.f;
+    for (int k = 0; k < parts; ++k)
+      pool_add<kTies>(m, n, part[k * cout + c], kTies ? part[kPartCount + k * cout + c] : 0.f);
+    out(c, m, n);
+  }
+}
+
+// recompute's default last conv: y stored like every other conv's (K7, K10).
+struct StoreY {};
+
 // Cluster g through convs 0..T.n-1: x into conv 0's input, then per conv its
 // y, and for every conv but the last its output into the next conv's input
-// (with the poolcat's broadcast half where the plan has one). Ends synced.
+// (with the poolcat's broadcast half where the plan has one). A `top` other
+// than StoreY runs the last conv as top(L, h), h its input rows. Ends synced.
+template <typename Top = StoreY>
 __device__ void recompute(const Tower& T, const float* __restrict__ x,
-                          const float* __restrict__ wts, float* sm, int g) {
+                          const float* __restrict__ wts, float* sm, int g, Top top = {}) {
   float* in0 = sm + T.l[0].in_off;
   for (int e = threadIdx.x; e < kSlots * kX; e += kThreads) {
     const int s = e / kX, k = e % kX;
@@ -319,6 +536,13 @@ __device__ void recompute(const Tower& T, const float* __restrict__ x,
   __syncthreads();
   for (int l = 0; l < T.n; ++l) {
     const Conv& L = T.l[l];
+    if constexpr (!std::is_same_v<Top, StoreY>) {
+      if (l + 1 == T.n) {
+        top(L, sm + L.in_off);
+        __syncthreads();
+        break;
+      }
+    }
     float* y = sm + L.y_off;
     if (L.cin < 8) conv_fma(L, wts, sm + L.in_off, y);
     else conv_tc(L, wts, sm + L.in_off, y);
@@ -391,22 +615,38 @@ train_stats_kernel(const float* __restrict__ x, const float* __restrict__ wts,
   reduce_phases(ph.on ? s2.s : 0.f, C, red, out + C);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K8's and K10's stages; a split build returns from each cluster after one
+// of them (chip_smoke's train_final_time_split and train_bwd_time_split),
+// kStopNone runs them all. K8 has only kStopRecompute.
+enum Stop { kStopNone, kStopRecompute, kStopDy, kStopDw, kStopDcat };
+
+// K8: the pool taken in the top conv's epilogue (conv_pool), no top y kept,
+// so that two detector blocks fit on an SM. The split build (kStopRecompute)
+// reduces the pool into conv_pool's partials and leaves before combining and
+// writing them.
+template <int kStop>
+__global__ void __launch_bounds__(kThreads, 2)
 train_final_kernel(const float* __restrict__ x, const float* __restrict__ wts,
                    const __grid_constant__ Tower T, float* __restrict__ pooled) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const Conv& L = T.l[T.n - 1];
-  float* pool = sm + T.vec_off;
+  float* part = sm + T.part_off;
   for (int g = blockIdx.x; g < T.gp; g += gridDim.x) {
-    recompute(T, x, wts, sm, g);
-    pool_ties(L, wts, sm + L.y_off, T.ns, nullptr, pool, nullptr);
-    for (int c = threadIdx.x; c < L.cout; c += kThreads)
-      pooled[static_cast<size_t>(g) * L.cout + c] = pool[c];
-    __syncthreads();
+    float* out = pooled + static_cast<size_t>(g) * T.l[T.n - 1].cout;
+    recompute(T, x, wts, sm, g, [&](const Conv& L, const float* h) {
+      if constexpr (kStop == kStopRecompute)
+        conv_pool<false>(L, wts, h, nullptr, T.ns, part, [](int, float, float) {});
+      else
+        conv_pool<false>(L, wts, h, nullptr, T.ns, part,
+                         [&](int c, float m, float) { out[c] = m; });
+    });
   }
 }
 
+// K9: the pool and its tie count from the top conv's epilogue (conv_pool);
+// y kept for the dz sums. A thread's running sums wait in shared memory
+// between clusters (run: s1 and s2, each sum and compensation), so that
+// the recompute's products have the registers.
 __global__ void __launch_bounds__(kThreads)
 train_bwd_top_kernel(const float* __restrict__ x, const float* __restrict__ wts,
                      const __grid_constant__ Tower T, const float* __restrict__ dpool,
@@ -417,17 +657,25 @@ train_bwd_top_kernel(const float* __restrict__ x, const float* __restrict__ wts,
   const int C = L.cout;
   float* pool = sm + T.vec_off;
   float* unit = pool + kMaxC;
+  float* pool_part = sm + T.part_off;
+  const float* y = sm + L.y_off;
   const Phase ph = phase_of(C);
-  Kahan s1, s2;
+  float* run = sm + T.vec_off + 2 * kMaxC + kThreads;
+  for (int k = 0; k < 4; ++k) run[k * kThreads + threadIdx.x] = 0.f;
   for (int g = blockIdx.x; g < T.gp; g += gridDim.x) {
-    recompute(T, x, wts, sm, g);
-    const float* y = sm + L.y_off;
-    pool_ties(L, wts, y, T.ns, dpool + static_cast<size_t>(g) * C, pool, unit);
-    __syncthreads();
+    const float* dp = dpool + static_cast<size_t>(g) * C;
+    recompute(T, x, wts, sm, g, [&](const Conv&, const float* h) {
+      conv_pool<true>(L, wts, h, sm + L.y_off, T.ns, pool_part, [&](int c, float m, float n) {
+        pool[c] = m;
+        unit[c] = __fdiv_rn(dp[c], n);
+      });
+    });
     if (ph.on) {
       const int c = ph.c;
       const float a = wts[L.a + c], cc = wts[L.c + c];
       const float mu = wts[T.mu + c], isig = wts[T.isig + c];
+      float* r = run + threadIdx.x;
+      Kahan s1{r[0], r[kThreads]}, s2{r[2 * kThreads], r[3 * kThreads]};
       for (int s = ph.p; s < T.ns; s += ph.step) {
         const float yv = y[s * C + c];
         const float z = fold(yv, a, cc);
@@ -436,18 +684,18 @@ train_bwd_top_kernel(const float* __restrict__ x, const float* __restrict__ wts,
         s1.add(dz);
         s2.add(__fmul_rn(dz, __fmul_rn(__fsub_rn(yv, mu), isig)));
       }
+      r[0] = s1.s;
+      r[kThreads] = s1.c;
+      r[2 * kThreads] = s2.s;
+      r[3 * kThreads] = s2.c;
     }
     __syncthreads();
   }
   float* red = sm + T.vec_off + 2 * kMaxC;
   float* out = part + static_cast<size_t>(blockIdx.x) * 2 * C;
-  reduce_phases(ph.on ? s1.s : 0.f, C, red, out);
-  reduce_phases(ph.on ? s2.s : 0.f, C, red, out + C);
+  reduce_phases(ph.on ? run[threadIdx.x] : 0.f, C, red, out);
+  reduce_phases(ph.on ? run[2 * kThreads + threadIdx.x] : 0.f, C, red, out + C);
 }
-
-// K10's stages; a split build returns from each cluster after one of them
-// (chip_smoke's train_bwd_time_split), kStopNone runs them all.
-enum Stop { kStopNone, kStopRecompute, kStopDy, kStopDw, kStopDcat };
 
 template <int kStop>
 __global__ void __launch_bounds__(kThreads)
@@ -612,9 +860,9 @@ enum Kind { kStats, kFinal, kBwdTop, kBwd };
 
 // Host: the tower from the (n, 9) conv table (cin, cout, relu, poolcat, w,
 // wt, b, a, c) and the vector offsets, with its shared-memory layout: the
-// input rows of every conv, y rows of the convs the pass reads back (the
-// last; in K10 also the one before), one scratch y region for the rest,
-// then the per-channel vectors. Returns the bytes, or 0 for a bad tower.
+// input rows of every conv, y rows of the convs the pass reads back, one
+// scratch region for the rest, then the per-channel vectors (and K9's
+// running sums). Returns the bytes, or 0 for a bad tower.
 size_t make_tower(Tower* T, int kind, int ns, int gp, int g_total, int cin0, const int* convs,
                   int n, const int* vecs, int is_top) {
   if (n < 1 || n > kMaxConvs || ns < 1 || ns > kSlots || cin0 < 1 || cin0 > kX || gp < 1 ||
@@ -647,21 +895,30 @@ size_t make_tower(Tower* T, int kind, int ns, int gp, int g_total, int cin0, con
     L.in_off = static_cast<int>(off);
     off += static_cast<size_t>(kSlots) * L.ld;
   }
-  int scratch = 0;
+  // y rows kept for the convs the pass reads back: the last (but in K8,
+  // whose pool conv_pool takes from the accumulators) and in K10 also the
+  // one before; one scratch region for the rest, in K8 and K9 also
+  // conv_pool's partials (dead y rows once the top conv's product starts)
+  auto kept = [&](int l) {
+    return (l == n - 1 && kind != kFinal) || (kind == kBwd && l == n - 2);
+  };
+  size_t scratch = 0;
   for (int l = 0; l < n; ++l) {
-    const bool kept = l == n - 1 || (kind == kBwd && l == n - 2);
-    if (kept) {
+    if (kept(l)) {
       T->l[l].y_off = static_cast<int>(off);
       off += static_cast<size_t>(kSlots) * T->l[l].cout;
-    } else if (T->l[l].cout > scratch) {
-      scratch = T->l[l].cout;
+    } else if (l < n - 1) {
+      scratch = std::max(scratch, static_cast<size_t>(kSlots) * T->l[l].cout);
     }
   }
+  if (kind == kFinal || kind == kBwdTop) scratch = std::max(scratch, size_t{2} * kPartCount);
   for (int l = 0; l < n; ++l)
-    if (!(l == n - 1 || (kind == kBwd && l == n - 2))) T->l[l].y_off = static_cast<int>(off);
-  off += static_cast<size_t>(kSlots) * scratch;
+    if (!kept(l)) T->l[l].y_off = static_cast<int>(off);
+  T->part_off = static_cast<int>(off);
+  off += scratch;
   T->vec_off = static_cast<int>(off);
   off += 2 * kMaxC + kThreads;
+  if (kind == kBwdTop) off += 4 * kThreads;   // K9's running sums
   return off * sizeof(float);
 }
 
@@ -669,6 +926,28 @@ template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// The dynamic shared memory of a launch and the blocks of it that fit on
+// one SM: out = (bytes, blocks).
+template <typename K>
+cudaError_t occupancy(K kernel, size_t smem, int* out) {
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = static_cast<int>(smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, kernel, kThreads, smem);
+}
+
+template <int kStop>
+cudaError_t launch_final(const float* x, int ns, int gp, int cin0, const float* wts,
+                         const int* convs, int n, int nblk, float* pooled, cudaStream_t stream) {
+  Tower T;
+  const size_t smem = make_tower(&T, kFinal, ns, gp, gp, cin0, convs, n, nullptr, 0);
+  if (smem == 0 || nblk < 1) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(train_final_kernel<kStop>, smem);
+  if (err != cudaSuccess) return err;
+  train_final_kernel<kStop><<<nblk, kThreads, smem, stream>>>(x, wts, T, pooled);
+  return cudaGetLastError();
 }
 
 template <int kStop>
@@ -727,13 +1006,22 @@ F3D_EXPORT int f3d_train_stats(const float* x, int ns, int gp, int g_total, int 
 F3D_EXPORT int f3d_train_final(const float* x, int ns, int gp, int cin0, const float* wts,
                                const int* convs, int n, int nblk, float* pooled,
                                cudaStream_t stream) {
-  Tower T;
-  const size_t smem = make_tower(&T, kFinal, ns, gp, gp, cin0, convs, n, nullptr, 0);
-  if (smem == 0 || nblk < 1) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(train_final_kernel, smem);
-  if (err != cudaSuccess) return err;
-  train_final_kernel<<<nblk, kThreads, smem, stream>>>(x, wts, T, pooled);
-  return cudaGetLastError();
+  return launch_final<kStopNone>(x, ns, gp, cin0, wts, convs, n, nblk, pooled, stream);
+}
+
+// K8 returning from each cluster after the recompute (stop 1; 0 = all):
+// the time split, nothing else. pooled is not written.
+F3D_EXPORT int f3d_train_final_split(const float* x, int ns, int gp, int cin0, const float* wts,
+                                     const int* convs, int n, int nblk, float* pooled, int stop,
+                                     cudaStream_t stream) {
+  switch (stop) {
+    case kStopNone:
+      return launch_final<kStopNone>(x, ns, gp, cin0, wts, convs, n, nblk, pooled, stream);
+    case kStopRecompute:
+      return launch_final<kStopRecompute>(x, ns, gp, cin0, wts, convs, n, nblk, pooled, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // K9: vecs = (mu, isig) offsets; dpool (gp, C_top) f32; part (nblk, 2, C_top).
@@ -773,4 +1061,21 @@ F3D_EXPORT int f3d_train_bwd_split(const float* x, int ns, int gp, int g_total, 
                                    float* bst_part, int stop, cudaStream_t stream) {
   return train_bwd(x, ns, gp, g_total, cin0, wts, convs, n, vecs, nblk, is_top, src, src_bf16,
                    dw_part, db_part, out, out_bf16, bst_part, stop, stream);
+}
+
+// The launch of pass `kind` (0 K7, 1 K8, 2 K9, 3 K10) on this tower: out =
+// (its dynamic shared-memory bytes, the blocks of it that fit on one SM).
+F3D_EXPORT int f3d_train_occupancy(int kind, int ns, int gp, int cin0, const int* convs, int n,
+                                   int is_top, int* out) {
+  static const int vecs[7] = {};
+  Tower T;
+  const size_t smem = make_tower(&T, kind, ns, gp, gp, cin0, convs, n, vecs, is_top);
+  if (smem == 0) return cudaErrorInvalidValue;
+  switch (kind) {
+    case kStats: return occupancy(train_stats_kernel, smem, out);
+    case kFinal: return occupancy(train_final_kernel<kStopNone>, smem, out);
+    case kBwdTop: return occupancy(train_bwd_top_kernel, smem, out);
+    case kBwd: return occupancy(train_bwd_kernel<kStopNone>, smem, out);
+    default: return cudaErrorInvalidValue;
+  }
 }

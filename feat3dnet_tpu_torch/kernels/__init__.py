@@ -160,6 +160,9 @@ def library() -> ctypes.CDLL:
     # x, ns, gp, cin0, weights, convs, n, nblk, pooled, stream
     lib.f3d_train_final.argtypes = [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P]
     lib.f3d_train_final.restype = _I
+    # as f3d_train_final, then the stage to stop after, then the stream
+    lib.f3d_train_final_split.argtypes = lib.f3d_train_final.argtypes[:-1] + [_I, _P]
+    lib.f3d_train_final_split.restype = _I
     # x, ns, gp, cin0, weights, convs, n, vecs (host int32), nblk, dpool, part, stream
     lib.f3d_train_bwd_top.argtypes = [_P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P]
     lib.f3d_train_bwd_top.restype = _I
@@ -171,6 +174,9 @@ def library() -> ctypes.CDLL:
     # as f3d_train_bwd, then the stage to stop after, then the stream
     lib.f3d_train_bwd_split.argtypes = lib.f3d_train_bwd.argtypes[:-1] + [_I, _P]
     lib.f3d_train_bwd_split.restype = _I
+    # kind, ns, gp, cin0, convs, n, is_top, out (host int32 (2,): smem bytes, blocks per SM)
+    lib.f3d_train_occupancy.argtypes = [_I, _I, _I, _I, _P, _I, _I, _P]
+    lib.f3d_train_occupancy.restype = _I
     return lib
 
 
@@ -262,12 +268,22 @@ def launch_train_stats(x, g_total, wts, convs, nblk, part) -> None:
             _ptr(part), _stream(x)), "train_stats")
 
 
-def launch_train_final(x, wts, convs, nblk, pooled) -> None:
+# K8's and K10's stages as csrc/fused_train.cu numbers them: a split launch
+# returns from each cluster after its stage
+FINAL_STOPS = {"recompute": 1}
+BWD_STOPS = {"recompute": 1, "dy": 2, "dw": 3, "dcat": 4}
+
+
+def launch_train_final(x, wts, convs, nblk, pooled, stop: Optional[str] = None) -> None:
+    """stop: a key of FINAL_STOPS for the time split (pooled not written)."""
     ns, gp, cin0 = x.shape
+    args = [_ptr(x), ns, gp, cin0, _ptr(wts), _ptr(convs), convs.shape[0], nblk, _ptr(pooled)]
     with torch.cuda.device(x.device):
-        check(library().f3d_train_final(
-            _ptr(x), ns, gp, cin0, _ptr(wts), _ptr(convs), convs.shape[0], nblk,
-            _ptr(pooled), _stream(x)), "train_final")
+        if stop is None:
+            check(library().f3d_train_final(*args, _stream(x)), "train_final")
+        else:
+            check(library().f3d_train_final_split(*args, FINAL_STOPS[stop], _stream(x)),
+                  "train_final_split")
 
 
 def launch_train_bwd_top(x, wts, convs, vecs, nblk, dpool, part) -> None:
@@ -277,11 +293,6 @@ def launch_train_bwd_top(x, wts, convs, vecs, nblk, dpool, part) -> None:
         check(library().f3d_train_bwd_top(
             _ptr(x), ns, gp, cin0, _ptr(wts), _ptr(convs), convs.shape[0], _ptr(vecs), nblk,
             _ptr(dpool), _ptr(part), _stream(x)), "train_bwd_top")
-
-
-# K10's stages as csrc/fused_train.cu numbers them: a split launch returns
-# from each cluster after its stage
-BWD_STOPS = {"recompute": 1, "dy": 2, "dw": 3, "dcat": 4}
 
 
 def launch_train_bwd(x, g_total, wts, convs, vecs, nblk, is_top, src, dw_part, db_part,
@@ -299,3 +310,18 @@ def launch_train_bwd(x, g_total, wts, convs, vecs, nblk, is_top, src, dw_part, d
         else:
             check(library().f3d_train_bwd_split(*args, BWD_STOPS[stop], _stream(x)),
                   "train_bwd_split")
+
+
+# the passes as csrc/fused_train.cu's f3d_train_occupancy numbers them
+TRAIN_KINDS = {"train_stats": 0, "train_final": 1, "train_bwd_top": 2, "train_bwd": 3}
+
+
+def train_occupancy(kind: str, x, convs, is_top: bool = False):
+    """(dynamic shared-memory bytes, blocks per SM) of a training pass's
+    launch on the tower of `convs` (host int32 (n, 9) table) for x's shape."""
+    ns, gp, cin0 = x.shape
+    out = torch.zeros(2, dtype=torch.int32)
+    check(library().f3d_train_occupancy(TRAIN_KINDS[kind], ns, gp, cin0, _ptr(convs),
+                                        convs.shape[0], int(is_top), _ptr(out)),
+          "train_occupancy")
+    return int(out[0]), int(out[1])

@@ -290,15 +290,19 @@ def stats_pass(x_sm, plan, prefix, w, b, g_total):
     return part.sum(dim=0)
 
 
-def final_pass(x_sm, plan, convs):
-    """K8: full folded recompute + slot max-pool -> pooled (Gp, C_top)."""
+def final_pass(x_sm, plan, convs, stop=None):
+    """K8: full folded recompute + slot max-pool -> pooled (Gp, C_top).
+    stop (CUDA only, for the time split): a stage of kernels.FINAL_STOPS
+    after which the kernel leaves each cluster; pooled is then not written
+    and the launch is not counted."""
     if x_sm.device.type == "cpu":
         return final_pass_plain(x_sm, plan, convs)
     wts, table, _ = _pack("final_pass", x_sm, plan, convs)
     gp = x_sm.shape[1]
     pooled = torch.empty((gp, convs[-1][0].shape[1]), dtype=torch.float32, device=x_sm.device)
-    kernels.launch_train_final(x_sm, wts, table, _blocks(gp), pooled)
-    final_pass.launches += 1
+    kernels.launch_train_final(x_sm, wts, table, _blocks(gp), pooled, stop)
+    if stop is None:
+        final_pass.launches += 1
     return pooled
 
 

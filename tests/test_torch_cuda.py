@@ -223,7 +223,10 @@ def test_fused_detect_modes_match_plain(dev, rs, mode):
 
 
 def _tower_case(rs, dev, plan_kind, g_total, gp, ns=16):
-    if plan_kind == "detector":
+    if plan_kind == "single":
+        widths = (16,)
+        plan = tft.detector_plan(1)
+    elif plan_kind == "detector":
         widths = (8, 16, 32)
         plan = tft.detector_plan(3)
     elif plan_kind == "detector_paper":
@@ -253,12 +256,14 @@ def _close(got, want, rtol, atol_rel=None, atol=0.0):
 
 @pytest.mark.parametrize("plan_kind,g_total,gp,ns", [
     ("detector", 96, 96, 16), ("detector", 80, 96, 16), ("descriptor", 80, 96, 16),
-    ("detector_paper", 40, 48, 64), ("descriptor_paper", 40, 48, 64)])
+    ("detector_paper", 40, 48, 64), ("descriptor_paper", 40, 48, 64), ("single", 40, 48, 13)])
 @pytest.mark.parametrize("cot", [torch.float32, torch.bfloat16])
 def test_train_passes_match_plain(dev, rs, plan_kind, g_total, gp, ns, cot):
-    """The last two cases are at the paper widths with 64 slots: the
-    tensor-core tiles unpadded, and the descriptor's poolcat conv 128 -> 128,
-    whose input carries the broadcast half at the padded row stride."""
+    """Two cases are at the paper widths with 64 slots: the tensor-core
+    tiles unpadded, and the descriptor's poolcat conv 128 -> 128, whose
+    input carries the broadcast half at the padded row stride. The last is
+    one conv on the 3-wide input: the top conv's pool taken on the CUDA
+    cores, with 51 pad slots."""
     x, plan, widths, flat = _tower_case(rs, dev, plan_kind, g_total, gp, ns)
     ns, n = x.shape[0], len(widths)
     count = float(ns * g_total)

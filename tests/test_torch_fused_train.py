@@ -147,6 +147,85 @@ def test_tower_matches_jax_fused_interpret(rng, kind, cot):
                     want, g_total, lw, bf16=cot == "bfloat16")
 
 
+def _jax_pool_passes(x, folded, mu, isig, dpool, plan, ns):
+    """JAX's _final_kernel and _bwdstats_top_kernel (Pallas, interpret mode),
+    called as its _fwd_impl and _bwd_impl call them: (pooled, (sum dz,
+    sum dz * xhat))."""
+    from functools import partial
+
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    gp, cin = x.shape[1], x.shape[2]
+    c_top = folded[-1][0].shape[1]
+    ops = [jnp.asarray(t).reshape(1, -1) if t.ndim == 1 else jnp.asarray(t)
+           for cv in folded for t in cv]
+    vm = pl.BlockSpec(memory_space=pltpu.VMEM)
+    x_spec = pl.BlockSpec((ns, CT, cin), lambda i: (0, i, 0), memory_space=pltpu.VMEM)
+    tile = pl.BlockSpec((CT, c_top), lambda i: (i, 0), memory_space=pltpu.VMEM)
+    pooled = pl.pallas_call(
+        partial(jft._final_kernel, plan=plan, ns=ns, ct=CT), grid=(gp // CT,),
+        in_specs=[x_spec] + [vm] * len(ops), out_specs=tile,
+        out_shape=jax.ShapeDtypeStruct((gp, c_top), jnp.float32), interpret=True,
+    )(jnp.asarray(x), *ops)
+    bst = pl.pallas_call(
+        partial(jft._bwdstats_top_kernel, plan=plan, ns=ns, ct=CT), grid=(gp // CT,),
+        in_specs=[x_spec] + [vm] * (len(ops) + 2) + [tile],
+        out_specs=pl.BlockSpec((8, c_top), lambda i: (0, 0), memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((8, c_top), jnp.float32), interpret=True,
+    )(jnp.asarray(x), *ops, jnp.asarray(mu).reshape(1, -1), jnp.asarray(isig).reshape(1, -1),
+      jnp.asarray(dpool))
+    return np.asarray(pooled), np.asarray(bst[:2])
+
+
+@pytest.mark.parametrize("kind,case", [
+    ("detector", "all_tied"), ("detector", "pad_slots"), ("detector", "relu_zero"),
+    ("descriptor1", "all_tied"), ("descriptor1", "pad_slots")])
+def test_pool_passes_ties_and_pads_match_jax_interpret(rng, kind, case):
+    """The final pass and the top backward pass (plain, as the CPU runs
+    them) against JAX's _final_kernel and _bwdstats_top_kernel in interpret
+    mode on inputs where the slot max-pool ties: every slot of every
+    cluster the same point (each channel ties ns ways); an odd ns, so the
+    kernels' 64-slot tiles carry pad slots; or, for the detector's ReLU top
+    conv, channels whose pre-ReLU values are all negative (a ReLU-zero tie).
+    Pooled within 1e-4, the sums (dbeta, dgamma) at rtol 5e-3 / atol 5e-4
+    max|ref|."""
+    plan, widths = _plan(kind)
+    gp, ns = 96, 13 if case == "pad_slots" else NS
+    x, flat, _ = _case(rng, plan, widths, gp, gp, True)
+    x = x[:ns].copy()
+    if case == "all_tied":
+        x[:] = x[0:1]
+    xt = torch.from_numpy(x)
+    ft = [torch.from_numpy(f) for f in flat]
+    folded, mus, isigs = [], [], []
+    for j in range(len(widths)):
+        w, b, g, be = ft[4 * j:4 * j + 4]
+        st = tft.stats_pass.plain(xt, plan, folded, w, b, gp)
+        mean, _, a, c, isig = tft._finalize_stats(st, float(ns * gp), g, be, 1e-3)
+        if case == "relu_zero" and j == len(widths) - 1:
+            c = c.clone()
+            c[:8] -= 1e3
+        folded.append((w, b, a, c))
+        mus.append(mean)
+        isigs.append(isig)
+    dpool = rng.randn(gp, widths[-1]).astype(np.float32)
+    pooled = tft.final_pass.plain(xt, plan, folded)
+    sums = tft.bwd_top_pass.plain(xt, plan, folded, mus[-1], isigs[-1], torch.from_numpy(dpool))
+    h, _ = tft._run_plan(xt, plan, folded, len(widths))
+    cnt = tft._pool_and_ties(h)[1]
+    if case == "all_tied":
+        assert bool((cnt == ns).all())
+    if case == "relu_zero":
+        assert not pooled[:, :8].any() and bool((cnt[:, :8] == ns).all())
+    want_pooled, want_sums = _jax_pool_passes(
+        x, [tuple(t.numpy() for t in cv) for cv in folded], mus[-1].numpy(),
+        isigs[-1].numpy(), dpool, plan, ns)
+    assert np.abs(pooled.numpy() - want_pooled).max() <= 1e-4
+    np.testing.assert_allclose(sums.numpy(), want_sums, rtol=5e-3,
+                               atol=5e-4 * max(np.abs(want_sums).max(), 1e-3))
+
+
 def test_plans_and_widths():
     for n in (1, 3):
         assert tft.detector_plan(n) == jft.detector_plan(n)
