@@ -22,6 +22,11 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      extraction shapes: the vendored clouds at their buckets and a seeded
      200 000-point synthetic cloud (plain versions on 8 192 of its
      centres), with the trained weights (assets/ckpt4480_variables.npz);
+     per cloud, K4's work counted in torch (k4_counts: hit blocks per
+     tile, tests per centre under the tile's and the per-centre cull),
+     its shared memory and blocks per SM, and its time split
+     (sorted_ball_query_time_split: the hit mask, the kernel alone on it,
+     the whole wrapper, in turns);
   6. drives the extraction path with launch counters reset:
      InferencePipeline.extract on the five clouds, default route and
      use_fused_detector, then process_directory over examples/data; K3-K6
@@ -86,13 +91,16 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      to f32 of at least 1e-4 (the bf16 rounding shows), then one training
      step, which takes the autograd route: a finite loss, no fused-tower
      launch.
-Option: --parent DIR also builds another tree's training kernels (its
-csrc/fused_train.cu and common.cuh; DIR a checkout, e.g. a parent commit
-unpacked with git archive, or its csrc/) and, at the end of phase 12,
-holds K7-K10 against them on phase 9's inputs (parent_ab: ptxas lines of
-both; K8's pooled and K9's sums equal to the parent's, K7 and K10 at phase
-9's tolerances; each timed in turns; and, where the parent has the split
-build, K8's split of both trees in turns).
+Option: --parent DIR also builds another tree's training kernels and K4
+(its csrc/fused_train.cu, csrc/sorted_ball_query.cu and common.cuh; DIR a
+checkout, e.g. a parent commit unpacked with git archive, or its csrc/).
+It prints the parent's ptxas lines for K4; in phase 5 it holds the parent's
+K4 bit-equal to this one on every centre of every cloud, padding centres
+included, and times both in turns (the split of each); at the end of phase
+12 it holds K7-K10 against the parent's on phase 9's inputs (parent_ab:
+ptxas lines of both; K8's pooled and K9's sums equal to the parent's, K7
+and K10 at phase 9's tolerances; each timed in turns; and, where the
+parent has the split build, K8's split of both trees in turns).
 It writes only under build/ in the checkout.
 The line before last is a JSON summary of the sixteen kernel entries (K1-K10
 and K3's and K6's extra modes: times, their bounds from this run's shapes at
@@ -269,7 +277,160 @@ def sorted_clusters(dev, cloud):
     return sc, ctr, top, cnt, (grouped - ctr[:, None, :]).contiguous(), sl
 
 
-def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir):
+def k4_launcher(lib):
+    """K4 of the ctypes library `lib` as f(pts4, blk_bbox, hit, block,
+    centers, tile, r2, ns, top, cnt), launched on the current stream. A
+    library without f3d_sorted_ball_query_occupancy has the entry point of
+    K4's first design, which takes no box table."""
+    import ctypes
+
+    import torch
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.f3d_sorted_ball_query
+    boxes = hasattr(lib, "f3d_sorted_ball_query_occupancy")
+    fn.argtypes = ([P, P] if boxes else [P]) + [I, P, I, I, P, I, I, F, I, P, P, P]
+    fn.restype = I
+
+    def launch(pts4, blk_bbox, hit, block, centers, tile, r2, ns, top, cnt):
+        def ptr(t):
+            return ctypes.c_void_p(t.data_ptr())
+        head = [ptr(pts4), ptr(blk_bbox)] if boxes else [ptr(pts4)]
+        err = fn(*head, pts4.shape[0], ptr(hit), hit.shape[1], block, ptr(centers),
+                 centers.shape[0], tile, r2, ns, ptr(top), ptr(cnt),
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        require(err == 0, f"K4 launch returned CUDA error {err}")
+    return launch
+
+
+def k4_counts(sc, ctr, tile=256, chunk=4096):
+    """What K4's walk must do on this layout, counted in torch: hit blocks
+    per tile of the hit mask (mean, max); distance tests per real centre
+    under the tile's cull (every point of every hit block) and under the
+    per-centre cull (the hit blocks whose box comes within r of the centre
+    itself, the same gap expression); of those blocks, the ones that lie
+    wholly inside the ball (no test needed); and the share of the tile
+    cull's tests that serve tiles of padding centres only."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+
+    r2 = hg._r2(RADIUS)
+    L = sc.pts4.shape[0] // sc.blk_bbox.shape[0]
+    hit = hg._padded_hitmask(ctr, sc.blk_bbox, r2, tile).bool()
+    per_tile = hit.sum(1)
+    m = ctr.shape[0]
+    tile_of = torch.arange(m, device=ctr.device) // tile
+    real = ctr[:, 0] < 5e8
+    tests_tile = per_tile[tile_of].double() * L
+    bmin, bmax = sc.blk_bbox[:, :3], sc.blk_bbox[:, 3:6]
+    culled = torch.empty(m, dtype=torch.float64, device=ctr.device)
+    covered = torch.empty_like(culled)
+    for c0 in range(0, m, chunk):
+        c = ctr[c0:c0 + chunk, None, :]
+        g = torch.clamp(torch.maximum(bmin - c, c - bmax), min=0.0)
+        g = g * g
+        near = ((g[..., 0] + g[..., 1]) + g[..., 2] < r2) & hit[tile_of[c0:c0 + chunk]]
+        f = torch.maximum((c - bmin).abs(), (c - bmax).abs())
+        f = f * f
+        inside = near & ((f[..., 0] + f[..., 1]) + f[..., 2] < r2)
+        culled[c0:c0 + chunk] = near.sum(1).double()
+        covered[c0:c0 + chunk] = inside.sum(1).double()
+    pad = -m % tile
+    real_tiles = torch.cat([real, real.new_zeros(pad)]).view(-1, tile).any(1)
+    return {"hit blocks per tile mean": per_tile.double().mean().item(),
+            "hit blocks per tile max": per_tile.max().item(),
+            "tests per real centre, tile cull": tests_tile[real].mean().item(),
+            "tests per real centre, per-centre cull": (culled[real] * L).mean().item(),
+            "blocks per real centre, per-centre cull": culled[real].mean().item(),
+            "max": culled[real].max().item(),
+            "of them wholly inside the ball": covered[real].mean().item(),
+            "share of tile-cull tests on padding-only tiles":
+                (tests_tile[~real_tiles[tile_of]].sum() / tests_tile.sum()).item()}
+
+
+def sorted_ball_query_time_split(sc, ctr, launchers, reps):
+    """K4's time split at tile 256: ms per call (CUDA events, `reps`
+    back-to-back calls, in turns) of the hit mask alone (`_padded_hitmask`),
+    of each library's kernel alone on that precomputed mask, and of each
+    library's whole call (the mask, the outputs, the kernel). `launchers`
+    maps a tag to a `k4_launcher`; this tree's whole call is the wrapper
+    itself. Returns (ms by key, {tag: (top, cnt)} from the kernel-alone
+    runs)."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+
+    r2 = hg._r2(RADIUS)
+    L = sc.pts4.shape[0] // sc.blk_bbox.shape[0]
+    m = ctr.shape[0]
+    ctr = ctr.contiguous()
+    hit = hg._padded_hitmask(ctr, sc.blk_bbox, r2, 256)
+    outs = {tag: (torch.empty((m, NS, 4), device=ctr.device),
+                  torch.empty((m,), dtype=torch.int32, device=ctr.device))
+            for tag in launchers}
+
+    def whole(launch):
+        top = torch.empty((m, NS, 4), device=ctr.device)
+        cnt = torch.empty((m,), dtype=torch.int32, device=ctr.device)
+        launch(sc.pts4, sc.blk_bbox, hg._padded_hitmask(ctr, sc.blk_bbox, r2, 256), L, ctr,
+               256, r2, NS, top, cnt)
+
+    runs = {"mask": lambda: hg._padded_hitmask(ctr, sc.blk_bbox, r2, 256)}
+    for tag, launch in launchers.items():
+        runs[f"{tag} kernel"] = functools.partial(launch, sc.pts4, sc.blk_bbox, hit, L, ctr,
+                                                  256, r2, NS, *outs[tag])
+        runs[f"{tag} whole"] = (
+            functools.partial(hg.sorted_ball_query, sc.pts4, sc.blk_bbox, ctr, RADIUS, NS,
+                              tile=256)
+            if tag == "this" else functools.partial(whole, launch))
+    return ms_in_turns(runs, reps), outs
+
+
+def k4_step(card, name, nb, sc, ctr, cnt_k, top_k, parent_lib):
+    """Step 0 of K4's redesign and, with a parent library, K4 against it:
+    the counts (`k4_counts`), the time split of this tree's K4 (and the
+    parent's, in turns), the parent's top and cnt bit-equal to this tree's
+    on every centre, padding centres included, and the bound of this
+    cloud's work."""
+    import ctypes
+
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+
+    counts = k4_counts(sc, ctr)
+    print(f"K4 counts {name} bucket {nb} (tile 256): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in counts.items()))
+    libs = {"this": kernels.library()}
+    if parent_lib is not None:
+        libs = {"parent": parent_lib, **libs}
+    n_blocks = sc.blk_bbox.shape[0]
+    for tag, lib in libs.items():
+        if hasattr(lib, "f3d_sorted_ball_query_occupancy"):
+            out = torch.zeros(2, dtype=torch.int32)
+            lib.f3d_sorted_ball_query_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            require(lib.f3d_sorted_ball_query_occupancy(
+                n_blocks, ctypes.c_void_p(out.data_ptr())) == 0, "K4 occupancy query")
+            print(f"  occupancy ({tag}): sorted_ball_query {name} ({n_blocks} blocks): "
+                  f"{int(out[0])} B, {int(out[1])} blocks/SM")
+    launchers = {tag: k4_launcher(lib) for tag, lib in libs.items()}
+    sp, outs = sorted_ball_query_time_split(sc, ctr, launchers,
+                                            reps=5 if nb <= FULL_CHECK else 3)
+    real = ctr[:, 0] < 5e8
+    b = bound_ms(8.0 * cnt_k[real].sum().item(), nbytes(sc.pts4, ctr, top_k, cnt_k))
+    print_split(card, f"sorted_ball_query {name} bucket {nb} (bound {b[0]:.4f} ms, {b[1]})",
+                sp)
+    for tag, (top, cnt) in outs.items():
+        require(bool((cnt == cnt_k).all()) and bool((top == top_k).all()),
+                f"K4 of {tag} (kernel alone) != this tree's wrapper on {name}")
+    if parent_lib is not None:
+        print(f"[{card}] sorted_ball_query {name} bucket {nb}: parent {sp['parent kernel']:.4f} "
+              f"ms, this {sp['this kernel']:.4f} ms (kernels alone, in turns); top and cnt "
+              f"bit-equal to the parent on all {ctr.shape[0]} centres")
+
+
+def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib=None):
     """Phases 5-8: K4/K5/K6 against their plain versions at the extraction
     shapes, InferencePipeline.extract with the trained weights (launch
     counters reset), its outputs against the dense route and across the
@@ -317,6 +478,7 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir):
                     f"ori {o_err:.3e} rad")
             report["fused_detect"]["max_abs_err"] = max(report["fused_detect"]["max_abs_err"],
                                                         a_err.max().item())
+            k4_step(card, name, nb, sc, ctr, cnt_k, top_k, parent_lib)
             bm_k = hg.ball_max_sorted(sc.pts4, sc.blk_bbox, att_k, NMS_RADIUS)
             bm_p = hg.ball_max_plain(sc.pts4, att_k, NMS_RADIUS, centers=ctr_sl)
             require(torch.equal(bm_k[sl], bm_p), f"ball max kernel != plain on {name}")
@@ -483,7 +645,8 @@ TRAIN_KERNELS = ("train_stats", "train_final", "train_bwd_top", "train_bwd")
 # --parent: the passes whose outputs must equal the parent tree's bit for bit
 # (a max and a tie count are exact in any order)
 EXACT_TO_PARENT = ("train_final", "train_bwd_top")
-PARENT_BUILD = (("fused_train.cu",), ("common.cuh",))    # --parent: sources, headers
+# --parent: the sources and headers of the other tree that are built
+PARENT_BUILD = (("fused_train.cu", "sorted_ball_query.cu"), ("common.cuh",))
 
 
 def compare(name, got, want, rtol, atol, max_share=0.0):
@@ -954,18 +1117,37 @@ def print_split(card, what, sp):
         f"{k} {v:.4f}" + ("" if k.endswith("share") else " ms") for k, v in sp.items()))
 
 
+def parent_csrc(parent):
+    """The csrc/ of `--parent` (a checkout or its csrc/), which must hold
+    PARENT_BUILD's files."""
+    csrc = os.path.join(parent, "feat3dnet_tpu_torch", "csrc")
+    csrc = os.path.abspath(csrc if os.path.isdir(csrc) else parent)
+    missing = [f for f in sum(PARENT_BUILD, ()) if not os.path.isfile(os.path.join(csrc, f))]
+    require(not missing, f"--parent: {csrc} has no {', '.join(missing)}")
+    return csrc
+
+
+@functools.lru_cache(maxsize=None)
+def parent_cdll(csrc):
+    """Another tree's PARENT_BUILD sources, built alone and loaded."""
+    import ctypes
+
+    from feat3dnet_tpu_torch import kernels
+
+    return ctypes.CDLL(kernels.build(csrc, *PARENT_BUILD).path)
+
+
 @functools.lru_cache(maxsize=None)
 def other_library(csrc):
     """This tree's entry points, but the training passes' (f3d_train_*) from
     another tree's csrc/fused_train.cu, built alone and declared as this
     tree's are; one the other tree lacks is left undefined."""
-    import ctypes
     import types
 
     from feat3dnet_tpu_torch import kernels
 
     mine = kernels.library()
-    theirs = ctypes.CDLL(kernels.build(csrc, *PARENT_BUILD).path)
+    theirs = parent_cdll(csrc)
     lib = types.SimpleNamespace(**{n: getattr(mine, n) for n in dir(mine) if n.startswith("f3d_")})
     for name in [n for n in vars(lib) if n.startswith("f3d_train_")]:
         if hasattr(theirs, name):
@@ -991,6 +1173,18 @@ def kernels_from(csrc):
         kernels.library = saved
 
 
+def ptxas_lines(tag, info, marker):
+    """A build's lines of its ptxas report (entry, registers, spills) for
+    the kernels whose entry name holds `marker`."""
+    entry = ""
+    for line in info.ptxas.splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        if marker in entry and ("Compiling entry" in line or "Used" in line
+                                or "spill" in line):
+            print(f"  ptxas ({tag}): {line.strip()}")
+
+
 def train_build_report(tag, info):
     """A build's lines of its ptxas report for the training kernels
     (registers, spills) and, from `cuobjdump -sass` of its library, each
@@ -1000,13 +1194,7 @@ def train_build_report(tag, info):
 
     from feat3dnet_tpu_torch import kernels
 
-    entry = ""
-    for line in info.ptxas.splitlines():
-        if "Compiling entry" in line:
-            entry = line
-        if "train_" in entry and ("Compiling entry" in line or "Used" in line
-                                  or "spill" in line):
-            print(f"  ptxas ({tag}): {line.strip()}")
+    ptxas_lines(tag, info, "train_")
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", info.path], capture_output=True, text=True,
                           check=True).stdout
@@ -1048,10 +1236,7 @@ def parent_ab(parent, timed, card, fused_step_ms):
 
     from feat3dnet_tpu_torch import kernels
 
-    csrc = os.path.join(parent, "feat3dnet_tpu_torch", "csrc")
-    csrc = os.path.abspath(csrc if os.path.isdir(csrc) else parent)
-    missing = [f for f in sum(PARENT_BUILD, ()) if not os.path.isfile(os.path.join(csrc, f))]
-    require(not missing, f"--parent: {csrc} has no {', '.join(missing)}")
+    csrc = parent_csrc(parent)
     train_build_report("parent", kernels.build(csrc, *PARENT_BUILD))
     lib = other_library(csrc)
     if hasattr(lib, "f3d_train_occupancy"):
@@ -1630,8 +1815,8 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="another tree (a checkout or its csrc/): build its kernels too and "
-                         "hold K7-K10 against them on phase 9's inputs (parent_ab)")
+                    help="another tree (a checkout or its csrc/): build its K4 and training "
+                         "kernels too and hold this tree's against them (phase 5, parent_ab)")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1667,9 +1852,12 @@ def main():
     info = kernels.build()
     kernels.library()
     print(f"build: {info.seconds:.1f} s -> {os.path.relpath(info.path, HERE)}")
-    for line in info.ptxas.splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    ptxas_lines("this", info, "")
+    parent_lib = None
+    if opts.parent:
+        csrc = parent_csrc(opts.parent)
+        ptxas_lines("parent", kernels.build(csrc, *PARENT_BUILD), "sorted_ball_query")
+        parent_lib = parent_cdll(csrc)
     clouds = {n: torch.from_numpy(
         np.ascontiguousarray(load_point_cloud(example_cloud_path(n))[:, :3]))[None]
         for n in CLOUDS}
@@ -1877,7 +2065,7 @@ def main():
         dev, card, ext_clouds,
         os.path.join(HERE, "feat3dnet_tpu_torch", "assets", "ckpt4480_variables.npz"),
         os.path.dirname(example_cloud_path(CLOUDS[0])),
-        os.path.join(HERE, "build", "chip_smoke_extract"))
+        os.path.join(HERE, "build", "chip_smoke_extract"), parent_lib)
     report.update(ext_report)
     # K1-K3 count on the forward/serving path, K4-K6 on the extraction path
     launches.update({k: ext_launches[k] for k in ext_report})

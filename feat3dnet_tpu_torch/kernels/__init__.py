@@ -140,9 +140,9 @@ def library() -> ctypes.CDLL:
     lib.f3d_fused_describe.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _F,
                                        _P, _P, _P]
     lib.f3d_fused_describe.restype = _I
-    # pts4, np, hit (tiles x nb u8), nb, block, centers, m, tile, r2, ns,
-    # top, cnt, stream
-    lib.f3d_sorted_ball_query.argtypes = [_P, _I, _P, _I, _I, _P, _I, _I, _F, _I,
+    # pts4, blk_bbox, np, hit (tiles x nb u8), nb, block, centers, m, tile,
+    # r2, ns, top, cnt, stream
+    lib.f3d_sorted_ball_query.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I, _I, _F, _I,
                                           _P, _P, _P]
     lib.f3d_sorted_ball_query.restype = _I
     # pts4, values, np, hit, nb, block, centers, m, tile, r2, out, stream
@@ -232,13 +232,15 @@ def launch_fused_describe(packed, ns, weights, layers, n_det, n_det2, n_desc, mo
             _stream(packed)), "fused_describe")
 
 
-def launch_sorted_ball_query(pts4, hit, block, centers, tile, r2, ns, top, cnt) -> None:
-    """hit: (tiles, nb) uint8 device tensor, one row per tile of centres."""
+def launch_sorted_ball_query(pts4, blk_bbox, hit, block, centers, tile, r2, ns, top,
+                             cnt) -> None:
+    """hit: (tiles, nb) uint8 device tensor, one row per tile of centres;
+    blk_bbox: (nb, 8) float32, each block's box."""
     with torch.cuda.device(pts4.device):
         check(library().f3d_sorted_ball_query(
-            _ptr(pts4), pts4.shape[0], _ptr(hit), hit.shape[1], block, _ptr(centers),
-            centers.shape[0], tile, r2, ns, _ptr(top), _ptr(cnt), _stream(pts4)),
-            "sorted_ball_query")
+            _ptr(pts4), _ptr(blk_bbox), pts4.shape[0], _ptr(hit), hit.shape[1], block,
+            _ptr(centers), centers.shape[0], tile, r2, ns, _ptr(top), _ptr(cnt),
+            _stream(pts4)), "sorted_ball_query")
 
 
 def launch_ball_max(pts4, values, hit, block, centers, tile, r2, out) -> None:

@@ -10,10 +10,11 @@ cuts the work by locality and stays index-exact against the dense op:
   2. `block_hitmask` tests each (centre tile, point block) pair of
      bounding boxes with the exact gap expression, so a block that can hold
      no in-ball point of the tile is never visited;
-  3. kernel K4 (`sorted_ball_query`, csrc/sorted_ball_query.cu) keeps, per
-     centre, the ns smallest ORIGINAL indices among the in-ball points of
-     the hit blocks, and the true in-ball count; `_finish_grouped` applies
-     the reference's repeat-pad and empty-ball rule;
+  3. kernel K4 (`sorted_ball_query`, csrc/sorted_ball_query.cu) culls the
+     tile's hit blocks again per centre, walks them in the order of their
+     smallest keys and keeps, per centre, the ns smallest ORIGINAL indices
+     among the in-ball points, and the true in-ball count; `_finish_grouped`
+     applies the reference's repeat-pad and empty-ball rule;
   4. kernel K5 (`ball_max_sorted`, csrc/ball_max.cu) is the NMS primitive:
      per centre, the maximum of a per-point value over its radius ball.
 
@@ -270,8 +271,8 @@ def sorted_ball_query(pts4: torch.Tensor, blk_bbox: torch.Tensor, centers: torch
     `sorted_ball_query_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (one block per tile of `tile` centres walking its hit list), and
-    anything it does not take raises.
+    (several blocks per tile of `tile` centres, each walking the tile's
+    hit list with a per-centre cull), and anything it does not take raises.
     """
     if pts4.device.type == "cpu":
         return sorted_ball_query_plain(pts4, centers, radius, nsample)
@@ -280,13 +281,14 @@ def sorted_ball_query(pts4: torch.Tensor, blk_bbox: torch.Tensor, centers: torch
     L = _check_sorted_inputs("sorted_ball_query", pts4, blk_bbox, centers)
     if not 1 <= nsample <= 64 or tile < 1:
         raise ValueError(f"sorted_ball_query: nsample={nsample} (1..64), tile={tile}")
-    pts4, centers = pts4.contiguous(), centers.contiguous()
+    pts4, blk_bbox, centers = pts4.contiguous(), blk_bbox.contiguous(), centers.contiguous()
     m = centers.shape[0]
     r2 = _r2(radius)
-    hit = _padded_hitmask(centers, blk_bbox.contiguous(), r2, tile)
+    hit = _padded_hitmask(centers, blk_bbox, r2, tile)
     top = torch.empty((m, nsample, 4), dtype=torch.float32, device=pts4.device)
     cnt = torch.empty((m,), dtype=torch.int32, device=pts4.device)
-    kernels.launch_sorted_ball_query(pts4, hit, L, centers, tile, r2, nsample, top, cnt)
+    kernels.launch_sorted_ball_query(pts4, blk_bbox, hit, L, centers, tile, r2, nsample,
+                                     top, cnt)
     sorted_ball_query.launches += 1
     return top, cnt
 

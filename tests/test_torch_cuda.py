@@ -6,7 +6,8 @@ imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-FPS, the ball query, the sorted ball query (K4) and the ball max (K5)
+FPS, the ball query, the sorted ball query (K4, also on padding, covered
+blocks and a tile that straddles the padding) and the ball max (K5)
 must be index-exact; the fused describe kernel within max |d| 1e-4 and
 attention relative 1e-4, the detector-only kernel (K6) within attention
 relative 1e-5 and orientation 1e-5 rad (f32 products summed in another
@@ -110,6 +111,33 @@ def test_sorted_ball_query_kernel_matches_plain(dev, rs, ns, tile, block):
     assert thg.sorted_ball_query.launches == n0 + 1
     assert torch.equal(ck, cp) and torch.equal(tk, tp)
     assert (ck > ns).float().mean().item() > 0.1            # saturated balls present
+
+
+@pytest.mark.parametrize("case", ["quarter_padding", "covered_cluster", "straddle_tile256"])
+def test_sorted_ball_query_kernel_walk_cases(dev, rs, case):
+    """The per-centre cull's edge cases: padding centres (every padding
+    block lies inside their ball and counts without a test), blocks wholly
+    inside a real ball, and a tile of 256 centres whose box spans the last
+    real points and the padding at +1e9."""
+    n, bucket, block, tile = {"quarter_padding": (3000, 4096, 64, 128),
+                              "covered_cluster": (3000, 3072, 32, 64),
+                              "straddle_tile256": (3900, 4096, 256, 256)}[case]
+    xyz = ((rs.rand(n, 3) - 0.5) * 30.0).astype(np.float32)
+    if case == "covered_cluster":
+        xyz[:2000] = rs.randn(2000, 3).astype(np.float32) * 0.2
+    padded = np.zeros((bucket, 3), np.float32)
+    padded[:n] = xyz
+    sc = thg.build_sorted_cloud_host(padded, np.arange(bucket) < n, cell_size=2.0,
+                                     block_size=block).to(dev)
+    ctr = sc.pts4[:, :3].contiguous()                         # padding centres too
+    tk, ck = thg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, 2.0, 64, tile=tile)
+    tp, cp = thg.sorted_ball_query_plain(sc.pts4, ctr, 2.0, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp) and torch.equal(tk, tp)
+    pad = ctr[:, 0] > 5e8
+    assert bool((ck[pad] == bucket - n).all())                # every padding point counted
+    if case == "covered_cluster":
+        assert (ck > 1000).any()                               # whole blocks inside a ball
 
 
 @pytest.mark.parametrize("tile", [32, 512])
