@@ -26,7 +26,11 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      tile, tests per centre under the tile's and the per-centre cull),
      its shared memory and blocks per SM, and its time split
      (sorted_ball_query_time_split: the hit mask, the kernel alone on it,
-     the whole wrapper, in turns);
+     the whole wrapper, in turns); per cloud and K6 mode, K6's shared
+     memory and blocks per SM, its time split (fused_detect_time_split:
+     the weight packing, the kernel leaving each cluster after each stage,
+     the kernel alone, the whole wrapper, in turns) and its variant sweep
+     (clusters a block, the top conv's warp tile);
   6. drives the extraction path with launch counters reset:
      InferencePipeline.extract on the five clouds, default route and
      use_fused_detector, then process_directory over examples/data; K3-K6
@@ -91,12 +95,15 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      to f32 of at least 1e-4 (the bf16 rounding shows), then one training
      step, which takes the autograd route: a finite loss, no fused-tower
      launch.
-Option: --parent DIR also builds another tree's training kernels and K4
-(its csrc/fused_train.cu, csrc/sorted_ball_query.cu and common.cuh; DIR a
-checkout, e.g. a parent commit unpacked with git archive, or its csrc/).
-It prints the parent's ptxas lines for K4; in phase 5 it holds the parent's
-K4 bit-equal to this one on every centre of every cloud, padding centres
-included, and times both in turns (the split of each); at the end of phase
+Option: --parent DIR also builds another tree's training kernels, K4 and
+K6 (its csrc/fused_train.cu, csrc/sorted_ball_query.cu, csrc/fused_detect.cu
+and the headers it has; DIR a checkout, e.g. a parent commit unpacked with
+git archive, or its csrc/). It prints the parent's ptxas lines for K4 and
+K6 and K6's SASS counts; in phase 5 it holds the parent's K4 bit-equal to
+this one on every centre of every cloud, padding centres included, and
+times both in turns (the split of each), and holds the parent's K6 to
+this one in each mode (within 1e-5; bf16_operands >= 99.9 % within 1e-4),
+timed in turns with the split of each tree that has it; at the end of phase
 12 it holds K7-K10 against the parent's on phase 9's inputs (parent_ab:
 ptxas lines of both; K8's pooled and K9's sums equal to the parent's, K7
 and K10 at phase 9's tolerances; each timed in turns; and, where the
@@ -104,8 +111,9 @@ parent has the split build, K8's split of both trees in turns).
 It writes only under build/ in the checkout.
 The line before last is a JSON summary of the sixteen kernel entries (K1-K10
 and K3's and K6's extra modes: times, their bounds from this run's shapes at
-the H100's f32 (bf16 modes: bf16 tensor-core; K7-K10's products: TF32
-tensor-core) and HBM peaks, launches on their path); the last line is
+the H100's f32 (bf16 modes: bf16 tensor-core; K7-K10's products and K6's
+top conv: TF32 tensor-core, or bf16 in bf16_operands) and HBM peaks,
+launches on their path); the last line is
 {"ok": true, "device": {...}}. Any failure
 raises (non-zero exit). It needs a CUDA device and refuses to run without
 one.
@@ -349,6 +357,60 @@ def k4_counts(sc, ctr, tile=256, chunk=4096):
                 (tests_tile[~real_tiles[tile_of]].sum() / tests_tile.sum()).item()}
 
 
+def fused_detect_time_split(w, offs, cfg, kw, trees, reps):
+    """K6's time split on clusters `offs` in one mode (kw: the wrapper's
+    unfolded / bf16_operands), ms per call (CUDA events, `reps`
+    back-to-back calls, in turns): the wrapper's weight packing alone
+    (`_detect_kernel_weights`); per tree (`trees` maps a tag to None for
+    this one or to another tree's csrc/) the kernel alone on packed
+    weights, the kernel leaving each cluster after each stage where the
+    tree has the split entry (kernels.detect_stops: input and membership,
+    each per-slot conv, the pool's candidates marked, the pool; the rest
+    is the post convs and heads), and the whole wrapper."""
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+
+    unf, bf16 = kw.get("unfolded", False), kw.get("bf16_operands", False)
+    packed = fd._detect_kernel_weights(w, cfg, offs.device, unf, bf16=bf16)
+    out = torch.empty((offs.shape[0], 3), device=offs.device)
+    runs = {"pack": lambda: fd._detect_kernel_weights(w, cfg, offs.device, unf, bf16=bf16)}
+    for tag, csrc in trees.items():
+        def within(fn, csrc=csrc):
+            with kernels_from(csrc) if csrc else contextlib.nullcontext():
+                fn()
+        stops = kernels.detect_stops(len(cfg.detector_mlp))
+        lib = other_library(csrc) if csrc else kernels.library()
+        for stop in ((*stops, None) if hasattr(lib, "f3d_fused_detect_split") else (None,)):
+            runs[f"{tag} {stop or 'kernel'}"] = functools.partial(
+                within, functools.partial(fd._launch_detect, offs, packed, cfg, unf, bf16, out,
+                                          stop=stop))
+        runs[f"{tag} whole"] = functools.partial(
+            within, functools.partial(fd.fused_detect_clusters, w, offs, cfg, **kw))
+    return ms_in_turns(runs, reps)
+
+
+def detect_occupancy_line(tag, w, cfg, kw, ns, csrc=None):
+    """K6's launch in a tree (None: this one) that has the occupancy entry:
+    dynamic shared memory and blocks per SM."""
+    from feat3dnet_tpu_torch import kernels
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+
+    lib = other_library(csrc) if csrc else kernels.library()
+    if not hasattr(lib, "f3d_fused_detect_occupancy"):
+        return
+    with kernels_from(csrc) if csrc else contextlib.nullcontext():
+        packed = fd._detect_kernel_weights(w, cfg, "cpu", kw.get("unfolded", False),
+                                           bf16=kw.get("bf16_operands", False))
+        smem, blocks = kernels.detect_occupancy(ns, packed[1], len(cfg.detector_mlp),
+                                                len(cfg.detector_mlp2),
+                                                kw.get("bf16_operands", False))
+    mode = fd._detect_mode(kw.get("unfolded", False), kw.get("bf16_operands", False))
+    print(f"  occupancy ({tag}): fused_detect {mode}: {smem} B, "
+          f"{blocks} blocks/SM")
+
+
 def sorted_ball_query_time_split(sc, ctr, launchers, reps):
     """K4's time split at tile 256: ms per call (CUDA events, `reps`
     back-to-back calls, in turns) of the hit mask alone (`_padded_hitmask`),
@@ -430,11 +492,106 @@ def k4_step(card, name, nb, sc, ctr, cnt_k, top_k, parent_lib):
               f"bit-equal to the parent on all {ctr.shape[0]} centres")
 
 
-def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib=None):
+# K6's modes as the wrapper takes them (the weights: unfolded, or folded)
+K6_MODES = {"unfolded": {"unfolded": True}, "folded": {},
+            "bf16_operands": {"unfolded": True, "bf16_operands": True}}
+
+
+def k6_share_within(att, ori, att_p, ori_p, tol):
+    """Share of centres whose attention (relative) and orientation (rad)
+    lie within tol of (att_p, ori_p)."""
+    rel = (att - att_p).abs() / att_p.abs().clamp(min=1e-6)
+    return ((rel <= tol) & (_wrapped(ori - ori_p).abs() <= tol)).float().mean().item()
+
+
+def k6_bound(cfg, m, moved, bf16):
+    """K6's bound on m clusters: the top per-slot conv's products on the
+    tensor cores at their type's peak (TF32; bf16 under bf16_operands), the
+    rest (conv 0, the per-slot convs below the top one, the post convs and
+    heads) at the f32 peak, against the bytes moved; and, beside it, the
+    bound with every product at the f32 peak."""
+    widths = (3,) + tuple(cfg.detector_mlp)
+    top = cfg.num_samples * widths[-2] * widths[-1]
+    rest = tower_macs(cfg, descriptor=False) - top
+    t_ops = (2.0 * top / (PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS)
+             + 2.0 * rest / PEAK_F32_FLOPS) * m * 1e3
+    t_mem = moved / PEAK_HBM_BYTES * 1e3
+    return (((t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")),
+            bound_ms(2.0 * tower_macs(cfg, descriptor=False) * m, moved))
+
+
+def k6_step(card, name, offs, weights, cfg, parent):
+    """Step 0 of K6's redesign and, with a parent tree (its csrc/), K6
+    against it, in each mode: each tree's occupancy line, the time split of
+    each tree in turns (fused_detect_time_split: the parent's and this
+    kernel alone in turns), this tree's variants (kernels.DETECT_VARIANTS:
+    clusters per block, the top conv's warp tile) in turns with their
+    occupancy, and the parent's outputs held to this tree's within the
+    mode's limit (f32 modes: attention relative and orientation 1e-5 on
+    every centre; bf16_operands: >= 99.9 % of centres within 1e-4)."""
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+
+    trees = {"this": None} if parent is None else {"parent": parent, "this": None}
+    for mode, kw in K6_MODES.items():
+        w = weights[mode]
+        for tag, csrc in trees.items():
+            detect_occupancy_line(tag, w, cfg, kw, offs.shape[1], csrc)
+        sp = fused_detect_time_split(w, offs, cfg, kw, trees,
+                                     reps=3 if offs.shape[0] <= FULL_CHECK else 2)
+        print_split(card, f"fused_detect {mode} {name} M={offs.shape[0]}", sp)
+        unf, bf16 = kw.get("unfolded", False), kw.get("bf16_operands", False)
+        packed = fd._detect_kernel_weights(w, cfg, offs.device, unf, bf16=bf16)
+        out = torch.empty((offs.shape[0], 3), device=offs.device)
+        # the pool's work: its candidates, counted per block by the
+        # candidates stage (kernels.detect_stops)
+        fd._launch_detect(offs, packed, cfg, unf, bf16, out, stop="candidates")
+        nblk = -(-offs.shape[0] // kernels.DETECT_VARIANTS[0][0])
+        per = out.view(-1)[:nblk] / (kernels.DETECT_VARIANTS[0][0] * cfg.detector_mlp[-1])
+        print(f"  fused_detect {mode} {name}: pool candidates per cluster and channel mean "
+              f"{per.mean().item():.4f}, a block's max {per.max().item():.4f}")
+        variants = kernels.DETECT_VARIANTS
+        sweep = ms_in_turns({v: functools.partial(fd._launch_detect, offs, packed, cfg, unf, bf16,
+                                                  out, variant=v)
+                             for v in range(len(variants))}, 2)
+        print(f"[{card}] fused_detect {mode} {name} sweep (clusters per block, m16 tiles, "
+              f"TF32 passes): " +
+              "; ".join("{} {:.4f} ms ({} B, {} blocks/SM)".format(
+                  variants[v], ms, *kernels.detect_occupancy(offs.shape[1], packed[1],
+                                                             len(cfg.detector_mlp),
+                                                             len(cfg.detector_mlp2), bf16, v))
+                  for v, ms in sweep.items()))
+        if parent is None:
+            continue
+        att, ori = fd.fused_detect_clusters(w, offs, cfg, **kw)
+        with kernels_from(parent):
+            att_p, ori_p = fd.fused_detect_clusters(w, offs, cfg, **kw)
+        same = bool(torch.equal(att, att_p) and torch.equal(ori, ori_p))
+        if mode == "bf16_operands":
+            share = k6_share_within(att, ori, att_p, ori_p, 1e-4)
+            require(share >= 0.999, f"K6 {mode} vs parent on {name}: {100 * share:.3f} % "
+                                    "within 1e-4")
+            held = f"{100 * share:.3f} % of centres within 1e-4 of the parent (>= 99.9 %)"
+        else:
+            a_rel = ((att - att_p).abs() / att_p.abs().clamp(min=1e-6)).max().item()
+            o_err = _wrapped(ori - ori_p).abs().max().item()
+            require(a_rel <= 1e-5 and o_err <= 1e-5, f"K6 {mode} vs parent on {name}: att rel "
+                                                     f"{a_rel:.3e}, ori {o_err:.3e} rad")
+            held = f"att rel {a_rel:.3e}, ori {o_err:.3e} rad to the parent (<= 1e-5)"
+        print(f"[{card}] fused_detect {mode} {name} M={offs.shape[0]}: parent "
+              f"{sp['parent kernel']:.4f} ms, this {sp['this kernel']:.4f} ms (kernels alone, "
+              f"in turns); {held}; bit-equal to the parent: {same}")
+
+
+def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib=None,
+                      parent=None):
     """Phases 5-8: K4/K5/K6 against their plain versions at the extraction
     shapes, InferencePipeline.extract with the trained weights (launch
     counters reset), its outputs against the dense route and across the
-    two routes, then times. `clouds` maps names to (N, >=3) host arrays;
+    two routes, then times (with `parent`, another tree's csrc/, its K4
+    and K6 against this one's). `clouds` maps names to (N, >=3) host arrays;
     process_directory writes into `out_dir` (emptied first). Returns
     {kernel: report} for K4, K5, K6 and the extraction path's launches."""
     import shutil
@@ -454,6 +611,8 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
     model = load_variables(Feat3DNet(cfg), variables).eval().to(dev)
     w_det = [w.to(dev) for w in fd.transpose_unfolded_detector(
         fd.detector_weights_unfolded(variables, cfg))]
+    w_fold = [w.to(dev) for w in fd.transpose_folded_weights(fd.folded_weights(variables, cfg))]
+    k6_weights = {"unfolded": w_det, "folded": w_fold, "bf16_operands": w_det}
     report = {"sorted_ball_query": {"max_abs_err": 0}, "ball_max": {"max_abs_err": 0},
               "fused_detect": {"max_abs_err": 0.0}}
     times = {k: [] for k in report}
@@ -479,6 +638,7 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
             report["fused_detect"]["max_abs_err"] = max(report["fused_detect"]["max_abs_err"],
                                                         a_err.max().item())
             k4_step(card, name, nb, sc, ctr, cnt_k, top_k, parent_lib)
+            k6_step(card, name, offs, k6_weights, cfg, parent)
             bm_k = hg.ball_max_sorted(sc.pts4, sc.blk_bbox, att_k, NMS_RADIUS)
             bm_p = hg.ball_max_plain(sc.pts4, att_k, NMS_RADIUS, centers=ctr_sl)
             require(torch.equal(bm_k[sl], bm_p), f"ball max kernel != plain on {name}")
@@ -498,9 +658,11 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
                     8.0 * cnt_k[real].sum().item(), nbytes(sc.pts4, ctr, top_k, cnt_k)))
                 bounds["ball_max"].append(bound_ms(
                     9.0 * cnt_nms[real].sum().item(), nbytes(sc.pts4, att_k, bm_k)))
-                bounds["fused_detect"].append(bound_ms(
-                    2.0 * tower_macs(cfg, descriptor=False) * offs.shape[0],
-                    nbytes(offs, *w_det) + offs.shape[0] * 8))
+                b6, b6_f32 = k6_bound(cfg, offs.shape[0], nbytes(offs, *w_det) + offs.shape[0] * 8,
+                                      False)
+                bounds["fused_detect"].append(b6)
+                print(f"  fused_detect {name} bound {b6[0]:.4f} ms ({b6[1]}; every product at "
+                      f"the f32 peak: {b6_f32[0]:.4f} ms)")
                 pairs = (
                     ("sorted_ball_query",
                      lambda: hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, RADIUS, NS, tile=256),
@@ -645,8 +807,11 @@ TRAIN_KERNELS = ("train_stats", "train_final", "train_bwd_top", "train_bwd")
 # --parent: the passes whose outputs must equal the parent tree's bit for bit
 # (a max and a tie count are exact in any order)
 EXACT_TO_PARENT = ("train_final", "train_bwd_top")
-# --parent: the sources and headers of the other tree that are built
-PARENT_BUILD = (("fused_train.cu", "sorted_ball_query.cu"), ("common.cuh",))
+# --parent: the sources and headers of the other tree that are built (and
+# its tensor-core header where it has one)
+PARENT_BUILD = (("fused_train.cu", "sorted_ball_query.cu", "fused_detect.cu"),
+                ("common.cuh", "slot_layer.cuh"))
+PARENT_OPTIONAL_HEADERS = ("tc_mma.cuh",)
 
 
 def compare(name, got, want, rtol, atol, max_share=0.0):
@@ -1127,21 +1292,35 @@ def parent_csrc(parent):
     return csrc
 
 
+def parent_build(csrc):
+    """Another tree's PARENT_BUILD sources built alone, with the headers it
+    has."""
+    from feat3dnet_tpu_torch import kernels
+
+    sources, headers = PARENT_BUILD
+    headers += tuple(h for h in PARENT_OPTIONAL_HEADERS if os.path.isfile(os.path.join(csrc, h)))
+    return kernels.build(csrc, sources, headers)
+
+
 @functools.lru_cache(maxsize=None)
 def parent_cdll(csrc):
     """Another tree's PARENT_BUILD sources, built alone and loaded."""
     import ctypes
 
-    from feat3dnet_tpu_torch import kernels
-
-    return ctypes.CDLL(kernels.build(csrc, *PARENT_BUILD).path)
+    return ctypes.CDLL(parent_build(csrc).path)
 
 
 @functools.lru_cache(maxsize=None)
 def other_library(csrc):
-    """This tree's entry points, but the training passes' (f3d_train_*) from
-    another tree's csrc/fused_train.cu, built alone and declared as this
-    tree's are; one the other tree lacks is left undefined."""
+    """This tree's entry points, but the training passes' (f3d_train_*) and
+    K6's (f3d_fused_detect*) from another tree's csrc/, built alone; one the
+    other tree lacks is left undefined. The training passes are declared as
+    this tree's are. K6's are called with this tree's arguments: a tree
+    whose f3d_fused_detect takes no offsets of the tensor-core fragments
+    (K6's FFMA design) gets the same call without them (and, in its split
+    and occupancy entries, without the variant); its weight buffer is the
+    head of this tree's."""
+    import ctypes
     import types
 
     from feat3dnet_tpu_torch import kernels
@@ -1156,6 +1335,29 @@ def other_library(csrc):
             setattr(lib, name, fn)
         else:
             delattr(lib, name)
+    with open(os.path.join(csrc, "fused_detect.cu")) as f:
+        ffma = "const int* extra" not in f.read()
+    for name in [n for n in vars(lib) if n.startswith("f3d_fused_detect")]:
+        if not hasattr(theirs, name):
+            delattr(lib, name)
+            continue
+        fn, ref = getattr(theirs, name), getattr(mine, name)
+        fn.restype = ctypes.c_int
+        if not ffma:
+            fn.argtypes = ref.argtypes
+            setattr(lib, name, fn)
+            continue
+        if name == "f3d_fused_detect_occupancy":
+            # ns, layers, n_det, n_det2, bf16 | variant | out
+            fn.argtypes = ref.argtypes[:5] + ref.argtypes[6:]
+            setattr(lib, name, lambda *a, fn=fn: fn(*a[:5], *a[6:]))
+        else:
+            # clusters, ns, batch, weights, layers | extra | n_det ... out
+            # | variant (split) | stop, stream
+            cut = (5,) + ((14,) if name == "f3d_fused_detect_split" else ())
+            fn.argtypes = [t for i, t in enumerate(ref.argtypes) if i not in cut]
+            setattr(lib, name, lambda *a, fn=fn, cut=cut: fn(
+                *[v for i, v in enumerate(a) if i not in cut]))
     return lib
 
 
@@ -1185,31 +1387,49 @@ def ptxas_lines(tag, info, marker):
             print(f"  ptxas ({tag}): {line.strip()}")
 
 
-def train_build_report(tag, info):
-    """A build's lines of its ptxas report for the training kernels
-    (registers, spills) and, from `cuobjdump -sass` of its library, each
-    training kernel's count of tensor-core (HMMA) and f32 CUDA-core (FFMA)
-    instructions."""
+def sass_counts(info, pattern, ops):
+    """{kernel: {op: count}} from `cuobjdump -sass` of a build's library, for
+    the kernels whose mangled name `pattern` (a regex) matches; each op
+    counted on the lines that hold it."""
     import re
 
     from feat3dnet_tpu_torch import kernels
 
-    ptxas_lines(tag, info, "train_")
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", info.path], capture_output=True, text=True,
                           check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"train_(?:stats|final|bwd_top|bwd)_kernel(?:ILi\d)?", line)
+            m = re.search(pattern, line)
             name = m.group(0) if m else None
             if name:
-                counts[name] = [0, 0]
+                counts[name] = dict.fromkeys(ops, 0)
         elif name:
-            counts[name][0] += "HMMA" in line
-            counts[name][1] += "FFMA" in line
-    for name, (hmma, ffma) in counts.items():
-        print(f"  sass ({tag}): {name}: {hmma} HMMA, {ffma} FFMA")
+            for op in ops:
+                counts[name][op] += op in line
+    return counts
+
+
+def train_build_report(tag, info):
+    """A build's lines of its ptxas report for the training kernels
+    (registers, spills) and, from `cuobjdump -sass` of its library, each
+    training kernel's count of tensor-core (HMMA) and f32 CUDA-core (FFMA)
+    instructions."""
+    ptxas_lines(tag, info, "train_")
+    for name, c in sass_counts(info, r"train_(?:stats|final|bwd_top|bwd)_kernel(?:ILi\d)?",
+                               ("HMMA", "FFMA")).items():
+        print(f"  sass ({tag}): {name}: {c['HMMA']} HMMA, {c['FFMA']} FFMA")
+
+
+def detect_build_report(tag, info):
+    """K6's lines of a build's ptxas report and its SASS counts: tensor-core
+    (HMMA), f32 CUDA-core (FFMA), shared (LDS), global (LDG) and local
+    (LDL, STL) memory instructions, per instantiation."""
+    ptxas_lines(tag, info, "fused_detect")
+    ops = ("HMMA", "FFMA", "LDS", "LDG", "LDL", "STL")
+    for name, c in sass_counts(info, r"\w*fused_detect\w*", ops).items():
+        print(f"  sass ({tag}): {name}: " + ", ".join(f"{c[op]} {op}" for op in ops))
 
 
 def occupancy_report(tag, timed):
@@ -1237,7 +1457,7 @@ def parent_ab(parent, timed, card, fused_step_ms):
     from feat3dnet_tpu_torch import kernels
 
     csrc = parent_csrc(parent)
-    train_build_report("parent", kernels.build(csrc, *PARENT_BUILD))
+    train_build_report("parent", parent_build(csrc))
     lib = other_library(csrc)
     if hasattr(lib, "f3d_train_occupancy"):
         with kernels_from(csrc):
@@ -1789,9 +2009,8 @@ def detector_mode_phase(dev, card, clouds, npz_path):
                                          w, offs, cfg, **kw), 3, 2)
                     times[m].append(ms[m])
                     moved = nbytes(offs, *w) + offs.shape[0] * 8
-                    flops = 2.0 * tower_macs(cfg, descriptor=False) * offs.shape[0]
-                    bounds[m].append(bound_ms(flops, moved, PEAK_BF16_FLOPS
-                                              if m == "bf16_operands" else PEAK_F32_FLOPS))
+                    bounds[m].append(k6_bound(cfg, offs.shape[0], moved,
+                                              m == "bf16_operands")[0])
                 ms_u, _ = in_turns(lambda: k6(w_unf, offs, cfg, unfolded=True),
                                    lambda: k6(w_fold, offs, cfg), 3, 3)
                 print(f"[{card}] K6 modes {name} M={offs.shape[0]}: folded {ms['folded'][0]:.4f} "
@@ -1853,10 +2072,12 @@ def main():
     kernels.library()
     print(f"build: {info.seconds:.1f} s -> {os.path.relpath(info.path, HERE)}")
     ptxas_lines("this", info, "")
+    detect_build_report("this", info)
     parent_lib = None
     if opts.parent:
         csrc = parent_csrc(opts.parent)
-        ptxas_lines("parent", kernels.build(csrc, *PARENT_BUILD), "sorted_ball_query")
+        ptxas_lines("parent", parent_build(csrc), "sorted_ball_query")
+        detect_build_report("parent", parent_build(csrc))
         parent_lib = parent_cdll(csrc)
     clouds = {n: torch.from_numpy(
         np.ascontiguousarray(load_point_cloud(example_cloud_path(n))[:, :3]))[None]
@@ -2065,7 +2286,8 @@ def main():
         dev, card, ext_clouds,
         os.path.join(HERE, "feat3dnet_tpu_torch", "assets", "ckpt4480_variables.npz"),
         os.path.dirname(example_cloud_path(CLOUDS[0])),
-        os.path.join(HERE, "build", "chip_smoke_extract"), parent_lib)
+        os.path.join(HERE, "build", "chip_smoke_extract"), parent_lib,
+        parent_csrc(opts.parent) if opts.parent else None)
     report.update(ext_report)
     # K1-K3 count on the forward/serving path, K4-K6 on the extraction path
     launches.update({k: ext_launches[k] for k in ext_report})

@@ -26,42 +26,124 @@
 // Output (M, 3): attention, c, s; the wrapper takes atan2(s, c).
 //
 // What bounds it on this card: arithmetic. At the paper widths a cluster
-// of 64 slots costs about 2.6 M multiply-adds (3->64->128->256 per slot,
-// the 128->256 conv is 80 % of it) against 768 B of input and 12 B of
-// output; the extraction's attention pass runs it once per cloud point.
+// of 64 slots costs 2 674 880 multiply-adds (3->64->128->256 per slot, then
+// 256->128->64 and the heads once), 78 % of them in the top per-slot conv
+// (128->256), against 768 B of input and 12 B of output; the extraction's
+// attention pass runs it once per cloud point.
 //
-// What the design does about it: the layout of K3 (csrc/fused_describe.cu),
-// whose per-slot layer it shares (slot_layer.cuh): one block of 256 threads
-// per cluster, the 64 slots' activations in shared memory, the widest conv
-// never stored but pooled as it is produced. A per-slot layer is a
-// register-tiled product, each warp owning 8 slots and each lane Cout/32
-// channels (up to 8 x 8 sums in registers, 16 FMAs per loaded value). The
-// BN replay is rounded op by op (__fsub_rn, __fmul_rn, __fadd_rn), so the
-// only departure from the model path is the order of the f32 sums.
+// What the design does about it. The previous design (one cluster per
+// block, every product an FFMA register tile, a one-thread-per-channel
+// chain for the post convs) reached 31 % of the FFMA peak. Its sums ran in
+// k order, one fmaf chain per output, as the plain version's cuBLAS f32
+// GEMMs do on this card, and the two agreed to 2.4e-7 rad. That order is
+// what the 1e-5 rad check needs: on the trained weights some clusters have
+// an orientation vector of norm ~0.02-0.05, and summing any conv in another
+// order (3xTF32, or exactly) moves their angle by 1e-5-1e-4 rad
+// (tests/test_torch_k6_tc.py). So the outputs keep the previous design's
+// sums, bit for bit, and the tensor cores only decide which sums to do:
+// - The top per-slot conv runs on the tensor cores (tc_mma.cuh, shared
+//   with K7-K10): f32 modes mma.sync m16n8k8 on operands rounded to TF32
+//   (A through ldmatrix; 1xTF32 beat 3xTF32 in the sweep), bf16_operands
+//   m16n8k16 on its bf16 operands. Its output is never stored. Per tile
+//   and channel, the rows whose value can be the pool's maximum (within a
+//   slack that bounds the two sums' difference, from the row and column
+//   norms) are marked, and after the product a thread per channel sums its
+//   marked rows as k-order fmaf chains, W's column read coalesced across
+//   the warp; the pool is the largest (on the vendored clouds 1.0-1.6 rows
+//   per cluster and channel). Rows repeating slot 0 (a ball query's
+//   padding) are never marked: their sums are slot 0's.
+// - Conv 0 (3 wide) and the per-slot convs below the top one stay on the
+//   CUDA cores in k order: conv 0 an fmaf chain per output, the others
+//   f3d::slot_layer (the register-tiled FFMA layer K3 shares).
+// - kC clusters per block of 8 warps (2: 128 slot rows). A warp tile of the
+//   top conv is 16 kMT rows of one cluster by 16 or 32 channels; the tiles
+//   go out row tile first, so warps that load a W fragment at about the
+//   same time load the same one (L1 serves the rest).
+// - W's fragments are laid out by the wrapper ahead of the call, rounded
+//   to TF32 once per call (hi and lo halves, for the 3xTF32 variant): one
+//   load per lane per 8 x 8 block, the next k step's loaded while this
+//   one's products run.
+// - The post convs and heads run once over the block's clusters: a thread
+//   per channel keeps the kC clusters' fmaf chains (W loaded once for all,
+//   32 deep ahead); a head output is one thread's chain.
+// - Conv inputs keep a row stride of cin + 4 floats, so a fragment's eight
+//   rows fall in eight bank groups.
+#include <cuda_bf16.h>
+
+#include "common.cuh"
 #include "slot_layer.cuh"
+#include "tc_mma.cuh"
 
 namespace {
 
-using f3d::BiasAct;
-using f3d::kNoPool;
-using f3d::kPoolRelu;
-
-constexpr int kThreads = f3d::kTowerThreads;
-constexpr int kSlots = f3d::kTowerSlots;
-constexpr int kVec = 256;           // widest pooled / single-row vector
+constexpr int kThreads = f3d::kTcThreads;
+constexpr int kWarps = f3d::kTcWarps;
+constexpr int kSlots = 64;          // slots per cluster, padded (ns <= 64)
+constexpr int kMaxC = 256;          // widest conv
 constexpr int kMaxLayers = 12;
 
-struct Layer { int cin, cout, w, b, mu, mul, beta; };   // offsets; -1 = no BN
+struct Layer { int cin, cout, w, b, mu, mul, beta, frag, wnorm, wt; };   // offsets; -1 = none
 struct Tower {
-  int n_det, n_det2;
-  int buf_width;                       // widest stored per-slot activation
+  int n_det, n_det2, ns, batch, folded;
+  float r, inv_r, r2;
+  int x_off, mask_off, d2_off, vec_off;   // shared memory, in floats
+  int buf_off[2], buf_ld[2];              // per-slot activations
   Layer l[kMaxLayers];
 };
 
-// Dense + replayed BN (skipped where the table holds -1) + ReLU, then the
-// bf16 rounding if kRound.
-template <bool kRound>
-struct BnReluAct {
+// The kernel's variants: clusters per block, the top conv's warp tile (kMT
+// m16 tiles by 8 / kMT n8 tiles), and in the f32 modes its product in
+// 1xTF32 (0) or 3xTF32 (1); variant 0 is the default, the others are for
+// the sweep in chip_smoke.py. bf16_operands runs its bf16 product in all.
+constexpr int kVariants = 3;
+constexpr int kVariant[kVariants][3] = {{2, 4, 0}, {2, 4, 1}, {1, 4, 0}};
+
+// Ball membership of one cluster's 64 slots, as f3d::tower_membership, for
+// the warp whose lane is `lane`: d2 < r2, and an empty ball keeps the FIRST
+// slot at the minimum distance. Writes mask[0..63] as 0/1.
+__device__ __forceinline__ void membership(const float* d2s, float r2, float* mask, int lane) {
+  const float da = d2s[lane], db = d2s[lane + 32];
+  const bool ia = da < r2, ib = db < r2;
+  const int count = __popc(__ballot_sync(0xffffffffu, ia)) +
+                    __popc(__ballot_sync(0xffffffffu, ib));
+  float dmin = fminf(da, db);
+  for (int off = 16; off > 0; off >>= 1)
+    dmin = fminf(dmin, __shfl_xor_sync(0xffffffffu, dmin, off));
+  const unsigned lo = __ballot_sync(0xffffffffu, da <= dmin);
+  const unsigned hi = __ballot_sync(0xffffffffu, db <= dmin);
+  const int first = lo ? __ffs(lo) - 1 : 32 + __ffs(hi) - 1;
+  mask[lane] = (ia || (count == 0 && first == lane)) ? 1.f : 0.f;
+  mask[lane + 32] = (ib || (count == 0 && first == lane + 32)) ? 1.f : 0.f;
+}
+
+// A channel's epilogue: Dense bias, the replayed BN where the layer has
+// one, ReLU, then the bf16 rounding in the bf16 mode.
+struct Chan {
+  float b, mu, mul, beta;
+};
+
+__device__ __forceinline__ Chan chan(const Layer& L, const float* __restrict__ wts, int c) {
+  const bool bn = L.mu >= 0;
+  return Chan{__ldg(wts + L.b + c), bn ? __ldg(wts + L.mu + c) : 0.f,
+              bn ? __ldg(wts + L.mul + c) : 0.f, bn ? __ldg(wts + L.beta + c) : 0.f};
+}
+
+// Bias and BN, before the ReLU.
+__device__ __forceinline__ float bn_pre(float acc, const Chan& ch, bool bn) {
+  const float v = acc + ch.b;
+  return bn ? __fadd_rn(__fmul_rn(__fsub_rn(v, ch.mu), ch.mul), ch.beta) : v;
+}
+
+template <bool kBf16>
+__device__ __forceinline__ float bn_relu(float acc, const Chan& ch, bool bn) {
+  const float v = fmaxf(bn_pre(acc, ch, bn), 0.f);
+  return kBf16 ? f3d::round_bf16(v) : v;
+}
+
+// The per-slot convs' epilogue for f3d::slot_layer (the FFMA layer K3
+// shares): bias, BN where the layer has one, ReLU, the bf16 rounding.
+template <bool kBf16>
+struct SlotEpi {
   using Chan = int;
   const float* wts;
   Layer L;
@@ -71,132 +153,604 @@ struct BnReluAct {
     if (L.mu >= 0)
       v = __fadd_rn(__fmul_rn(__fsub_rn(v, wts[L.mu + c]), wts[L.mul + c]), wts[L.beta + c]);
     v = fmaxf(v, 0.f);
-    return kRound ? f3d::round_bf16(v) : v;
+    return kBf16 ? f3d::round_bf16(v) : v;
   }
 };
 
-template <bool kRound>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_detect_kernel(const float* __restrict__ clusters, int ns,
-                    const float* __restrict__ wts, Tower tw, int folded, float r,
-                    float inv_r, float r2, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* xin = reinterpret_cast<float*>(smem4);  // kSlots x 4: x, y, z, 0
-  float* mask = xin + kSlots * 4;                // kSlots
-  float* d2s = mask + kSlots;                    // kSlots
-  float* red = d2s + kSlots;                     // (kThreads / 32) x kVec
-  float* v0 = red + (kThreads / 32) * kVec;      // kVec
-  float* v1 = v0 + kVec;                         // kVec
-  float* head = v1 + kVec;                       // 4: att, c, s, -
-  float* buf[2] = {head + 4, head + 4 + kSlots * tw.buf_width};
-
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  // the model path divides by r; the folded mode multiplies by 1/r
-  const auto scale = [&](float v) {
-    const float s = folded ? __fmul_rn(v, inv_r) : __fdiv_rn(v, r);
-    return kRound ? f3d::round_bf16(s) : s;
-  };
-
-  // ---- coordinates and membership --------------------------------------
-  if (t < kSlots) {
-    float x = 0.f, y = 0.f, z = 0.f, d2 = INFINITY;
-    if (t < ns) {
-      const float* p = clusters + (static_cast<size_t>(b) * ns + t) * 3;
-      x = p[0]; y = p[1]; z = p[2];
-      d2 = f3d::sqdist3(x, y, z);
-    }
-    xin[4 * t + 0] = scale(x);
-    xin[4 * t + 1] = scale(y);
-    xin[4 * t + 2] = scale(z);
-    xin[4 * t + 3] = 0.f;
-    d2s[t] = d2;
+// acc[c] += sum_k x[c * kMaxC + k] W[k * stride] over k < cin, one fmaf
+// chain in k order per c; W's column read 32 deep ahead of its products
+// (the chain waits on no load but the first of each slice).
+template <int kC>
+__device__ __forceinline__ void column_chains(const float* x, const float* __restrict__ W,
+                                              int stride, int cin, float (&acc)[kC]) {
+  int k0 = 0;
+  for (; k0 + 32 <= cin; k0 += 32) {
+    float w[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) w[q] = __ldg(W + (k0 + q) * stride);
+#pragma unroll
+    for (int q = 0; q < 32; ++q)
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[c] = fmaf(x[c * kMaxC + k0 + q], w[q], acc[c]);
   }
-  __syncthreads();
-  if (t < 32) f3d::tower_membership(d2s, r2, mask);
-  __syncthreads();
-
-  // ---- per-slot convs, the last one pooled ----------------------------------
-  const float* in = xin;
-  int in_stride = 4;
-  int nb = 0;
-  for (int i = 0; i < tw.n_det; ++i) {
-    const Layer& L = tw.l[i];
-    const bool last = i == tw.n_det - 1;
-    float* o = last ? nullptr : buf[nb];
-    f3d::slot_layer_any(L.cout, in, L.cin, in_stride, wts + L.w, BnReluAct<kRound>{wts, L}, o,
-                        L.cout, last ? kPoolRelu : kNoPool, mask, red, v0);
-    if (!last) { in = o; in_stride = L.cout; nb ^= 1; }
-  }
-
-  // ---- post convs and heads ---------------------------------------------------
-  float* g = v0;
-  float* g2 = v1;
-  int li = tw.n_det;
-  for (int i = 0; i < tw.n_det2; ++i, ++li) {
-    const Layer& L = tw.l[li];
-    f3d::vec_layer(g, L.cin, L.cout, wts + L.w, BnReluAct<kRound>{wts, L}, g2);
-    float* tmp = g; g = g2; g2 = tmp;
-  }
-  for (int h = 0; h < 2; ++h, ++li) {                   // attention -> head[0], orientation -> head[1:3]
-    const Layer& L = tw.l[li];
-    f3d::vec_layer(g, L.cin, L.cout, wts + L.w, BiasAct<false>{wts + L.b, false}, head + h);
-  }
-  if (t == 0) {
-    const float a = head[0];
-    const float oc = head[1], os = head[2];
-    const float inv = 1.f / sqrtf(fmaxf(__fadd_rn(__fmul_rn(oc, oc), __fmul_rn(os, os)), 1e-8f));
-    float* o = out + static_cast<size_t>(b) * 3;
-    o[0] = fmaxf(a, 0.f) + log1pf(expf(-fabsf(a)));   // logaddexp(a, 0)
-    o[1] = __fmul_rn(oc, inv);
-    o[2] = __fmul_rn(os, inv);
+  for (; k0 < cin; ++k0) {
+    const float wv = __ldg(W + k0 * stride);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[c] = fmaf(x[c * kMaxC + k0], wv, acc[c]);
   }
 }
 
-template <bool kRound>
-cudaError_t launch(const float* clusters, int ns, int batch, const float* weights,
-                   const Tower& tw, int folded, float r, float inv_r, float r2, float* out,
-                   size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_detect_kernel<kRound>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// The slack of the top conv's pre-ReLU value of row m and channel c, a
+// bound on |u~ - u| for u~ from the tensor cores and u from an fmaf chain
+// in k order: rel times sum_k |h_mk W_kc| <= |h_m|_2 |W_c|_2 (the row and
+// column norms, rounded up), scaled by BN's mul, plus the bias and BN
+// terms for their own roundings; rel (tower_rel) is twice the sum of the
+// error terms. As a |h_m|_2 + b: slack_coefs gives channel c's (a, b).
+__device__ __forceinline__ float2 slack_coefs(const Chan& ch, bool bn, float rel, float wnorm) {
+  const float mul = bn ? fabsf(ch.mul) : 1.f;
+  return make_float2(rel * mul * wnorm,
+                     rel * (mul * (fabsf(ch.b) + fabsf(ch.mu)) + fabsf(ch.beta)) + 1e-30f);
+}
+
+// rel for a product over K = cin terms, relative to sum_k |h_k W_kc|: the
+// chain's K roundings (K 2^-24); 1xTF32: each operand rounded to TF32,
+// within 2^-11 of its value (a product within 2^-10 + 2^-22), K / 8
+// truncations of 2^-23; 3xTF32: the split's residue (~3 2^-22), 3 K / 8
+// truncations;
+// bf16: exact products, K / 16 truncations. Twice the sum.
+__device__ __forceinline__ float tower_rel(bool bf16, bool x3, int cin) {
+  const float chain = 5.97e-8f * cin;
+  if (bf16) return 2.f * (chain + 7.46e-9f * cin + 1e-7f);
+  if (x3) return 2.f * (chain + 4.48e-8f * cin + 7.2e-7f);
+  return 2.f * (chain + 1.49e-8f * cin + 9.8e-4f);
+}
+
+// The top conv's pool of channel n in every cluster of the block, as the
+// fmaf chain in k order gives it, over the candidate rows that rows[c]
+// marks (bit m: slot m of cluster c; the block's row c * 64 + m of `in`),
+// up to kR rows a pass: W's column n (stride cout) is read once a pass, by
+// the warp's lanes on consecutive channels, coalesced, 32 deep at a time
+// (cin % 32 == 0). pooled[c] = 0 where cluster c has no candidate (all
+// below 0: ReLU).
+template <bool kBf16, int kC>
+__device__ __forceinline__ void pool_sum(const Layer& L, const float* __restrict__ wts,
+                                         const float* in, int in_ld, int n,
+                                         unsigned long long (&rows)[kC], float (&pooled)[kC]) {
+  constexpr int kR = 8;
+  const float* W = wts + L.w + n;
+  const int cin = L.cin, cout = L.cout;
+  const Chan ch = chan(L, wts, n);
+  const bool bn = L.mu >= 0;
+#pragma unroll
+  for (int c = 0; c < kC; ++c) pooled[c] = 0.f;
+  for (;;) {
+    int r[kR];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      r[j] = -1;
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        if (r[j] < 0 && rows[c]) {
+          r[j] = c * kSlots + __ffsll(rows[c]) - 1;
+          rows[c] &= rows[c] - 1;
+        }
+    }
+    if (r[0] < 0) break;
+    const float* h[kR];
+    float y[kR];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      h[j] = in + (r[j] < 0 ? r[0] : r[j]) * in_ld;
+      y[j] = 0.f;
+    }
+    for (int k0 = 0; k0 < cin; k0 += 32) {
+      float w[32];   // a 32-deep slice of the column, loaded before its products
+#pragma unroll
+      for (int q = 0; q < 32; ++q) w[q] = __ldg(W + (k0 + q) * cout);
+#pragma unroll
+      for (int k = 0; k < 32; k += 4)
+#pragma unroll
+        for (int j = 0; j < kR; ++j) {
+          // rows past this thread's candidates read nothing (fewer bank conflicts)
+          const float4 a = r[j] >= 0 ? *reinterpret_cast<const float4*>(h[j] + k0 + k)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+          y[j] = fmaf(a.x, w[k], y[j]);
+          y[j] = fmaf(a.y, w[k + 1], y[j]);
+          y[j] = fmaf(a.z, w[k + 2], y[j]);
+          y[j] = fmaf(a.w, w[k + 3], y[j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kR; ++j)
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        if (r[j] >= 0 && r[j] / kSlots == c)
+          pooled[c] = fmaxf(pooled[c], bn_relu<kBf16>(y[j], ch, bn));
+  }
+}
+
+// The top per-slot conv L over the block's kC * 64 rows (in, row stride
+// in_ld) on the tensor cores, and its masked max-pool as the fmaf chain in
+// k order gives it, into pooled[cluster * kMaxC + n] (f32 bits, zeroed
+// before; hnorm[row]: the input row's 2-norm, rounded up). The product only
+// picks the candidates: per tile and channel, with s the row's slack
+// and L the tile's largest u~ - s over the masked rows, the masked rows
+// with u~ + s >= max(L, 0) that do not repeat slot 0 of their cluster
+// (dup: a repeat has the same value), marked in rowmask[(cluster * kMaxC +
+// n) * 2 + slot / 32] (zeroed before). After the product a thread per
+// channel sums its candidates as chains (pool_sum). phase (the time
+// split's stages): 0 stops after the products and their bias and BN, 1
+// after the marks (their count added to *count), 2 runs everything. Ends
+// synced.
+template <bool kBf16, int kC, int kMT, bool kX3>
+__device__ __forceinline__ void top_conv_pool(const Layer& L, const float* __restrict__ wts,
+                                              const float* in, int in_ld, const float* mask,
+                                              const int* dup, const float* hnorm, float* pooled,
+                                              unsigned* rowmask, int* count, int phase) {
+  const bool pool_on = phase > 0;
+  constexpr int NT = 8 / kMT;
+  constexpr int kTilesM = kC * kSlots / (16 * kMT);
+  constexpr int kK = kBf16 ? 16 : 8;            // k per mma step
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int cin = L.cin, cout = L.cout, nb_n = cout / 8;
+  const bool bn = L.mu >= 0;
+  const float rel = tower_rel(kBf16, kX3, cin);
+  const int tiles = kTilesM * (cout / (8 * NT));
+  for (int tile = threadIdx.x >> 5; tile < tiles; tile += kWarps) {
+    const int m0 = tile % kTilesM * 16 * kMT, n0 = tile / kTilesM * 8 * NT;
+    float acc[kMT][NT][4];
+    if constexpr (kBf16) {
+      const uint2* F = reinterpret_cast<const uint2*>(wts + L.frag) + (n0 / 8) * 32 + lane;
+      uint2 nxt[NT];
+#pragma unroll
+      for (int q = 0; q < NT; ++q) nxt[q] = __ldg(F + q * 32);
+      f3d::tc_tile_bf16<false, kMT, NT>(
+          m0, cin,
+          [&](int m, int k) {   // bf16 values stored as f32: the pair converts exactly
+            const float2 v = *reinterpret_cast<const float2*>(in + m * in_ld + k);
+            const __nv_bfloat162 p = __floats2bfloat162_rn(v.x, v.y);
+            return *reinterpret_cast<const uint32_t*>(&p);
+          },
+          [&](int k0, uint32_t (&b)[NT][2]) {
+#pragma unroll
+            for (int q = 0; q < NT; ++q) {
+              b[q][0] = nxt[q].x;
+              b[q][1] = nxt[q].y;
+            }
+            if (k0 + kK < cin)
+#pragma unroll
+              for (int q = 0; q < NT; ++q)
+                nxt[q] = __ldg(F + (static_cast<size_t>(k0 / kK + 1) * nb_n + q) * 32);
+          },
+          acc);
+    } else if constexpr (kX3) {
+      const uint4* F = reinterpret_cast<const uint4*>(wts + L.frag) + (n0 / 8) * 32 + lane;
+      uint4 nxt[NT];
+#pragma unroll
+      for (int q = 0; q < NT; ++q) nxt[q] = __ldg(F + q * 32);
+      f3d::tc_tile_frag<false, kMT, NT>(
+          m0, cin, [&](int m, int k) { return in[m * in_ld + k]; },
+          [&](int k0, uint32_t (&bh)[NT][2], uint32_t (&bl)[NT][2]) {
+#pragma unroll
+            for (int q = 0; q < NT; ++q) {
+              bh[q][0] = nxt[q].x;
+              bh[q][1] = nxt[q].y;
+              bl[q][0] = nxt[q].z;
+              bl[q][1] = nxt[q].w;
+            }
+            if (k0 + kK < cin)
+#pragma unroll
+              for (int q = 0; q < NT; ++q)
+                nxt[q] = __ldg(F + (static_cast<size_t>(k0 / kK + 1) * nb_n + q) * 32);
+          },
+          acc);
+    } else {
+      // the hi halves of the 3xTF32 fragments (each 16-byte entry starts
+      // with them)
+      const uint2* F = reinterpret_cast<const uint2*>(wts + L.frag) + ((n0 / 8) * 32 + lane) * 2;
+      uint2 nxt[NT];
+#pragma unroll
+      for (int q = 0; q < NT; ++q) nxt[q] = __ldg(F + q * 64);
+      f3d::tc_tile_tf32<kMT, NT>(
+          in, in_ld, m0, cin,
+          // + half a TF32 ulp: the tensor cores' truncation then rounds
+          [](uint32_t v) { return v + 0x1000u; },
+          [&](int k0, uint32_t (&b)[NT][2]) {
+#pragma unroll
+            for (int q = 0; q < NT; ++q) {
+              b[q][0] = nxt[q].x;
+              b[q][1] = nxt[q].y;
+            }
+            if (k0 + kK < cin)
+#pragma unroll
+              for (int q = 0; q < NT; ++q)
+                nxt[q] = __ldg(F + (static_cast<size_t>(k0 / kK + 1) * nb_n + q) * 64);
+          },
+          acc);
+    }
+    // epilogue: column 2 q + e is channel n0 + 8 q + 2 t + e, its rows
+    // m0 + 16 i + 8 r + g, all of one cluster
+    float hn[kMT][2];
+    bool in_ball[kMT][2], fresh[kMT][2];   // masked; masked and no repeat
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = m0 + 16 * i + 8 * r + g;
+        hn[i][r] = hnorm[m];
+        in_ball[i][r] = mask[m] > 0.5f;
+        fresh[i][r] = in_ball[i][r] && !dup[m];
+      }
+    unsigned bits = 0;   // this lane's candidates: bit ((q * 2 + e) * kMT + i) * 2 + r
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 8 * q + 2 * t + e;
+        const Chan ch = chan(L, wts, n);
+        const float2 sc = slack_coefs(ch, bn, rel, __ldg(wts + L.wnorm + n));
+        float lo = -INFINITY, hi[kMT][2];
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float u = bn_pre(acc[i][q][2 * r + e], ch, bn);
+            const float sl = fmaf(sc.x, hn[i][r], sc.y);
+            hi[i][r] = u + sl;
+            if (in_ball[i][r]) lo = fmaxf(lo, u - sl);
+          }
+        if (!pool_on) continue;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          lo = fmaxf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        lo = fmaxf(lo, 0.f);
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (fresh[i][r] && hi[i][r] >= lo) bits |= 1u << (((q * 2 + e) * kMT + i) * 2 + r);
+          }
+      }
+    if (!pool_on) continue;
+    for (; bits; bits &= bits - 1) {
+      const int j = __ffs(bits) - 1;
+      const int r = j & 1, i = (j >> 1) % kMT, qe = (j >> 1) / kMT;
+      const int m = m0 + 16 * i + 8 * r + g, n = n0 + 8 * (qe >> 1) + 2 * t + (qe & 1);
+      atomicOr(rowmask + (m / kSlots * kMaxC + n) * 2 + m % kSlots / 32, 1u << (m % 32));
+    }
+  }
+  __syncthreads();
+  if (phase == 1) {
+    int marked = 0;
+    for (int i = threadIdx.x; i < 2 * kC * kMaxC; i += kThreads) marked += __popc(rowmask[i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) marked += __shfl_xor_sync(0xffffffffu, marked, off);
+    if ((threadIdx.x & 31) == 0) atomicAdd(count, marked);
+    __syncthreads();
+    return;
+  }
+  if (phase < 2) return;
+  for (int n = threadIdx.x; n < cout; n += kThreads) {
+    unsigned long long rows[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      rows[c] = rowmask[(c * kMaxC + n) * 2] |
+                static_cast<unsigned long long>(rowmask[(c * kMaxC + n) * 2 + 1]) << 32;
+    float best[kC];
+    pool_sum<kBf16, kC>(L, wts, in, in_ld, n, rows, best);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) pooled[c * kMaxC + n] = best[c];
+  }
+  __syncthreads();
+}
+
+// kC clusters per block; `stop` (the time split) leaves after a stage:
+// 1 input and membership, 2 + l per-slot conv l (the top one without its
+// pool), n_det + 2 the pool's candidates listed, n_det + 3 the pool; 0 runs
+// everything.
+template <bool kBf16, int kC, int kMT, bool kX3>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_detect_kernel(const float* __restrict__ clusters, const float* __restrict__ wts,
+                    const __grid_constant__ Tower T, float* __restrict__ out, int stop) {
+  constexpr int kRows = kC * kSlots;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* xin = sm + T.x_off;          // kRows x 4: x, y, z, 0 (scaled)
+  float* mask = sm + T.mask_off;      // kRows
+  float* d2s = sm + T.d2_off;         // kRows (then the repeat flags)
+  float* buf[2] = {sm + T.buf_off[0], sm + T.buf_off[1]};
+  // in the buffer the top conv would write: pooled, two post vectors (kC x
+  // kMaxC each), the heads (kC x 4), the top conv input's row norms (kRows),
+  // the pool's candidate marks (kC x kMaxC x 2 words) and their count
+  float* pooled = sm + T.vec_off;
+  float* vec[2] = {pooled + kC * kMaxC, pooled + 2 * kC * kMaxC};
+  float* head = pooled + 3 * kC * kMaxC;
+  float* hnorm = head + 4 * kC;
+  unsigned* rowmask = reinterpret_cast<unsigned*>(hnorm + kRows);
+  int* count = reinterpret_cast<int*>(rowmask + 2 * kC * kMaxC);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b0 = blockIdx.x * kC;
+  // the model path divides by r; the folded mode multiplies by 1/r
+  const auto scale = [&](float v) {
+    const float s = T.folded ? __fmul_rn(v, T.inv_r) : __fdiv_rn(v, T.r);
+    return kBf16 ? f3d::round_bf16(s) : s;
+  };
+
+  // ---- coordinates and membership ------------------------------------------
+  for (int row = tid; row < kRows; row += kThreads) {
+    const int s = row % kSlots, b = b0 + row / kSlots;
+    float x = 0.f, y = 0.f, z = 0.f, d2 = INFINITY;
+    if (b < T.batch && s < T.ns) {
+      const float* p = clusters + (static_cast<size_t>(b) * T.ns + s) * 3;
+      x = p[0]; y = p[1]; z = p[2];
+      d2 = f3d::sqdist3(x, y, z);
+    }
+    xin[4 * row + 0] = scale(x);
+    xin[4 * row + 1] = scale(y);
+    xin[4 * row + 2] = scale(z);
+    xin[4 * row + 3] = 0.f;
+    d2s[row] = d2;
+  }
+  __syncthreads();
+  for (int c = warp; c < kC; c += kWarps)
+    membership(d2s + c * kSlots, T.r2, mask + c * kSlots, lane);
+  __syncthreads();
+  // then the distances' room holds, per slot, whether it repeats its
+  // cluster's slot 0 (a ball query's padding): its rows equal slot 0's
+  int* dup = reinterpret_cast<int*>(d2s);
+  for (int row = tid; row < kRows; row += kThreads) {
+    const float4 p = *reinterpret_cast<const float4*>(xin + 4 * row);
+    const float4 o = *reinterpret_cast<const float4*>(xin + 4 * (row - row % kSlots));
+    dup[row] = row % kSlots > 0 && o.x == p.x && o.y == p.y && o.z == p.z;
+  }
+  if (stop == 1) return;
+
+  // ---- conv 0 on the CUDA cores: 4 input rows (x, y, z, 0), fmaf in k order
+  {
+    const Layer& L = T.l[0];
+    const int cout = L.cout, c = tid % cout, step = kThreads / cout;
+    float w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = __ldg(wts + L.w + k * cout + c);
+    const Chan ch = chan(L, wts, c);
+    const bool bn = L.mu >= 0;
+    const int ld = T.buf_ld[0];
+    for (int row = tid / cout; row < kRows; row += step) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc = fmaf(xin[4 * row + k], w[k], acc);
+      buf[0][row * ld + c] = bn_relu<kBf16>(acc, ch, bn);
+    }
+  }
+  __syncthreads();
+  if (stop == 2) return;
+
+  // ---- per-slot convs 1 .. n_det - 2 on the CUDA cores (k order), then the
+  // top one on the tensor cores, pooled
+  for (int l = 1; l < T.n_det; ++l) {
+    const Layer& L = T.l[l];
+    const int src = (l - 1) & 1;
+    if (l < T.n_det - 1) {
+      for (int c = 0; c < kC; ++c)
+        f3d::slot_layer_any(L.cout, buf[src] + c * kSlots * T.buf_ld[src], L.cin,
+                            T.buf_ld[src], wts + L.w, SlotEpi<kBf16>{wts, L},
+                            buf[l & 1] + c * kSlots * T.buf_ld[l & 1], T.buf_ld[l & 1],
+                            f3d::kNoPool, mask + c * kSlots, nullptr, nullptr);
+      if (stop == 2 + l) return;
+      continue;
+    }
+    // the input's row norms, rounded up (f32 sums of K squares: within
+    // K 2^-24 of the exact norm), kThreads / kRows threads a row
+    for (int i = tid; i < 2 * kC * kMaxC; i += kThreads) rowmask[i] = 0u;
+    if (tid == 0) *count = 0;
+    {
+      constexpr int kParts = kThreads / kRows;
+      const int cin = L.cin, ld = T.buf_ld[src], row = tid / kParts, part = tid % kParts;
+      float ss = 0.f;
+      for (int k = part; k < cin; k += kParts) {
+        const float v = buf[src][row * ld + k];
+        ss = fmaf(v, v, ss);
+      }
+#pragma unroll
+      for (int off = 1; off < kParts; off <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      if (part == 0) hnorm[row] = sqrtf(ss) * 1.0001f;
+    }
+    __syncthreads();
+    top_conv_pool<kBf16, kC, kMT, kX3>(L, wts, buf[src], T.buf_ld[src], mask, dup, hnorm,
+                                       pooled, rowmask, count,
+                                       stop == 2 + l ? 0 : stop == 3 + l ? 1 : 2);
+    // the candidates stage leaves the block's count in out[block] (the
+    // work the pool re-sums, read by the time split)
+    if (stop == 3 + l && tid == 0) out[blockIdx.x] = static_cast<float>(*count);
+    if (stop >= 2 + l && stop <= 4 + l) return;
+  }
+
+  // ---- post convs: one product over the block's clusters, a thread per
+  // channel keeping the kC clusters' sums, each an fmaf chain in k order
+  const float* g = pooled;
+  for (int i = 0; i < T.n_det2; ++i) {
+    const Layer& L = T.l[T.n_det + i];
+    const int cin = L.cin, cout = L.cout;
+    const bool bn = L.mu >= 0;
+    float* o = vec[i & 1];
+    for (int n = tid; n < cout; n += kThreads) {
+      float acc[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[c] = 0.f;
+      column_chains<kC>(g, wts + L.w + n, cout, cin, acc);
+      const Chan ch = chan(L, wts, n);
+#pragma unroll
+      for (int c = 0; c < kC; ++c) o[c * kMaxC + n] = bn_relu<kBf16>(acc[c], ch, bn);
+    }
+    __syncthreads();
+    g = o;
+  }
+
+  // ---- heads: attention (cin -> 1), orientation (cin -> 2); a thread per
+  // cluster and output, an fmaf chain in k order
+  {
+    const int li = T.n_det + T.n_det2;
+    const int cin = T.l[li].cin;
+    for (int o = tid; o < 3 * kC; o += kThreads) {
+      const int c = o / 3, j = o % 3;
+      const Layer& H = T.l[li + (j > 0)];
+      const int col = j > 0 ? j - 1 : 0;
+      float acc[1] = {0.f};
+      column_chains<1>(g + c * kMaxC, wts + H.w + col, H.cout, cin, acc);
+      head[c * 4 + j] = acc[0] + __ldg(wts + H.b + col);
+    }
+  }
+  __syncthreads();
+  if (tid < kC && b0 + tid < T.batch) {
+    const float a = head[tid * 4], oc = head[tid * 4 + 1], os = head[tid * 4 + 2];
+    const float inv = 1.f / sqrtf(fmaxf(__fadd_rn(__fmul_rn(oc, oc), __fmul_rn(os, os)), 1e-8f));
+    float* po = out + static_cast<size_t>(b0 + tid) * 3;
+    po[0] = fmaxf(a, 0.f) + log1pf(expf(-fabsf(a)));   // logaddexp(a, 0)
+    po[1] = __fmul_rn(oc, inv);
+    po[2] = __fmul_rn(os, inv);
+  }
+}
+
+// Host: the tower from the (n, 7) layer table and the (n, 3) offsets of
+// each layer's W fragments, column norms and transposed kernel, with its
+// shared-memory layout for kC clusters per block; returns the bytes, or 0
+// for a tower the kernel does not take.
+size_t make_tower(Tower* T, int kc, int bf16, int ns, int batch, const int* layers,
+                  const int* extra, int n_det, int n_det2) {
+  const int n_layers = n_det + n_det2 + 2;
+  if (ns < 1 || ns > kSlots || n_det < 2 || n_det2 < 0 || n_layers > kMaxLayers || batch < 0)
+    return 0;
+  *T = Tower{};
+  T->n_det = n_det;
+  T->n_det2 = n_det2;
+  T->ns = ns;
+  T->batch = batch;
+  for (int i = 0; i < n_layers; ++i) {
+    const int* q = layers + 7 * i;
+    Layer& L = T->l[i];
+    L = Layer{q[0], q[1], q[2], q[3], q[4], q[5], q[6], extra ? extra[3 * i] : -1,
+              extra ? extra[3 * i + 1] : -1, extra ? extra[3 * i + 2] : -1};
+    if (L.cout < 1 || L.cout > kMaxC || L.cin < 1 || L.cin > kMaxC) return 0;
+    if (i == 0 && (L.cin != 4 || kThreads % L.cout)) return 0;
+    if (i > 0 && i < n_det && (L.cin % 4 || L.cout % 32)) return 0;
+    if (i == n_det - 1 && (L.cin % 32 ||
+                           (extra && (L.frag < 0 || L.wnorm < 0 || L.wt < 0))))
+      return 0;
+    if (i >= n_det + n_det2 && L.cout != (i == n_layers - 2 ? 1 : 2)) return 0;
+  }
+  // conv l writes buffer l & 1 (the top conv none); the vectors live in the
+  // buffer the top conv would write
+  const int rows = kc * kSlots;
+  size_t bytes[2] = {0, 0};
+  for (int l = 0; l + 1 < n_det; ++l) {
+    const int ld = T->l[l].cout + 4;
+    T->buf_ld[l & 1] = ld > T->buf_ld[l & 1] ? ld : T->buf_ld[l & 1];
+  }
+  for (int j = 0; j < 2; ++j) bytes[j] = sizeof(float) * rows * T->buf_ld[j];
+  const size_t vec = sizeof(float) * ((5 * kc * kMaxC + 4 * kc + rows + 1 + 3) / 4 * 4);
+  const int dead = (n_det - 1) & 1;
+  bytes[dead] = bytes[dead] > vec ? bytes[dead] : vec;
+  int off = 0;
+  T->x_off = off;
+  off += 4 * rows;
+  T->mask_off = off;
+  off += rows;
+  T->d2_off = off;
+  off += rows;
+  for (int j = 0; j < 2; ++j) {
+    T->buf_off[j] = off;
+    off += static_cast<int>(bytes[j] / 4);
+  }
+  T->vec_off = T->buf_off[dead];
+  return static_cast<size_t>(off) * sizeof(float);
+}
+
+template <bool kBf16, int kC, int kMT, bool kX3>
+cudaError_t launch_variant(const float* clusters, const float* weights, const Tower& T,
+                           size_t smem, float* out, int stop, cudaStream_t stream, int* occ) {
+  auto kernel = fused_detect_kernel<kBf16, kC, kMT, kX3>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  fused_detect_kernel<kRound><<<batch, kThreads, smem, stream>>>(
-      clusters, ns, weights, tw, folded, r, inv_r, r2, out);
+  if (occ) {
+    occ[0] = static_cast<int>(smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ + 1, kernel, kThreads, smem);
+  }
+  if (T.batch == 0) return cudaSuccess;
+  kernel<<<(T.batch + kC - 1) / kC, kThreads, smem, stream>>>(clusters, weights, T, out, stop);
   return cudaGetLastError();
+}
+
+// One entry for the launch, the time split, the sweep and the occupancy
+// query (occ given: nothing launched).
+int detect(const float* clusters, int ns, int batch, const float* weights, const int* layers,
+           const int* extra, int n_det, int n_det2, int folded, int bf16, float r, float inv_r,
+           float r2, float* out, int variant, int stop, cudaStream_t stream, int* occ) {
+  if (variant < 0 || variant >= kVariants || stop < 0 || stop > n_det + 3)
+    return cudaErrorInvalidValue;
+  Tower T;
+  const size_t smem =
+      make_tower(&T, kVariant[variant][0], bf16, ns, batch, layers, extra, n_det, n_det2);
+  if (smem == 0) return cudaErrorInvalidValue;
+  T.folded = folded;
+  T.r = r;
+  T.inv_r = inv_r;
+  T.r2 = r2;
+  switch (variant * 2 + (bf16 ? 1 : 0)) {
+#define F3D_VARIANT(V)                                                                      \
+  case 2 * V:                                                                               \
+    return launch_variant<false, kVariant[V][0], kVariant[V][1], kVariant[V][2] == 1>(      \
+        clusters, weights, T, smem, out, stop, stream, occ);                                \
+  case 2 * V + 1:                                                                           \
+    return launch_variant<true, kVariant[V][0], kVariant[V][1], false>(                     \
+        clusters, weights, T, smem, out, stop, stream, occ);
+    F3D_VARIANT(0)
+    F3D_VARIANT(1)
+    F3D_VARIANT(2)
+#undef F3D_VARIANT
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// clusters (batch, ns, 3) f32 origin-centred; weights: flat f32 buffer
-// (kernel matrices rounded to bf16 values under bf16); layers: host int32
-// array of (cin, cout, w, b, mu, mul, beta) per layer in the order
-// detector convs, post convs, attention, orientation (mu = -1: no BN);
-// folded: input times inv_r instead of divided by r; bf16: activations
-// rounded to bf16 as they are produced; out (batch, 3) f32: attention, c, s.
+// clusters (batch, ns, 3) f32 origin-centred; weights: the flat f32 buffer
+// of ops/fused_describe.py:_detect_kernel_weights (kernel matrices rounded
+// to bf16 values under bf16); layers: host int32 array of (cin, cout, w, b,
+// mu, mul, beta) per layer in the order detector convs, post convs,
+// attention, orientation (mu = -1: no BN); extra: host int32 (n, 3), per
+// layer the offsets of its W fragments for the tensor cores (TF32 halves,
+// bf16 pairs under bf16), its column 2-norms (rounded up) and its kernel
+// transposed (the top conv's), -1 where it has none; folded: input times inv_r
+// instead of divided by r;
+// bf16: activations rounded to bf16 as they are produced; out (batch, 3)
+// f32: attention, c, s.
 F3D_EXPORT int f3d_fused_detect(const float* clusters, int ns, int batch,
-                                const float* weights, const int* layers, int n_det,
-                                int n_det2, int folded, int bf16, float r, float inv_r,
-                                float r2, float* out, cudaStream_t stream) {
-  Tower tw;
-  const int n_layers = n_det + n_det2 + 2;
-  if (ns < 1 || ns > kSlots || n_layers > kMaxLayers || n_det < 1)
-    return cudaErrorInvalidValue;
-  tw.n_det = n_det;
-  tw.n_det2 = n_det2;
-  tw.buf_width = 4;
-  for (int i = 0; i < n_layers; ++i) {
-    const int* q = layers + 7 * i;
-    tw.l[i] = Layer{q[0], q[1], q[2], q[3], q[4], q[5], q[6]};
-  }
-  for (int i = 0; i < n_det - 1; ++i)
-    tw.buf_width = tw.buf_width > tw.l[i].cout ? tw.buf_width : tw.l[i].cout;
-  if (batch == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) *
-      (kSlots * 4 + 2 * kSlots + (kThreads / 32) * kVec + 2 * kVec + 4 +
-       2 * static_cast<size_t>(kSlots) * tw.buf_width);
-  return bf16 ? launch<true>(clusters, ns, batch, weights, tw, folded, r, inv_r, r2, out, smem,
-                             stream)
-              : launch<false>(clusters, ns, batch, weights, tw, folded, r, inv_r, r2, out, smem,
-                              stream);
+                                const float* weights, const int* layers, const int* extra,
+                                int n_det, int n_det2, int folded, int bf16, float r,
+                                float inv_r, float r2, float* out, cudaStream_t stream) {
+  return detect(clusters, ns, batch, weights, layers, extra, n_det, n_det2, folded, bf16, r,
+                inv_r, r2, out, 0, 0, stream, nullptr);
+}
+
+// As f3d_fused_detect in variant `variant` (0: the default; see kVariant),
+// leaving each cluster after stage `stop` (1 input and membership, 2 + l
+// per-slot conv l, the top one without its pool, n_det + 2 its candidates
+// listed, n_det + 3 the pool; 0 = all). The time split and the sweep.
+F3D_EXPORT int f3d_fused_detect_split(const float* clusters, int ns, int batch,
+                                      const float* weights, const int* layers, const int* extra,
+                                      int n_det, int n_det2, int folded, int bf16, float r,
+                                      float inv_r, float r2, float* out, int variant, int stop,
+                                      cudaStream_t stream) {
+  return detect(clusters, ns, batch, weights, layers, extra, n_det, n_det2, folded, bf16, r,
+                inv_r, r2, out, variant, stop, stream, nullptr);
+}
+
+// Variant `variant`'s launch on this tower: out = (dynamic shared-memory
+// bytes, blocks per SM).
+F3D_EXPORT int f3d_fused_detect_occupancy(int ns, const int* layers, int n_det, int n_det2,
+                                          int bf16, int variant, int* out) {
+  return detect(nullptr, ns, 1, nullptr, layers, nullptr, n_det, n_det2, 0, bf16, 1.f, 1.f,
+                1.f, nullptr, variant, 0, nullptr, out);
 }

@@ -37,7 +37,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("fps.cu", "ball_query.cu", "fused_describe.cu", "sorted_ball_query.cu",
            "ball_max.cu", "fused_detect.cu", "fused_train.cu")
-HEADERS = ("common.cuh", "slot_layer.cuh")
+HEADERS = ("common.cuh", "slot_layer.cuh", "tc_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libf3d_kernels.so"
@@ -148,11 +148,19 @@ def library() -> ctypes.CDLL:
     # pts4, values, np, hit, nb, block, centers, m, tile, r2, out, stream
     lib.f3d_ball_max.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I, _I, _F, _P, _P]
     lib.f3d_ball_max.restype = _I
-    # clusters, ns, batch, weights, layers (host int32 array), n_det, n_det2,
-    # folded, bf16, r, inv_r, r2, out, stream
-    lib.f3d_fused_detect.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
+    # clusters, ns, batch, weights, layers (host int32 array), extra (host
+    # int32 (n, 3)), n_det, n_det2, folded, bf16, r, inv_r, r2, out, stream
+    lib.f3d_fused_detect.argtypes = [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
                                      _P]
     lib.f3d_fused_detect.restype = _I
+    # as f3d_fused_detect, then the variant and the stage to stop after,
+    # then the stream
+    lib.f3d_fused_detect_split.argtypes = lib.f3d_fused_detect.argtypes[:-1] + [_I, _I, _P]
+    lib.f3d_fused_detect_split.restype = _I
+    # ns, layers, n_det, n_det2, bf16, variant, out (host int32 (2,): smem
+    # bytes, blocks per SM)
+    lib.f3d_fused_detect_occupancy.argtypes = [_I, _P, _I, _I, _I, _I, _P]
+    lib.f3d_fused_detect_occupancy.restype = _I
     # x, ns, gp, g_total, cin0, weights, convs (host int32 (n, 9)), n, nblk,
     # part, stream
     lib.f3d_train_stats.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P]
@@ -251,14 +259,45 @@ def launch_ball_max(pts4, values, hit, block, centers, tile, r2, out) -> None:
             "ball_max")
 
 
-def launch_fused_detect(clusters, weights, layers, n_det, n_det2, folded, bf16, r, inv_r,
-                        r2, out) -> None:
-    """layers: host int32 tensor of (cin, cout, w, b, mu, mul, beta) rows."""
+# K6's stages as csrc/fused_detect.cu numbers them for a detector of
+# n_det per-slot convs: a split launch returns from each cluster after one
+def detect_stops(n_det: int) -> dict:
+    names = ("input",) + tuple(f"conv{i}" for i in range(n_det)) + ("candidates", "pool")
+    return {name: i + 1 for i, name in enumerate(names)}
+
+
+# K6's variants (csrc/fused_detect.cu kVariant: clusters per block, m16
+# tiles per warp tile of the top conv, its product in 1xTF32 (1) or 3xTF32
+# (3) in the f32 modes); 0 is the default, the rest the sweep's
+DETECT_VARIANTS = ((2, 4, 1), (2, 4, 3), (1, 4, 1))
+
+
+def launch_fused_detect(clusters, weights, layers, extra, n_det, n_det2, folded, bf16, r,
+                        inv_r, r2, out, variant: int = 0, stop: Optional[str] = None) -> None:
+    """layers: host int32 tensor of (cin, cout, w, b, mu, mul, beta) rows;
+    extra: host int32 (n, 3) tensor of the layers' fragment, column-norm
+    and transposed-kernel offsets; variant: an index into DETECT_VARIANTS
+    (the sweep);
+    stop: a key of detect_stops(n_det) for the time split (out not
+    written)."""
     b, ns, _ = clusters.shape
+    args = [_ptr(clusters), ns, b, _ptr(weights), _ptr(layers), _ptr(extra), n_det, n_det2,
+            int(folded), int(bf16), r, inv_r, r2, _ptr(out)]
     with torch.cuda.device(clusters.device):
-        check(library().f3d_fused_detect(
-            _ptr(clusters), ns, b, _ptr(weights), _ptr(layers), n_det, n_det2, int(folded),
-            int(bf16), r, inv_r, r2, _ptr(out), _stream(clusters)), "fused_detect")
+        if stop is None and variant == 0:
+            check(library().f3d_fused_detect(*args, _stream(clusters)), "fused_detect")
+        else:
+            check(library().f3d_fused_detect_split(
+                *args, variant, 0 if stop is None else detect_stops(n_det)[stop],
+                _stream(clusters)), "fused_detect_split")
+
+
+def detect_occupancy(ns: int, layers, n_det: int, n_det2: int, bf16: bool, variant: int = 0):
+    """(dynamic shared-memory bytes, blocks per SM) of K6's launch."""
+    out = torch.zeros(2, dtype=torch.int32)
+    check(library().f3d_fused_detect_occupancy(ns, _ptr(layers), n_det, n_det2, int(bf16),
+                                               variant, _ptr(out)), "fused_detect_occupancy")
+    return int(out[0]), int(out[1])
 
 
 def launch_train_stats(x, g_total, wts, convs, nblk, part) -> None:

@@ -10,8 +10,9 @@ FPS, the ball query, the sorted ball query (K4, also on padding, covered
 blocks and a tile that straddles the padding) and the ball max (K5)
 must be index-exact; the fused describe kernel within max |d| 1e-4 and
 attention relative 1e-4, the detector-only kernel (K6) within attention
-relative 1e-5 and orientation 1e-5 rad (f32 products summed in another
-order than the plain version's); their bf16 modes within one bf16 step,
+relative 1e-5 and orientation 1e-5 rad (also at batches that are not a
+multiple of its 2 clusters a block, batch 0 and 16 samples, two runs
+bit-equal); their bf16 modes within one bf16 step,
 as stated at each test; K3's stream body exact and its matmul body within
 1e-5 max|ref|; the training passes K7-K10 within the
 tolerances of tests/test_fused_train.py (means rtol 1e-5, pooled 1e-4,
@@ -248,6 +249,64 @@ def test_fused_detect_modes_match_plain(dev, rs, mode):
         assert within(ak, ok) >= 0.999
         af, of = tfd.fused_detect_clusters(wt, x, cfg, unfolded=True)
         assert within(af, of) < 0.999
+
+
+def _k6_weights(cfg, mode, dev):
+    v = init_variables(cfg, seed=2, bn_perturb=0.1)
+    if mode == "folded":
+        wt, kw = tfd.transpose_folded_weights(tfd.folded_weights(v, cfg)), {}
+    else:
+        wt = tfd.transpose_unfolded_detector(tfd.detector_weights_unfolded(v, cfg))
+        kw = dict(unfolded=True, bf16_operands=mode == "bf16_operands")
+    return [w.to(dev) for w in wt], kw
+
+
+def _k6_held(mode, got, want):
+    """f32 modes: attention relative and orientation within 1e-5 on every
+    centre; bf16_operands: >= 99.9 % of centres within 1e-4."""
+    (ak, ok), (ap, op) = got, want
+    tol = 1e-4 if mode == "bf16_operands" else 1e-5
+    a_rel = (ak - ap).abs() / ap.abs().clamp(min=1e-6)
+    o_err = ((ok - op + np.pi) % (2 * np.pi) - np.pi).abs()
+    share = ((a_rel <= tol) & (o_err <= tol)).float().mean().item() if ak.numel() else 1.0
+    assert share >= (0.999 if mode == "bf16_operands" else 1.0), share
+
+
+@pytest.mark.parametrize("mode", ["unfolded", "folded", "bf16_operands"])
+@pytest.mark.parametrize("batch", [0, 1, 3, 129, 300])
+def test_fused_detect_block_shapes(dev, rs, mode, batch):
+    """K6 runs 2 clusters a block: batches that are not a multiple of that,
+    and batch 0, give the plain version's outputs at the mode's limit, and
+    two runs give the same bits."""
+    cfg = ModelConfig()
+    c = (rs.randn(max(batch, 10), cfg.num_samples, 3) * 1.6).astype(np.float32)
+    c[5] += 30.0                                   # empty ball -> nearest fallback
+    c[7, 32:] = c[7, :32]                          # repeat-padded duplicates
+    c[9, 32:] += 30.0                              # partial ball
+    x = torch.from_numpy(c[:batch].copy()).to(dev)
+    wt, kw = _k6_weights(cfg, mode, dev)
+    got = tfd.fused_detect_clusters(wt, x, cfg, **kw)
+    again = tfd.fused_detect_clusters(wt, x, cfg, **kw)
+    want = tfd.fused_detect_clusters_plain(wt, x, cfg, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (batch,) and got[1].shape == (batch,)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    _k6_held(mode, got, want)
+
+
+@pytest.mark.parametrize("mode", ["unfolded", "folded", "bf16_operands"])
+def test_fused_detect_few_samples(dev, rs, mode):
+    """num_samples 16 < 64: the pad slots take no part."""
+    cfg = ModelConfig(num_samples=16)
+    c = (rs.randn(131, 16, 3) * 1.6).astype(np.float32)
+    c[5] += 30.0
+    c[7, 8:] = c[7, :8]
+    x = torch.from_numpy(c).to(dev)
+    wt, kw = _k6_weights(cfg, mode, dev)
+    got = tfd.fused_detect_clusters(wt, x, cfg, **kw)
+    want = tfd.fused_detect_clusters_plain(wt, x, cfg, **kw)
+    torch.cuda.synchronize()
+    _k6_held(mode, got, want)
 
 
 def _tower_case(rs, dev, plan_kind, g_total, gp, ns=16):

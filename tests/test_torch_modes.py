@@ -239,11 +239,10 @@ def test_k6_mode_arguments_are_checked(rng):
             fn(unf, x, cfg)                      # an unfolded list in the folded mode
         with pytest.raises(ValueError, match="weight tensors"):
             fn(fol, x, cfg, unfolded=True)
-    flat, table = tfd._detect_kernel_weights(fol, cfg, torch.device("cpu"), unfolded=False)
+    flat, table, _ = tfd._detect_kernel_weights(fol, cfg, torch.device("cpu"), unfolded=False)
     assert (table[:, 4:] == -1).all() and table.shape == (5, 7)
-    _, table_bf = tfd._detect_kernel_weights(unf, cfg, torch.device("cpu"), unfolded=True,
-                                             bf16=True)
-    bf, _ = tfd._detect_kernel_weights(unf, cfg, torch.device("cpu"), unfolded=True, bf16=True)
+    bf, table_bf, _ = tfd._detect_kernel_weights(unf, cfg, torch.device("cpu"), unfolded=True,
+                                                 bf16=True)
     for cin, cout, w_off, *_ in table_bf.tolist():
         w = bf[w_off:w_off + cin * cout]
         assert torch.equal(w, w.to(torch.bfloat16).float())

@@ -8,11 +8,8 @@ hi = tf32(v) (cvt.rna: round to nearest, ties away from zero, to 10
 mantissa bits) and lo = tf32(v - hi); each 8-deep block of the product
 sums lo·hi, then hi·lo, then hi·hi into fresh f32 accumulators (the small
 terms first; lo·lo is dropped), which are added to the running sums with
-__fadd_rn; the bias is added after the product. `tf32x3_matmul` emulates
-that: a product of two TF32 values is exact in f32, an mma's eight are
-summed in float64 onto its accumulator, and the result is rounded toward
-zero to f32 (the tensor cores truncate in alignment: the pessimistic
-model), the block sums then added rounding to nearest.
+__fadd_rn; the bias is added after the product. `tf32x3_matmul`
+(tests/tf32_emulation.py, shared with the K6 emulation) emulates that.
 
 The towers run at the paper widths (detector 3-64-128-256, descriptor
 3-32-64 | poolcat | 128) on 256 clusters of 64 slots, the first 64 with
@@ -29,36 +26,11 @@ import jax.numpy as jnp
 
 from feat3dnet_tpu.ops import fused_train as jft
 from feat3dnet_tpu_torch.ops import fused_train as tft
+from tests.tf32_emulation import round_toward_zero, tf32_rna, tf32x3_matmul
 
 NS, G, TIED, EPS = 64, 256, 64, 1e-3
 TOWERS = {"detector": (tft.detector_plan(3), (64, 128, 256)),
           "descriptor": (tft.descriptor_plan(2, 1), (32, 64, 128))}
-
-
-def tf32_rna(v: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32 on the f32 bit pattern: add half of the 13 dropped
-    bits' weight to the magnitude, then clear them."""
-    return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def round_toward_zero(v: torch.Tensor) -> torch.Tensor:
-    """float64 -> float32, rounded toward zero."""
-    f = v.float()
-    return torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
-
-
-def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (R, K) @ b (K, N) in f32 as the recompute's tc_product sums it."""
-    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
-    a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
-    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
-    for k0 in range(0, a.shape[1], 8):
-        k = slice(k0, k0 + 8)
-        blk = torch.zeros_like(acc)
-        for p, q in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
-            blk = round_toward_zero(blk.double() + p[:, k].double() @ q[k].double())
-        acc = acc + blk
-    return acc
 
 
 def test_tf32_split_and_rounding():
