@@ -29,8 +29,8 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      the whole wrapper, in turns); per cloud and K6 mode, K6's shared
      memory and blocks per SM, its time split (fused_detect_time_split:
      the weight packing, the kernel leaving each cluster after each stage,
-     the kernel alone, the whole wrapper, in turns) and its variant sweep
-     (clusters a block, the top conv's warp tile);
+     the kernel alone, the whole wrapper on weights packed once, in turns)
+     and the pool's candidates it re-sums;
   6. drives the extraction path with launch counters reset:
      InferencePipeline.extract on the five clouds, default route and
      use_fused_detector, then process_directory over examples/data; K3-K6
@@ -103,7 +103,8 @@ K6 and K6's SASS counts; in phase 5 it holds the parent's K4 bit-equal to
 this one on every centre of every cloud, padding centres included, and
 times both in turns (the split of each), and holds the parent's K6 to
 this one in each mode (within 1e-5; bf16_operands >= 99.9 % within 1e-4),
-timed in turns with the split of each tree that has it; at the end of phase
+each tree on the weights it packs itself, timed in turns with the split of
+each tree that has it; at the end of phase
 12 it holds K7-K10 against the parent's on phase 9's inputs (parent_ab:
 ptxas lines of both; K8's pooled and K9's sums equal to the parent's, K7
 and K10 at phase 9's tolerances; each timed in turns; and, where the
@@ -112,7 +113,8 @@ It writes only under build/ in the checkout.
 The line before last is a JSON summary of the sixteen kernel entries (K1-K10
 and K3's and K6's extra modes: times, their bounds from this run's shapes at
 the H100's f32 (bf16 modes: bf16 tensor-core; K7-K10's products and K6's
-top conv: TF32 tensor-core, or bf16 in bf16_operands) and HBM peaks,
+per-slot convs at least 8 wide: TF32 tensor-core; K6 bf16_operands: all
+bf16 tensor-core) and HBM peaks,
 launches on their path); the last line is
 {"ok": true, "device": {...}}. Any failure
 raises (non-zero exit). It needs a CUDA device and refuses to run without
@@ -357,29 +359,58 @@ def k4_counts(sc, ctr, tile=256, chunk=4096):
                 (tests_tile[~real_tiles[tile_of]].sum() / tests_tile.sum()).item()}
 
 
+@functools.lru_cache(maxsize=None)
+def other_fused_describe(csrc):
+    """Another tree's ops/fused_describe.py (beside its csrc/), loaded under
+    a name of its own, for its own K6 weight packing."""
+    import importlib.util
+    import re
+
+    path = os.path.join(os.path.dirname(os.path.abspath(csrc)), "ops", "fused_describe.py")
+    spec = importlib.util.spec_from_file_location(re.sub(r"\W", "_", path), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def detect_pack(csrc, w, cfg, device, unfolded, bf16):
+    """K6's weights as a tree (None: this one; else its csrc/) packs them
+    for its own K6, as the arguments of this tree's launch: a tree whose K6
+    takes no offsets of tensor-core fragments (K6's FFMA design) gets an
+    empty offset table, which other_library drops."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+
+    mod = other_fused_describe(csrc) if csrc else fd
+    packed = tuple(mod._detect_kernel_weights(w, cfg, device, unfolded, bf16=bf16))
+    return packed if len(packed) == 3 else (*packed, torch.zeros((0, 2), dtype=torch.int32))
+
+
 def fused_detect_time_split(w, offs, cfg, kw, trees, reps):
     """K6's time split on clusters `offs` in one mode (kw: the wrapper's
     unfolded / bf16_operands), ms per call (CUDA events, `reps`
-    back-to-back calls, in turns): the wrapper's weight packing alone
+    back-to-back calls, in turns): this tree's weight packing alone
     (`_detect_kernel_weights`); per tree (`trees` maps a tag to None for
-    this one or to another tree's csrc/) the kernel alone on packed
-    weights, the kernel leaving each cluster after each stage where the
-    tree has the split entry (kernels.detect_stops: input and membership,
-    each per-slot conv, the pool's candidates marked, the pool; the rest
-    is the post convs and heads), and the whole wrapper."""
+    this one or to another tree's csrc/) the kernel alone on the weights
+    that tree packs, the kernel leaving each cluster after each stage where
+    the tree has the split entry (kernels.detect_stops: input and
+    membership, each per-slot conv, the pool's candidates marked, the pool;
+    the rest is the post convs and heads), and the whole wrapper on those
+    packed weights, as the pipeline calls it."""
     import torch
 
     from feat3dnet_tpu_torch import kernels
     from feat3dnet_tpu_torch.ops import fused_describe as fd
 
     unf, bf16 = kw.get("unfolded", False), kw.get("bf16_operands", False)
-    packed = fd._detect_kernel_weights(w, cfg, offs.device, unf, bf16=bf16)
     out = torch.empty((offs.shape[0], 3), device=offs.device)
     runs = {"pack": lambda: fd._detect_kernel_weights(w, cfg, offs.device, unf, bf16=bf16)}
     for tag, csrc in trees.items():
         def within(fn, csrc=csrc):
             with kernels_from(csrc) if csrc else contextlib.nullcontext():
                 fn()
+        packed = detect_pack(csrc, w, cfg, offs.device, unf, bf16)
         stops = kernels.detect_stops(len(cfg.detector_mlp))
         lib = other_library(csrc) if csrc else kernels.library()
         for stop in ((*stops, None) if hasattr(lib, "f3d_fused_detect_split") else (None,)):
@@ -387,7 +418,7 @@ def fused_detect_time_split(w, offs, cfg, kw, trees, reps):
                 within, functools.partial(fd._launch_detect, offs, packed, cfg, unf, bf16, out,
                                           stop=stop))
         runs[f"{tag} whole"] = functools.partial(
-            within, functools.partial(fd.fused_detect_clusters, w, offs, cfg, **kw))
+            within, functools.partial(fd.fused_detect_clusters, w, offs, cfg, packed=packed, **kw))
     return ms_in_turns(runs, reps)
 
 
@@ -400,14 +431,12 @@ def detect_occupancy_line(tag, w, cfg, kw, ns, csrc=None):
     lib = other_library(csrc) if csrc else kernels.library()
     if not hasattr(lib, "f3d_fused_detect_occupancy"):
         return
+    unf, bf16 = kw.get("unfolded", False), kw.get("bf16_operands", False)
     with kernels_from(csrc) if csrc else contextlib.nullcontext():
-        packed = fd._detect_kernel_weights(w, cfg, "cpu", kw.get("unfolded", False),
-                                           bf16=kw.get("bf16_operands", False))
-        smem, blocks = kernels.detect_occupancy(ns, packed[1], len(cfg.detector_mlp),
-                                                len(cfg.detector_mlp2),
-                                                kw.get("bf16_operands", False))
-    mode = fd._detect_mode(kw.get("unfolded", False), kw.get("bf16_operands", False))
-    print(f"  occupancy ({tag}): fused_detect {mode}: {smem} B, "
+        layers = detect_pack(csrc, w, cfg, "cpu", unf, bf16)[1]
+        smem, blocks = kernels.detect_occupancy(ns, layers, len(cfg.detector_mlp),
+                                                len(cfg.detector_mlp2), bf16)
+    print(f"  occupancy ({tag}): fused_detect {fd._detect_mode(unf, bf16)}: {smem} B, "
           f"{blocks} blocks/SM")
 
 
@@ -505,33 +534,39 @@ def k6_share_within(att, ori, att_p, ori_p, tol):
 
 
 def k6_bound(cfg, m, moved, bf16):
-    """K6's bound on m clusters: the top per-slot conv's products on the
-    tensor cores at their type's peak (TF32; bf16 under bf16_operands), the
-    rest (conv 0, the per-slot convs below the top one, the post convs and
-    heads) at the f32 peak, against the bytes moved; and, beside it, the
+    """K6's bound on m clusters, priced by the function and not by the
+    kernel's choice of unit: in the f32 modes the per-slot convs at least 8
+    wide at the TF32 peak and the rest (conv 0, the post convs, the heads)
+    at the f32 peak; under bf16_operands, where every product takes bf16
+    operands, all at the bf16 peak; against the bytes moved. Beside it, the
     bound with every product at the f32 peak."""
     widths = (3,) + tuple(cfg.detector_mlp)
-    top = cfg.num_samples * widths[-2] * widths[-1]
-    rest = tower_macs(cfg, descriptor=False) - top
-    t_ops = (2.0 * top / (PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS)
-             + 2.0 * rest / PEAK_F32_FLOPS) * m * 1e3
+    wide = cfg.num_samples * sum(a * b for a, b in zip(widths, widths[1:]) if a >= 8)
+    total = tower_macs(cfg, descriptor=False)
+    if bf16:
+        t_ops = 2.0 * total / PEAK_BF16_FLOPS * m * 1e3
+    else:
+        t_ops = (2.0 * wide / PEAK_TF32_FLOPS + 2.0 * (total - wide) / PEAK_F32_FLOPS) * m * 1e3
     t_mem = moved / PEAK_HBM_BYTES * 1e3
     return (((t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")),
-            bound_ms(2.0 * tower_macs(cfg, descriptor=False) * m, moved))
+            bound_ms(2.0 * total * m, moved))
+
+
+# clusters per block of K6's launch (csrc/fused_detect.cu kC)
+K6_CLUSTERS_PER_BLOCK = 2
 
 
 def k6_step(card, name, offs, weights, cfg, parent):
     """Step 0 of K6's redesign and, with a parent tree (its csrc/), K6
     against it, in each mode: each tree's occupancy line, the time split of
     each tree in turns (fused_detect_time_split: the parent's and this
-    kernel alone in turns), this tree's variants (kernels.DETECT_VARIANTS:
-    clusters per block, the top conv's warp tile) in turns with their
-    occupancy, and the parent's outputs held to this tree's within the
-    mode's limit (f32 modes: attention relative and orientation 1e-5 on
-    every centre; bf16_operands: >= 99.9 % of centres within 1e-4)."""
+    kernel alone in turns), the pool's candidates this tree's kernel
+    re-sums, and the parent's outputs (on the weights it packs itself) held
+    to this tree's within the mode's limit (f32 modes: attention relative
+    and orientation 1e-5 on every centre; bf16_operands: >= 99.9 % of
+    centres within 1e-4)."""
     import torch
 
-    from feat3dnet_tpu_torch import kernels
     from feat3dnet_tpu_torch.ops import fused_describe as fd
 
     trees = {"this": None} if parent is None else {"parent": parent, "this": None}
@@ -548,26 +583,16 @@ def k6_step(card, name, offs, weights, cfg, parent):
         # the pool's work: its candidates, counted per block by the
         # candidates stage (kernels.detect_stops)
         fd._launch_detect(offs, packed, cfg, unf, bf16, out, stop="candidates")
-        nblk = -(-offs.shape[0] // kernels.DETECT_VARIANTS[0][0])
-        per = out.view(-1)[:nblk] / (kernels.DETECT_VARIANTS[0][0] * cfg.detector_mlp[-1])
+        nblk = -(-offs.shape[0] // K6_CLUSTERS_PER_BLOCK)
+        per = out.view(-1)[:nblk] / (K6_CLUSTERS_PER_BLOCK * cfg.detector_mlp[-1])
         print(f"  fused_detect {mode} {name}: pool candidates per cluster and channel mean "
               f"{per.mean().item():.4f}, a block's max {per.max().item():.4f}")
-        variants = kernels.DETECT_VARIANTS
-        sweep = ms_in_turns({v: functools.partial(fd._launch_detect, offs, packed, cfg, unf, bf16,
-                                                  out, variant=v)
-                             for v in range(len(variants))}, 2)
-        print(f"[{card}] fused_detect {mode} {name} sweep (clusters per block, m16 tiles, "
-              f"TF32 passes): " +
-              "; ".join("{} {:.4f} ms ({} B, {} blocks/SM)".format(
-                  variants[v], ms, *kernels.detect_occupancy(offs.shape[1], packed[1],
-                                                             len(cfg.detector_mlp),
-                                                             len(cfg.detector_mlp2), bf16, v))
-                  for v, ms in sweep.items()))
         if parent is None:
             continue
-        att, ori = fd.fused_detect_clusters(w, offs, cfg, **kw)
+        att, ori = fd.fused_detect_clusters(w, offs, cfg, packed=packed, **kw)
         with kernels_from(parent):
-            att_p, ori_p = fd.fused_detect_clusters(w, offs, cfg, **kw)
+            att_p, ori_p = fd.fused_detect_clusters(
+                w, offs, cfg, packed=detect_pack(parent, w, cfg, offs.device, unf, bf16), **kw)
         same = bool(torch.equal(att, att_p) and torch.equal(ori, ori_p))
         if mode == "bf16_operands":
             share = k6_share_within(att, ori, att_p, ori_p, 1e-4)
@@ -613,6 +638,7 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
         fd.detector_weights_unfolded(variables, cfg))]
     w_fold = [w.to(dev) for w in fd.transpose_folded_weights(fd.folded_weights(variables, cfg))]
     k6_weights = {"unfolded": w_det, "folded": w_fold, "bf16_operands": w_det}
+    pk_det = fd._detect_kernel_weights(w_det, cfg, dev, unfolded=True)   # packed once
     report = {"sorted_ball_query": {"max_abs_err": 0}, "ball_max": {"max_abs_err": 0},
               "fused_detect": {"max_abs_err": 0.0}}
     times = {k: [] for k in report}
@@ -668,7 +694,8 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
                      lambda: hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, RADIUS, NS, tile=256),
                      lambda: hg.sorted_ball_query_plain(sc.pts4, ctr, RADIUS, NS), 5, 1),
                     ("fused_detect",
-                     lambda: fd.fused_detect_clusters(w_det, offs, cfg, unfolded=True),
+                     lambda: fd.fused_detect_clusters(w_det, offs, cfg, unfolded=True,
+                                                      packed=pk_det),
                      lambda: fd.fused_detect_clusters_plain(w_det, offs, cfg, unfolded=True),
                      3, 2),
                     ("ball_max", lambda: hg.ball_max_sorted(sc.pts4, sc.blk_bbox, att_k, NMS_RADIUS),
@@ -1315,11 +1342,10 @@ def other_library(csrc):
     """This tree's entry points, but the training passes' (f3d_train_*) and
     K6's (f3d_fused_detect*) from another tree's csrc/, built alone; one the
     other tree lacks is left undefined. The training passes are declared as
-    this tree's are. K6's are called with this tree's arguments: a tree
-    whose f3d_fused_detect takes no offsets of the tensor-core fragments
-    (K6's FFMA design) gets the same call without them (and, in its split
-    and occupancy entries, without the variant); its weight buffer is the
-    head of this tree's."""
+    this tree's are. K6's are called with this tree's arguments and the
+    weights that tree packs itself (detect_pack): a tree whose K6 takes no
+    offsets of tensor-core fragments (K6's FFMA design) gets the same call
+    without them."""
     import ctypes
     import types
 
@@ -1343,21 +1369,13 @@ def other_library(csrc):
             continue
         fn, ref = getattr(theirs, name), getattr(mine, name)
         fn.restype = ctypes.c_int
-        if not ffma:
+        if not ffma or name == "f3d_fused_detect_occupancy":
             fn.argtypes = ref.argtypes
             setattr(lib, name, fn)
-            continue
-        if name == "f3d_fused_detect_occupancy":
-            # ns, layers, n_det, n_det2, bf16 | variant | out
+        else:
+            # clusters, ns, batch, weights, layers | extra | n_det ...
             fn.argtypes = ref.argtypes[:5] + ref.argtypes[6:]
             setattr(lib, name, lambda *a, fn=fn: fn(*a[:5], *a[6:]))
-        else:
-            # clusters, ns, batch, weights, layers | extra | n_det ... out
-            # | variant (split) | stop, stream
-            cut = (5,) + ((14,) if name == "f3d_fused_detect_split" else ())
-            fn.argtypes = [t for i, t in enumerate(ref.argtypes) if i not in cut]
-            setattr(lib, name, lambda *a, fn=fn, cut=cut: fn(
-                *[v for i, v in enumerate(a) if i not in cut]))
     return lib
 
 
@@ -1944,6 +1962,11 @@ def detector_mode_phase(dev, card, clouds, npz_path):
     w_fold = [w.to(dev) for w in fd.transpose_folded_weights(fd.folded_weights(variables, cfg))]
     modes = {"folded": (w_fold, {}),
              "bf16_operands": (w_unf, {"unfolded": True, "bf16_operands": True})}
+    # each mode's weights packed once, as the pipeline packs them
+    packs = {m: fd._detect_kernel_weights(w, cfg, dev, kw.get("unfolded", False),
+                                          bf16=kw.get("bf16_operands", False))
+             for m, (w, kw) in modes.items()}
+    pk_unf = fd._detect_kernel_weights(w_unf, cfg, dev, unfolded=True)
     names = {"folded": "fused_detect_folded", "bf16_operands": "fused_detect_bf16_operands"}
     k6 = fd.fused_detect_clusters
     report = {n: {"max_abs_err": 0.0} for n in names.values()}
@@ -1954,7 +1977,8 @@ def detector_mode_phase(dev, card, clouds, npz_path):
             cases[name] = (offs, sl, ctr[:, 0] < 5e8)
         # the path: both modes on every cloud's clusters, counters from zero
         k6.mode_launches.update(dict.fromkeys(k6.mode_launches, 0))
-        outs = {name: {m: k6(w, offs, cfg, **kw) for m, (w, kw) in modes.items()}
+        outs = {name: {m: k6(w, offs, cfg, packed=packs[m], **kw)
+                       for m, (w, kw) in modes.items()}
                 for name, (offs, _, _) in cases.items()}
         torch.cuda.synchronize()
         launches = {names[m]: k6.mode_launches[m] for m in modes}
@@ -1964,7 +1988,7 @@ def detector_mode_phase(dev, card, clouds, npz_path):
         times = {m: [] for m in modes}
         bounds = {m: [] for m in modes}
         for name, (offs, sl, real) in cases.items():
-            att_u, ori_u = k6(w_unf, offs, cfg, unfolded=True)
+            att_u, ori_u = k6(w_unf, offs, cfg, unfolded=True, packed=pk_unf)
             line = []
             for m, (w, kw) in modes.items():
                 att_k, ori_k = outs[name][m]
@@ -2004,15 +2028,16 @@ def detector_mode_phase(dev, card, clouds, npz_path):
             if offs.shape[0] <= FULL_CHECK:
                 ms = {}
                 for m, (w, kw) in modes.items():
-                    ms[m] = in_turns(lambda w=w, kw=kw: k6(w, offs, cfg, **kw),
+                    ms[m] = in_turns(lambda w=w, m=m, kw=kw: k6(w, offs, cfg, packed=packs[m],
+                                                                **kw),
                                      lambda w=w, kw=kw: fd.fused_detect_clusters_plain(
                                          w, offs, cfg, **kw), 3, 2)
                     times[m].append(ms[m])
                     moved = nbytes(offs, *w) + offs.shape[0] * 8
                     bounds[m].append(k6_bound(cfg, offs.shape[0], moved,
                                               m == "bf16_operands")[0])
-                ms_u, _ = in_turns(lambda: k6(w_unf, offs, cfg, unfolded=True),
-                                   lambda: k6(w_fold, offs, cfg), 3, 3)
+                ms_u, _ = in_turns(lambda: k6(w_unf, offs, cfg, unfolded=True, packed=pk_unf),
+                                   lambda: k6(w_fold, offs, cfg, packed=packs["folded"]), 3, 3)
                 print(f"[{card}] K6 modes {name} M={offs.shape[0]}: folded {ms['folded'][0]:.4f} "
                       f"ms (plain {ms['folded'][1]:.4f}), bf16_operands "
                       f"{ms['bf16_operands'][0]:.4f} ms (plain {ms['bf16_operands'][1]:.4f}), "

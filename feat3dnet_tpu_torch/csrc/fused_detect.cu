@@ -43,26 +43,26 @@
 // sums, bit for bit, and the tensor cores only decide which sums to do:
 // - The top per-slot conv runs on the tensor cores (tc_mma.cuh, shared
 //   with K7-K10): f32 modes mma.sync m16n8k8 on operands rounded to TF32
-//   (A through ldmatrix; 1xTF32 beat 3xTF32 in the sweep), bf16_operands
-//   m16n8k16 on its bf16 operands. Its output is never stored. Per tile
-//   and channel, the rows whose value can be the pool's maximum (within a
-//   slack that bounds the two sums' difference, from the row and column
-//   norms) are marked, and after the product a thread per channel sums its
-//   marked rows as k-order fmaf chains, W's column read coalesced across
-//   the warp; the pool is the largest (on the vendored clouds 1.0-1.6 rows
-//   per cluster and channel). Rows repeating slot 0 (a ball query's
+//   (1xTF32, A through ldmatrix: 3xTF32's fewer candidates did not pay for
+//   its three products), bf16_operands m16n8k16 on its bf16 operands. Its
+//   output is never stored. Per tile and channel, the rows whose value can
+//   be the pool's maximum (within a slack that bounds the two sums'
+//   difference, from the row and column norms) are marked, and after the
+//   product a thread per channel sums its marked rows as k-order fmaf
+//   chains, W's column read coalesced across the warp; the pool is the
+//   largest (on the vendored clouds 1.0-1.6 rows per cluster and channel). Rows repeating slot 0 (a ball query's
 //   padding) are never marked: their sums are slot 0's.
 // - Conv 0 (3 wide) and the per-slot convs below the top one stay on the
 //   CUDA cores in k order: conv 0 an fmaf chain per output, the others
 //   f3d::slot_layer (the register-tiled FFMA layer K3 shares).
-// - kC clusters per block of 8 warps (2: 128 slot rows). A warp tile of the
-//   top conv is 16 kMT rows of one cluster by 16 or 32 channels; the tiles
-//   go out row tile first, so warps that load a W fragment at about the
-//   same time load the same one (L1 serves the rest).
-// - W's fragments are laid out by the wrapper ahead of the call, rounded
-//   to TF32 once per call (hi and lo halves, for the 3xTF32 variant): one
-//   load per lane per 8 x 8 block, the next k step's loaded while this
-//   one's products run.
+// - kC = 2 clusters per block of 8 warps (128 slot rows; one cluster a
+//   block was slower). A warp tile of the top conv is 64 rows of one
+//   cluster by 16 channels; the tiles go out row tile first, so warps that
+//   load a W fragment at about the same time load the same one (L1 serves
+//   the rest).
+// - W's fragments are laid out by the wrapper once per weight list,
+//   rounded to TF32 (or as bf16 pairs): one 8-byte load per lane per mma's
+//   B operand, the next k step's loaded while this one's products run.
 // - The post convs and heads run once over the block's clusters: a thread
 //   per channel keeps the kC clusters' fmaf chains (W loaded once for all,
 //   32 deep ahead); a head output is one thread's chain.
@@ -82,7 +82,7 @@ constexpr int kSlots = 64;          // slots per cluster, padded (ns <= 64)
 constexpr int kMaxC = 256;          // widest conv
 constexpr int kMaxLayers = 12;
 
-struct Layer { int cin, cout, w, b, mu, mul, beta, frag, wnorm, wt; };   // offsets; -1 = none
+struct Layer { int cin, cout, w, b, mu, mul, beta, frag, wnorm; };   // offsets; -1 = none
 struct Tower {
   int n_det, n_det2, ns, batch, folded;
   float r, inv_r, r2;
@@ -91,12 +91,9 @@ struct Tower {
   Layer l[kMaxLayers];
 };
 
-// The kernel's variants: clusters per block, the top conv's warp tile (kMT
-// m16 tiles by 8 / kMT n8 tiles), and in the f32 modes its product in
-// 1xTF32 (0) or 3xTF32 (1); variant 0 is the default, the others are for
-// the sweep in chip_smoke.py. bf16_operands runs its bf16 product in all.
-constexpr int kVariants = 3;
-constexpr int kVariant[kVariants][3] = {{2, 4, 0}, {2, 4, 1}, {1, 4, 0}};
+constexpr int kC = 2;               // clusters per block
+constexpr int kMT = 4;              // the top conv's warp tile: kMT m16 tiles by 8 / kMT n8 tiles
+constexpr int kRows = kC * kSlots;
 
 // Ball membership of one cluster's 64 slots, as f3d::tower_membership, for
 // the warp whose lane is `lane`: d2 < r2, and an empty ball keeps the FIRST
@@ -157,12 +154,12 @@ struct SlotEpi {
   }
 };
 
-// acc[c] += sum_k x[c * kMaxC + k] W[k * stride] over k < cin, one fmaf
+// acc[c] += sum_k x[c * kMaxC + k] W[k * stride] (c < kN) over k < cin, one fmaf
 // chain in k order per c; W's column read 32 deep ahead of its products
 // (the chain waits on no load but the first of each slice).
-template <int kC>
+template <int kN>
 __device__ __forceinline__ void column_chains(const float* x, const float* __restrict__ W,
-                                              int stride, int cin, float (&acc)[kC]) {
+                                              int stride, int cin, float (&acc)[kN]) {
   int k0 = 0;
   for (; k0 + 32 <= cin; k0 += 32) {
     float w[32];
@@ -171,12 +168,12 @@ __device__ __forceinline__ void column_chains(const float* x, const float* __res
 #pragma unroll
     for (int q = 0; q < 32; ++q)
 #pragma unroll
-      for (int c = 0; c < kC; ++c) acc[c] = fmaf(x[c * kMaxC + k0 + q], w[q], acc[c]);
+      for (int c = 0; c < kN; ++c) acc[c] = fmaf(x[c * kMaxC + k0 + q], w[q], acc[c]);
   }
   for (; k0 < cin; ++k0) {
     const float wv = __ldg(W + k0 * stride);
 #pragma unroll
-    for (int c = 0; c < kC; ++c) acc[c] = fmaf(x[c * kMaxC + k0], wv, acc[c]);
+    for (int c = 0; c < kN; ++c) acc[c] = fmaf(x[c * kMaxC + k0], wv, acc[c]);
   }
 }
 
@@ -192,17 +189,18 @@ __device__ __forceinline__ float2 slack_coefs(const Chan& ch, bool bn, float rel
                      rel * (mul * (fabsf(ch.b) + fabsf(ch.mu)) + fabsf(ch.beta)) + 1e-30f);
 }
 
-// rel for a product over K = cin terms, relative to sum_k |h_k W_kc|: the
-// chain's K roundings (K 2^-24); 1xTF32: each operand rounded to TF32,
-// within 2^-11 of its value (a product within 2^-10 + 2^-22), K / 8
-// truncations of 2^-23; 3xTF32: the split's residue (~3 2^-22), 3 K / 8
-// truncations;
-// bf16: exact products, K / 16 truncations. Twice the sum.
-__device__ __forceinline__ float tower_rel(bool bf16, bool x3, int cin) {
+// rel for a product over K = cin terms, relative to S = sum_k |h_k W_kc|:
+// the chain's K roundings (K 2^-24); the tensor cores' sums: an mma of kk
+// products aligns its kk + 1 addends (the accumulator too) to the largest
+// before it sums them, truncating each by up to 2^-23 of the largest
+// (<= S), then truncates the sum the same way: K / kk mmas of kk + 2
+// truncations; 1xTF32 (kk 8): also each operand rounded to TF32, within
+// 2^-11 of its value (a product within 2^-10 + 2^-22); bf16 (kk 16): exact
+// products. Twice the sum.
+__device__ __forceinline__ float tower_rel(bool bf16, int cin) {
   const float chain = 5.97e-8f * cin;
-  if (bf16) return 2.f * (chain + 7.46e-9f * cin + 1e-7f);
-  if (x3) return 2.f * (chain + 4.48e-8f * cin + 7.2e-7f);
-  return 2.f * (chain + 1.49e-8f * cin + 9.8e-4f);
+  if (bf16) return 2.f * (chain + 1.1921e-7f * (cin / 16) * 18 + 1e-7f);
+  return 2.f * (chain + 1.1921e-7f * (cin / 8) * 10 + 9.8e-4f);
 }
 
 // The top conv's pool of channel n in every cluster of the block, as the
@@ -212,7 +210,7 @@ __device__ __forceinline__ float tower_rel(bool bf16, bool x3, int cin) {
 // the warp's lanes on consecutive channels, coalesced, 32 deep at a time
 // (cin % 32 == 0). pooled[c] = 0 where cluster c has no candidate (all
 // below 0: ReLU).
-template <bool kBf16, int kC>
+template <bool kBf16>
 __device__ __forceinline__ void pool_sum(const Layer& L, const float* __restrict__ wts,
                                          const float* in, int in_ld, int n,
                                          unsigned long long (&rows)[kC], float (&pooled)[kC]) {
@@ -282,28 +280,41 @@ __device__ __forceinline__ void pool_sum(const Layer& L, const float* __restrict
 // split's stages): 0 stops after the products and their bias and BN, 1
 // after the marks (their count added to *count), 2 runs everything. Ends
 // synced.
-template <bool kBf16, int kC, int kMT, bool kX3>
+template <bool kBf16>
 __device__ __forceinline__ void top_conv_pool(const Layer& L, const float* __restrict__ wts,
                                               const float* in, int in_ld, const float* mask,
                                               const int* dup, const float* hnorm, float* pooled,
                                               unsigned* rowmask, int* count, int phase) {
   const bool pool_on = phase > 0;
   constexpr int NT = 8 / kMT;
-  constexpr int kTilesM = kC * kSlots / (16 * kMT);
+  constexpr int kTilesM = kRows / (16 * kMT);
   constexpr int kK = kBf16 ? 16 : 8;            // k per mma step
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int cin = L.cin, cout = L.cout, nb_n = cout / 8;
   const bool bn = L.mu >= 0;
-  const float rel = tower_rel(kBf16, kX3, cin);
+  const float rel = tower_rel(kBf16, cin);
   const int tiles = kTilesM * (cout / (8 * NT));
   for (int tile = threadIdx.x >> 5; tile < tiles; tile += kWarps) {
     const int m0 = tile % kTilesM * 16 * kMT, n0 = tile / kTilesM * 8 * NT;
     float acc[kMT][NT][4];
-    if constexpr (kBf16) {
-      const uint2* F = reinterpret_cast<const uint2*>(wts + L.frag) + (n0 / 8) * 32 + lane;
-      uint2 nxt[NT];
+    // B: one 8-byte fragment per lane per mma (kK x 8 block), the blocks k
+    // major; the next k step's loaded while this one's products run
+    const uint2* F = reinterpret_cast<const uint2*>(wts + L.frag) + (n0 / 8) * 32 + lane;
+    uint2 nxt[NT];
 #pragma unroll
-      for (int q = 0; q < NT; ++q) nxt[q] = __ldg(F + q * 32);
+    for (int q = 0; q < NT; ++q) nxt[q] = __ldg(F + q * 32);
+    const auto fb = [&](int k0, uint32_t (&b)[NT][2]) {
+#pragma unroll
+      for (int q = 0; q < NT; ++q) {
+        b[q][0] = nxt[q].x;
+        b[q][1] = nxt[q].y;
+      }
+      if (k0 + kK < cin)
+#pragma unroll
+        for (int q = 0; q < NT; ++q)
+          nxt[q] = __ldg(F + (static_cast<size_t>(k0 / kK + 1) * nb_n + q) * 32);
+    };
+    if constexpr (kBf16)
       f3d::tc_tile_bf16<false, kMT, NT>(
           m0, cin,
           [&](int m, int k) {   // bf16 values stored as f32: the pair converts exactly
@@ -311,63 +322,10 @@ __device__ __forceinline__ void top_conv_pool(const Layer& L, const float* __res
             const __nv_bfloat162 p = __floats2bfloat162_rn(v.x, v.y);
             return *reinterpret_cast<const uint32_t*>(&p);
           },
-          [&](int k0, uint32_t (&b)[NT][2]) {
-#pragma unroll
-            for (int q = 0; q < NT; ++q) {
-              b[q][0] = nxt[q].x;
-              b[q][1] = nxt[q].y;
-            }
-            if (k0 + kK < cin)
-#pragma unroll
-              for (int q = 0; q < NT; ++q)
-                nxt[q] = __ldg(F + (static_cast<size_t>(k0 / kK + 1) * nb_n + q) * 32);
-          },
-          acc);
-    } else if constexpr (kX3) {
-      const uint4* F = reinterpret_cast<const uint4*>(wts + L.frag) + (n0 / 8) * 32 + lane;
-      uint4 nxt[NT];
-#pragma unroll
-      for (int q = 0; q < NT; ++q) nxt[q] = __ldg(F + q * 32);
-      f3d::tc_tile_frag<false, kMT, NT>(
-          m0, cin, [&](int m, int k) { return in[m * in_ld + k]; },
-          [&](int k0, uint32_t (&bh)[NT][2], uint32_t (&bl)[NT][2]) {
-#pragma unroll
-            for (int q = 0; q < NT; ++q) {
-              bh[q][0] = nxt[q].x;
-              bh[q][1] = nxt[q].y;
-              bl[q][0] = nxt[q].z;
-              bl[q][1] = nxt[q].w;
-            }
-            if (k0 + kK < cin)
-#pragma unroll
-              for (int q = 0; q < NT; ++q)
-                nxt[q] = __ldg(F + (static_cast<size_t>(k0 / kK + 1) * nb_n + q) * 32);
-          },
-          acc);
-    } else {
-      // the hi halves of the 3xTF32 fragments (each 16-byte entry starts
-      // with them)
-      const uint2* F = reinterpret_cast<const uint2*>(wts + L.frag) + ((n0 / 8) * 32 + lane) * 2;
-      uint2 nxt[NT];
-#pragma unroll
-      for (int q = 0; q < NT; ++q) nxt[q] = __ldg(F + q * 64);
-      f3d::tc_tile_tf32<kMT, NT>(
-          in, in_ld, m0, cin,
-          // + half a TF32 ulp: the tensor cores' truncation then rounds
-          [](uint32_t v) { return v + 0x1000u; },
-          [&](int k0, uint32_t (&b)[NT][2]) {
-#pragma unroll
-            for (int q = 0; q < NT; ++q) {
-              b[q][0] = nxt[q].x;
-              b[q][1] = nxt[q].y;
-            }
-            if (k0 + kK < cin)
-#pragma unroll
-              for (int q = 0; q < NT; ++q)
-                nxt[q] = __ldg(F + (static_cast<size_t>(k0 / kK + 1) * nb_n + q) * 64);
-          },
-          acc);
-    }
+          fb, acc);
+    else   // + half a TF32 ulp: the tensor cores' truncation then rounds
+      f3d::tc_tile_tf32<kMT, NT>(in, in_ld, m0, cin, [](uint32_t v) { return v + 0x1000u; }, fb,
+                                 acc);
     // epilogue: column 2 q + e is channel n0 + 8 q + 2 t + e, its rows
     // m0 + 16 i + 8 r + g, all of one cluster
     float hn[kMT][2];
@@ -437,7 +395,7 @@ __device__ __forceinline__ void top_conv_pool(const Layer& L, const float* __res
       rows[c] = rowmask[(c * kMaxC + n) * 2] |
                 static_cast<unsigned long long>(rowmask[(c * kMaxC + n) * 2 + 1]) << 32;
     float best[kC];
-    pool_sum<kBf16, kC>(L, wts, in, in_ld, n, rows, best);
+    pool_sum<kBf16>(L, wts, in, in_ld, n, rows, best);
 #pragma unroll
     for (int c = 0; c < kC; ++c) pooled[c * kMaxC + n] = best[c];
   }
@@ -448,11 +406,10 @@ __device__ __forceinline__ void top_conv_pool(const Layer& L, const float* __res
 // 1 input and membership, 2 + l per-slot conv l (the top one without its
 // pool), n_det + 2 the pool's candidates listed, n_det + 3 the pool; 0 runs
 // everything.
-template <bool kBf16, int kC, int kMT, bool kX3>
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_detect_kernel(const float* __restrict__ clusters, const float* __restrict__ wts,
                     const __grid_constant__ Tower T, float* __restrict__ out, int stop) {
-  constexpr int kRows = kC * kSlots;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* xin = sm + T.x_off;          // kRows x 4: x, y, z, 0 (scaled)
@@ -556,9 +513,8 @@ fused_detect_kernel(const float* __restrict__ clusters, const float* __restrict_
       if (part == 0) hnorm[row] = sqrtf(ss) * 1.0001f;
     }
     __syncthreads();
-    top_conv_pool<kBf16, kC, kMT, kX3>(L, wts, buf[src], T.buf_ld[src], mask, dup, hnorm,
-                                       pooled, rowmask, count,
-                                       stop == 2 + l ? 0 : stop == 3 + l ? 1 : 2);
+    top_conv_pool<kBf16>(L, wts, buf[src], T.buf_ld[src], mask, dup, hnorm, pooled, rowmask,
+                         count, stop == 2 + l ? 0 : stop == 3 + l ? 1 : 2);
     // the candidates stage leaves the block's count in out[block] (the
     // work the pool re-sums, read by the time split)
     if (stop == 3 + l && tid == 0) out[blockIdx.x] = static_cast<float>(*count);
@@ -611,12 +567,11 @@ fused_detect_kernel(const float* __restrict__ clusters, const float* __restrict_
   }
 }
 
-// Host: the tower from the (n, 7) layer table and the (n, 3) offsets of
-// each layer's W fragments, column norms and transposed kernel, with its
-// shared-memory layout for kC clusters per block; returns the bytes, or 0
-// for a tower the kernel does not take.
-size_t make_tower(Tower* T, int kc, int bf16, int ns, int batch, const int* layers,
-                  const int* extra, int n_det, int n_det2) {
+// Host: the tower from the (n, 7) layer table and the (n, 2) offsets of
+// each layer's W fragments and column norms, with its shared-memory layout;
+// returns the bytes, or 0 for a tower the kernel does not take.
+size_t make_tower(Tower* T, int ns, int batch, const int* layers, const int* extra, int n_det,
+                  int n_det2) {
   const int n_layers = n_det + n_det2 + 2;
   if (ns < 1 || ns > kSlots || n_det < 2 || n_det2 < 0 || n_layers > kMaxLayers || batch < 0)
     return 0;
@@ -628,26 +583,24 @@ size_t make_tower(Tower* T, int kc, int bf16, int ns, int batch, const int* laye
   for (int i = 0; i < n_layers; ++i) {
     const int* q = layers + 7 * i;
     Layer& L = T->l[i];
-    L = Layer{q[0], q[1], q[2], q[3], q[4], q[5], q[6], extra ? extra[3 * i] : -1,
-              extra ? extra[3 * i + 1] : -1, extra ? extra[3 * i + 2] : -1};
+    L = Layer{q[0], q[1], q[2], q[3], q[4], q[5], q[6], extra ? extra[2 * i] : -1,
+              extra ? extra[2 * i + 1] : -1};
     if (L.cout < 1 || L.cout > kMaxC || L.cin < 1 || L.cin > kMaxC) return 0;
     if (i == 0 && (L.cin != 4 || kThreads % L.cout)) return 0;
     if (i > 0 && i < n_det && (L.cin % 4 || L.cout % 32)) return 0;
-    if (i == n_det - 1 && (L.cin % 32 ||
-                           (extra && (L.frag < 0 || L.wnorm < 0 || L.wt < 0))))
-      return 0;
+    if (i == n_det - 1 && (L.cin % 32 || (extra && (L.frag < 0 || L.wnorm < 0)))) return 0;
     if (i >= n_det + n_det2 && L.cout != (i == n_layers - 2 ? 1 : 2)) return 0;
   }
   // conv l writes buffer l & 1 (the top conv none); the vectors live in the
   // buffer the top conv would write
-  const int rows = kc * kSlots;
+  const int rows = kRows;
   size_t bytes[2] = {0, 0};
   for (int l = 0; l + 1 < n_det; ++l) {
     const int ld = T->l[l].cout + 4;
     T->buf_ld[l & 1] = ld > T->buf_ld[l & 1] ? ld : T->buf_ld[l & 1];
   }
   for (int j = 0; j < 2; ++j) bytes[j] = sizeof(float) * rows * T->buf_ld[j];
-  const size_t vec = sizeof(float) * ((5 * kc * kMaxC + 4 * kc + rows + 1 + 3) / 4 * 4);
+  const size_t vec = sizeof(float) * ((5 * kC * kMaxC + 4 * kC + rows + 1 + 3) / 4 * 4);
   const int dead = (n_det - 1) & 1;
   bytes[dead] = bytes[dead] > vec ? bytes[dead] : vec;
   int off = 0;
@@ -665,10 +618,10 @@ size_t make_tower(Tower* T, int kc, int bf16, int ns, int batch, const int* laye
   return static_cast<size_t>(off) * sizeof(float);
 }
 
-template <bool kBf16, int kC, int kMT, bool kX3>
-cudaError_t launch_variant(const float* clusters, const float* weights, const Tower& T,
-                           size_t smem, float* out, int stop, cudaStream_t stream, int* occ) {
-  auto kernel = fused_detect_kernel<kBf16, kC, kMT, kX3>;
+template <bool kBf16>
+cudaError_t launch(const float* clusters, const float* weights, const Tower& T, size_t smem,
+                   float* out, int stop, cudaStream_t stream, int* occ) {
+  auto kernel = fused_detect_kernel<kBf16>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -681,36 +634,21 @@ cudaError_t launch_variant(const float* clusters, const float* weights, const To
   return cudaGetLastError();
 }
 
-// One entry for the launch, the time split, the sweep and the occupancy
-// query (occ given: nothing launched).
+// One entry for the launch, the time split and the occupancy query (occ
+// given: nothing launched).
 int detect(const float* clusters, int ns, int batch, const float* weights, const int* layers,
            const int* extra, int n_det, int n_det2, int folded, int bf16, float r, float inv_r,
-           float r2, float* out, int variant, int stop, cudaStream_t stream, int* occ) {
-  if (variant < 0 || variant >= kVariants || stop < 0 || stop > n_det + 3)
-    return cudaErrorInvalidValue;
+           float r2, float* out, int stop, cudaStream_t stream, int* occ) {
+  if (stop < 0 || stop > n_det + 3) return cudaErrorInvalidValue;
   Tower T;
-  const size_t smem =
-      make_tower(&T, kVariant[variant][0], bf16, ns, batch, layers, extra, n_det, n_det2);
+  const size_t smem = make_tower(&T, ns, batch, layers, extra, n_det, n_det2);
   if (smem == 0) return cudaErrorInvalidValue;
   T.folded = folded;
   T.r = r;
   T.inv_r = inv_r;
   T.r2 = r2;
-  switch (variant * 2 + (bf16 ? 1 : 0)) {
-#define F3D_VARIANT(V)                                                                      \
-  case 2 * V:                                                                               \
-    return launch_variant<false, kVariant[V][0], kVariant[V][1], kVariant[V][2] == 1>(      \
-        clusters, weights, T, smem, out, stop, stream, occ);                                \
-  case 2 * V + 1:                                                                           \
-    return launch_variant<true, kVariant[V][0], kVariant[V][1], false>(                     \
-        clusters, weights, T, smem, out, stop, stream, occ);
-    F3D_VARIANT(0)
-    F3D_VARIANT(1)
-    F3D_VARIANT(2)
-#undef F3D_VARIANT
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return bf16 ? launch<true>(clusters, weights, T, smem, out, stop, stream, occ)
+              : launch<false>(clusters, weights, T, smem, out, stop, stream, occ);
 }
 
 }  // namespace
@@ -719,38 +657,36 @@ int detect(const float* clusters, int ns, int batch, const float* weights, const
 // of ops/fused_describe.py:_detect_kernel_weights (kernel matrices rounded
 // to bf16 values under bf16); layers: host int32 array of (cin, cout, w, b,
 // mu, mul, beta) per layer in the order detector convs, post convs,
-// attention, orientation (mu = -1: no BN); extra: host int32 (n, 3), per
-// layer the offsets of its W fragments for the tensor cores (TF32 halves,
-// bf16 pairs under bf16), its column 2-norms (rounded up) and its kernel
-// transposed (the top conv's), -1 where it has none; folded: input times inv_r
-// instead of divided by r;
-// bf16: activations rounded to bf16 as they are produced; out (batch, 3)
-// f32: attention, c, s.
+// attention, orientation (mu = -1: no BN); extra: host int32 (n, 2), per
+// layer the offsets of its W fragments for the tensor cores (TF32 values,
+// bf16 pairs under bf16) and its column 2-norms (rounded up), -1 where it
+// has none (all but the top per-slot conv); folded: input times inv_r
+// instead of divided by r; bf16: activations rounded to bf16 as they are
+// produced; out (batch, 3) f32: attention, c, s.
 F3D_EXPORT int f3d_fused_detect(const float* clusters, int ns, int batch,
                                 const float* weights, const int* layers, const int* extra,
                                 int n_det, int n_det2, int folded, int bf16, float r,
                                 float inv_r, float r2, float* out, cudaStream_t stream) {
   return detect(clusters, ns, batch, weights, layers, extra, n_det, n_det2, folded, bf16, r,
-                inv_r, r2, out, 0, 0, stream, nullptr);
+                inv_r, r2, out, 0, stream, nullptr);
 }
 
-// As f3d_fused_detect in variant `variant` (0: the default; see kVariant),
-// leaving each cluster after stage `stop` (1 input and membership, 2 + l
-// per-slot conv l, the top one without its pool, n_det + 2 its candidates
-// listed, n_det + 3 the pool; 0 = all). The time split and the sweep.
+// As f3d_fused_detect, leaving each cluster after stage `stop` (1 input and
+// membership, 2 + l per-slot conv l, the top one without its pool, n_det +
+// 2 its candidates listed, n_det + 3 the pool; 0 = all). The time split.
 F3D_EXPORT int f3d_fused_detect_split(const float* clusters, int ns, int batch,
                                       const float* weights, const int* layers, const int* extra,
                                       int n_det, int n_det2, int folded, int bf16, float r,
-                                      float inv_r, float r2, float* out, int variant, int stop,
+                                      float inv_r, float r2, float* out, int stop,
                                       cudaStream_t stream) {
   return detect(clusters, ns, batch, weights, layers, extra, n_det, n_det2, folded, bf16, r,
-                inv_r, r2, out, variant, stop, stream, nullptr);
+                inv_r, r2, out, stop, stream, nullptr);
 }
 
-// Variant `variant`'s launch on this tower: out = (dynamic shared-memory
-// bytes, blocks per SM).
+// The launch on this tower: out = (dynamic shared-memory bytes, blocks per
+// SM).
 F3D_EXPORT int f3d_fused_detect_occupancy(int ns, const int* layers, int n_det, int n_det2,
-                                          int bf16, int variant, int* out) {
+                                          int bf16, int* out) {
   return detect(nullptr, ns, 1, nullptr, layers, nullptr, n_det, n_det2, 0, bf16, 1.f, 1.f,
-                1.f, nullptr, variant, 0, nullptr, out);
+                1.f, nullptr, 0, nullptr, out);
 }

@@ -57,10 +57,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[MT][NT][4], const uint32_t
 }
 
 // D (M x N) = sum_{k < K} A(m, k) B(k, n) on the tensor cores, in warp tiles
-// of (16 MT) x (8 NT) that the block's warps share out; tc_tile sums one.
-// tc_tile_frag takes B's fragments from fb(k0, bh, bl), which fills
-// bh/bl[q] with the TF32 halves of B(k0 + t, n0 + 8 q + g) and B(k0 + t +
-// 4, n0 + 8 q + g): a B split once ahead of the product (K6's weights). la(m, k) / lb(k, n)
+// of (16 MT) x (8 NT) that the block's warps share out; tc_tile sums one. la(m, k) / lb(k, n)
 // return the operand, 0 past M, N or K: ragged widths, pad slots and conv
 // 0's 3-wide input go through the one path as zeros. st(m, n, d, p) takes
 // each row's pair of outputs d = (D[m][n], D[m][n+1]) (m < 16 ceil(M / 16),
@@ -71,9 +68,9 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[MT][NT][4], const uint32_t
 // toward zero (the tensor cores truncate in alignment), and over a whole K
 // that bias, always against the running sum's sign, shows in a mean over
 // many rows (K7's statistics); block sums shrink it to the blocks' size.
-template <bool kBlockSums, int MT, int NT, typename LA, typename FB>
-__device__ __forceinline__ void tc_tile_frag(int m0, int K, LA la, FB fb,
-                                             float (&acc)[MT][NT][4]) {
+template <bool kBlockSums, int MT, int NT, typename LA, typename LB>
+__device__ __forceinline__ void tc_tile(int m0, int n0, int K, LA la, LB lb,
+                                        float (&acc)[MT][NT][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -91,7 +88,11 @@ __device__ __forceinline__ void tc_tile_frag(int m0, int K, LA la, FB fb,
       split_tf32(la(m, k0 + t + 4), ah[i][2], al[i][2]);
       split_tf32(la(m + 8, k0 + t + 4), ah[i][3], al[i][3]);
     }
-    fb(k0, bh, bl);
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      split_tf32(lb(k0 + t, n0 + 8 * q + g), bh[q][0], bl[q][0]);
+      split_tf32(lb(k0 + t + 4, n0 + 8 * q + g), bh[q][1], bl[q][1]);
+    }
     if constexpr (kBlockSums) {
       float blk[MT][NT][4] = {};
       mma_3xtf32(blk, ah, al, bh, bl);
@@ -105,23 +106,6 @@ __device__ __forceinline__ void tc_tile_frag(int m0, int K, LA la, FB fb,
       mma_3xtf32(acc, ah, al, bh, bl);
     }
   }
-}
-
-// tc_tile_frag with B from lb(k, n), split here.
-template <bool kBlockSums, int MT, int NT, typename LA, typename LB>
-__device__ __forceinline__ void tc_tile(int m0, int n0, int K, LA la, LB lb,
-                                        float (&acc)[MT][NT][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  tc_tile_frag<kBlockSums>(
-      m0, K, la,
-      [&](int k0, uint32_t (&bh)[NT][2], uint32_t (&bl)[NT][2]) {
-#pragma unroll
-        for (int q = 0; q < NT; ++q) {
-          split_tf32(lb(k0 + t, n0 + 8 * q + g), bh[q][0], bl[q][0]);
-          split_tf32(lb(k0 + t + 4, n0 + 8 * q + g), bh[q][1], bl[q][1]);
-        }
-      },
-      acc);
 }
 
 template <bool kBlockSums, int MT, int NT, typename LA, typename LB, typename LP, typename ST>

@@ -74,6 +74,7 @@ class InferencePipeline:
         self.mcfg = model_cfg
         self.icfg = infer_cfg
         self._weights: Dict[str, list] = {}
+        self._detect_packed: Optional[tuple] = None     # K6's weight buffers
         self.timings: Dict[str, float] = {}
 
     # -- configuration ------------------------------------------------------
@@ -151,8 +152,12 @@ class InferencePipeline:
         shape as the dense route's."""
         offs = grouped - centers[:, None, :]
         if self.icfg.use_fused_detector:
-            return fd.fused_detect_clusters(self._kernel_weights("detect"), offs, self.mcfg,
-                                            unfolded=True)
+            w = self._kernel_weights("detect")
+            if offs.is_cuda and self._detect_packed is None:
+                self._detect_packed = fd._detect_kernel_weights(w, self.mcfg, offs.device,
+                                                                unfolded=True)
+            return fd.fused_detect_clusters(w, offs, self.mcfg, unfolded=True,
+                                            packed=self._detect_packed)
         normalized = offs / self.mcfg.base_scale
         chunk = self._chunk_size(normalized.shape[0])
         atts, oris = [], []

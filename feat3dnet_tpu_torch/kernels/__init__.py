@@ -149,17 +149,16 @@ def library() -> ctypes.CDLL:
     lib.f3d_ball_max.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I, _I, _F, _P, _P]
     lib.f3d_ball_max.restype = _I
     # clusters, ns, batch, weights, layers (host int32 array), extra (host
-    # int32 (n, 3)), n_det, n_det2, folded, bf16, r, inv_r, r2, out, stream
+    # int32 (n, 2)), n_det, n_det2, folded, bf16, r, inv_r, r2, out, stream
     lib.f3d_fused_detect.argtypes = [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
                                      _P]
     lib.f3d_fused_detect.restype = _I
-    # as f3d_fused_detect, then the variant and the stage to stop after,
-    # then the stream
-    lib.f3d_fused_detect_split.argtypes = lib.f3d_fused_detect.argtypes[:-1] + [_I, _I, _P]
+    # as f3d_fused_detect, then the stage to stop after, then the stream
+    lib.f3d_fused_detect_split.argtypes = lib.f3d_fused_detect.argtypes[:-1] + [_I, _P]
     lib.f3d_fused_detect_split.restype = _I
-    # ns, layers, n_det, n_det2, bf16, variant, out (host int32 (2,): smem
-    # bytes, blocks per SM)
-    lib.f3d_fused_detect_occupancy.argtypes = [_I, _P, _I, _I, _I, _I, _P]
+    # ns, layers, n_det, n_det2, bf16, out (host int32 (2,): smem bytes,
+    # blocks per SM)
+    lib.f3d_fused_detect_occupancy.argtypes = [_I, _P, _I, _I, _I, _P]
     lib.f3d_fused_detect_occupancy.restype = _I
     # x, ns, gp, g_total, cin0, weights, convs (host int32 (n, 9)), n, nblk,
     # part, stream
@@ -266,37 +265,28 @@ def detect_stops(n_det: int) -> dict:
     return {name: i + 1 for i, name in enumerate(names)}
 
 
-# K6's variants (csrc/fused_detect.cu kVariant: clusters per block, m16
-# tiles per warp tile of the top conv, its product in 1xTF32 (1) or 3xTF32
-# (3) in the f32 modes); 0 is the default, the rest the sweep's
-DETECT_VARIANTS = ((2, 4, 1), (2, 4, 3), (1, 4, 1))
-
-
 def launch_fused_detect(clusters, weights, layers, extra, n_det, n_det2, folded, bf16, r,
-                        inv_r, r2, out, variant: int = 0, stop: Optional[str] = None) -> None:
+                        inv_r, r2, out, stop: Optional[str] = None) -> None:
     """layers: host int32 tensor of (cin, cout, w, b, mu, mul, beta) rows;
-    extra: host int32 (n, 3) tensor of the layers' fragment, column-norm
-    and transposed-kernel offsets; variant: an index into DETECT_VARIANTS
-    (the sweep);
-    stop: a key of detect_stops(n_det) for the time split (out not
+    extra: host int32 (n, 2) tensor of the layers' fragment and column-norm
+    offsets; stop: a key of detect_stops(n_det) for the time split (out not
     written)."""
     b, ns, _ = clusters.shape
     args = [_ptr(clusters), ns, b, _ptr(weights), _ptr(layers), _ptr(extra), n_det, n_det2,
             int(folded), int(bf16), r, inv_r, r2, _ptr(out)]
     with torch.cuda.device(clusters.device):
-        if stop is None and variant == 0:
+        if stop is None:
             check(library().f3d_fused_detect(*args, _stream(clusters)), "fused_detect")
         else:
-            check(library().f3d_fused_detect_split(
-                *args, variant, 0 if stop is None else detect_stops(n_det)[stop],
-                _stream(clusters)), "fused_detect_split")
+            check(library().f3d_fused_detect_split(*args, detect_stops(n_det)[stop],
+                                                   _stream(clusters)), "fused_detect_split")
 
 
-def detect_occupancy(ns: int, layers, n_det: int, n_det2: int, bf16: bool, variant: int = 0):
+def detect_occupancy(ns: int, layers, n_det: int, n_det2: int, bf16: bool):
     """(dynamic shared-memory bytes, blocks per SM) of K6's launch."""
     out = torch.zeros(2, dtype=torch.int32)
     check(library().f3d_fused_detect_occupancy(ns, _ptr(layers), n_det, n_det2, int(bf16),
-                                               variant, _ptr(out)), "fused_detect_occupancy")
+                                               _ptr(out)), "fused_detect_occupancy")
     return int(out[0]), int(out[1])
 
 

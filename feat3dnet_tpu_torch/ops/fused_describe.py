@@ -25,7 +25,6 @@ b' = (b−μ)·γ·rsqrt(σ²+ε)+β).
 """
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -484,25 +483,21 @@ def fused_detect_clusters_plain(weights_t: List[torch.Tensor], clusters: torch.T
     return torch.cat(atts), torch.cat(oris)
 
 
-def _tf32_split(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) of f32 w as `cvt.rna.tf32.f32` splits it on the card: hi =
-    w rounded to 10 mantissa bits, ties away from zero (half the dropped
-    bits' weight added to the magnitude, then cleared), lo = hi of w - hi."""
-    def rna(v):
-        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-    hi = rna(w)
-    return hi, rna(w - hi)
+def _tf32_rna(w: torch.Tensor) -> torch.Tensor:
+    """f32 w rounded to TF32 as `cvt.rna.tf32.f32` rounds it on the card: to
+    10 mantissa bits, ties away from zero (half the dropped bits' weight
+    added to the magnitude, then cleared)."""
+    return ((w.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
 def _tf32_fragments(w: torch.Tensor) -> torch.Tensor:
-    """K6's B operand for mma.sync m16n8k8 in the 3xTF32 split, from a
-    (cin, cout) f32 matrix (cin % 8 == cout % 8 == 0): per 8 x 8 block (k
-    block major, then n block), per lane 4 g + t, the four floats hi(k0 +
-    t, n0 + g), hi(k0 + t + 4, n0 + g), lo(k0 + t, n0 + g), lo(k0 + t + 4,
-    n0 + g); flat f32."""
+    """K6's B operand for mma.sync m16n8k8 (TF32), from a (cin, cout) f32
+    matrix (cin % 8 == cout % 8 == 0): per 8 x 8 block (k block major, then
+    n block), per lane 4 g + t, the TF32 values of (k0 + t, n0 + g) and (k0
+    + t + 4, n0 + g); flat f32."""
     cin, cout = w.shape
-    parts = torch.stack(_tf32_split(w)).reshape(2, cin // 8, 2, 4, cout // 8, 8)
-    return parts.permute(1, 4, 5, 3, 0, 2).reshape(-1)      # kb, nb, g, t, (hi|lo), h
+    b = _tf32_rna(w).reshape(cin // 8, 2, 4, cout // 8, 8)
+    return b.permute(0, 3, 4, 2, 1).reshape(-1)             # kb, nb, g, t, h
 
 
 def _bf16_fragments(w: torch.Tensor) -> torch.Tensor:
@@ -522,14 +517,15 @@ def _detect_kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, devi
     """Kernel K6's weights: a flat f32 buffer; the (cin, cout, w, b, mu,
     mul, beta) offset table into it (-1 where a layer has no BN: the heads,
     and every layer of the folded tower); and per layer the offsets of its
-    W fragments for the tensor cores, its column norms and its kernel
-    transposed, (n, 3), -1 where it has none. The buffer holds each layer's
-    (Cin, Cout) kernel and vectors, the first layer cut to 4 input rows (x,
-    y, z, 0); then, for the top per-slot conv, its fragments
-    (`_tf32_fragments`, or `_bf16_fragments` under bf16), its column
-    2-norms rounded up (the slack of its pool's candidates) and its (Cout,
-    Cin) kernel (the candidates' k-order sums). Every block starts on a
-    16-byte boundary. bf16: the kernel matrices rounded to bf16 values."""
+    W fragments for the tensor cores and of its column norms, (n, 2), -1
+    where it has none. The buffer holds each layer's (Cin, Cout) kernel and
+    vectors, the first layer cut to 4 input rows (x, y, z, 0); then, for
+    the top per-slot conv, its fragments (`_tf32_fragments`, or
+    `_bf16_fragments` under bf16) and its column 2-norms rounded up (the
+    slack of its pool's candidates). Every block starts on a 16-byte
+    boundary. bf16: the kernel matrices rounded to bf16 values. A caller
+    that launches K6 often makes this once and passes it to
+    `fused_detect_clusters` (the pipeline does)."""
     convs, heads = _detector_layers(weights_t, cfg, unfolded)
     n_det = len(cfg.detector_mlp)
     if n_det < 2:
@@ -561,53 +557,30 @@ def _detect_kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, devi
         row += [-1, -1, -1] if mu is None else [put(mu), put(mul), put(beta)]
         table.append(row)
         mats.append(w)
-    extra = [[-1, -1, -1] for _ in table]
+    extra = [[-1, -1] for _ in table]
     top = mats[n_det - 1]
     extra[n_det - 1] = [put((_bf16_fragments if bf16 else _tf32_fragments)(top)),
-                        put(top.norm(dim=0) * 1.0001), put(top.t())]
+                        put(top.norm(dim=0) * 1.0001)]
     flat = torch.cat(pieces).to(device=device, dtype=torch.float32).contiguous()
     return (flat, torch.tensor(table, dtype=torch.int32),
             torch.tensor(extra, dtype=torch.int32))
 
 
-# the last few weight lists' packed buffers (`_detect_weights_cached`)
-_DETECT_PACKS: "OrderedDict[tuple, tuple]" = OrderedDict()
-
-
-def _detect_weights_cached(weights_t: List[torch.Tensor], cfg: ModelConfig, device,
-                           unfolded: bool, bf16: bool):
-    """`_detect_kernel_weights`, kept for the last 4 weight lists: a list
-    is the same while each of its tensors is the same object at the same
-    address and unmodified (its version counter). The entry holds the
-    tensors, so none of them can be freed and its id reused meanwhile."""
-    key = (unfolded, bf16, str(device), tuple(cfg.detector_mlp), tuple(cfg.detector_mlp2),
-           tuple((id(t), t.data_ptr(), t._version) for t in weights_t))
-    hit = _DETECT_PACKS.get(key)
-    if hit is not None:
-        _DETECT_PACKS.move_to_end(key)
-        return hit[1]
-    packed = _detect_kernel_weights(weights_t, cfg, device, unfolded, bf16=bf16)
-    _DETECT_PACKS[key] = (list(weights_t), packed)
-    if len(_DETECT_PACKS) > 4:
-        _DETECT_PACKS.popitem(last=False)
-    return packed
-
-
 def _launch_detect(clusters: torch.Tensor, packed, cfg: ModelConfig, unfolded: bool,
-                   bf16: bool, out: torch.Tensor, variant: int = 0,
-                   stop: Optional[str] = None) -> None:
+                   bf16: bool, out: torch.Tensor, stop: Optional[str] = None) -> None:
     """K6 on (B, ns, 3) CUDA clusters with `_detect_kernel_weights`' buffers
-    into out (B, 3): attention, c, s. variant and stop: the sweep and the
-    time split (kernels.launch_fused_detect)."""
+    into out (B, 3): attention, c, s. stop: the time split
+    (kernels.launch_fused_detect)."""
     r = np.float32(cfg.base_scale)
     kernels.launch_fused_detect(clusters, *packed, len(cfg.detector_mlp), len(cfg.detector_mlp2),
                                 not unfolded, bf16, float(r), float(np.float32(1.0) / r),
-                                float(r * r), out, variant=variant, stop=stop)
+                                float(r * r), out, stop=stop)
 
 
 def fused_detect_clusters(weights_t: List[torch.Tensor], clusters: torch.Tensor,
                           cfg: ModelConfig, unfolded: bool = False,
-                          bf16_operands: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                          bf16_operands: bool = False, packed: Optional[tuple] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Detector-only tower through kernel K6: (B, ns, 3) origin-centred
     clusters -> (attention (B,), orientation (B,) angle).
 
@@ -615,8 +588,11 @@ def fused_detect_clusters(weights_t: List[torch.Tensor], clusters: torch.Tensor,
     detector prefix) for the default folded mode; with unfolded=True,
     transpose_unfolded_detector(detector_weights_unfolded(...)), the
     model path's rounding; bf16_operands (unfolded only) rounds each
-    product's operands to bf16. Each launch counts in `launches` and in
-    `mode_launches[mode]` (mode 'unfolded', 'folded' or 'bf16_operands').
+    product's operands to bf16. packed: `_detect_kernel_weights(weights_t,
+    cfg, clusters.device, unfolded, bf16_operands)`, made once by a caller
+    that calls often; None packs here, on every call. Each launch counts in
+    `launches` and in `mode_launches[mode]` (mode 'unfolded', 'folded' or
+    'bf16_operands').
 
     CPU tensors take `fused_detect_clusters_plain`; CUDA tensors launch the
     kernel, and anything it does not take raises.
@@ -635,7 +611,9 @@ def fused_detect_clusters(weights_t: List[torch.Tensor], clusters: torch.Tensor,
         raise ValueError(f"fused_detect_clusters: {ns} samples, num_samples="
                          f"{cfg.num_samples} (<= 64)")
     clusters = clusters.contiguous()
-    packed = _detect_weights_cached(weights_t, cfg, clusters.device, unfolded, bf16_operands)
+    if packed is None:
+        packed = _detect_kernel_weights(weights_t, cfg, clusters.device, unfolded,
+                                        bf16=bf16_operands)
     out = torch.empty((b, 3), dtype=torch.float32, device=clusters.device)
     _launch_detect(clusters, packed, cfg, unfolded, bf16_operands, out)
     fused_detect_clusters.launches += 1

@@ -6,15 +6,18 @@ unfolded f32, the mode every tree has).
 
     python3 scripts/k6_history.py TAG=DIR [TAG=DIR ...]
 
-DIR is a checkout (a commit unpacked with `git archive`, say) or its csrc/.
-Each tree's fused_detect.cu is built alone, with the headers it has. A tree
-whose f3d_fused_detect takes no folded and bf16 arguments (K6's first form)
-is called with that signature. Every tree reads the weight buffer that this
-checkout's wrapper packs; the unfolded tower's layout has not changed.
-Outputs are held to the first tree's (attention relative and orientation
-within 1e-5). Run from the root of a checkout; it writes only under build/.
+DIR is a checkout (a commit unpacked with `git archive`, say), or its
+feat3dnet_tpu_torch/csrc/ with the package around it.
+Each tree's fused_detect.cu is built alone, with the headers it has, and
+reads the weight buffer its own ops/fused_describe.py packs. A tree whose
+f3d_fused_detect takes no folded and bf16 arguments (K6's first form) is
+called with that signature. The trees must be K6's FFMA design (no offsets
+of tensor-core fragments). Outputs are held to the first tree's (attention
+relative and orientation within 1e-5). Run from the root of a checkout; it
+writes only under build/.
 """
 import ctypes
+import inspect
 import os
 import sys
 
@@ -28,12 +31,24 @@ import chip_smoke as cs  # noqa: E402
 HEADERS = ("common.cuh", "slot_layer.cuh")
 
 
+def tree_csrc(directory):
+    csrc = os.path.join(directory, "feat3dnet_tpu_torch", "csrc")
+    return os.path.abspath(csrc if os.path.isdir(csrc) else directory)
+
+
+def tree_pack(directory, w, cfg, dev):
+    """The unfolded f32 weights as the tree's own wrapper packs them: (flat,
+    table)."""
+    pack = cs.other_fused_describe(tree_csrc(directory))._detect_kernel_weights
+    unfolded = (True,) if "unfolded" in inspect.signature(pack).parameters else ()
+    return pack(w, cfg, dev, *unfolded)[:2]
+
+
 def tree_library(directory):
     """(ctypes library, build info, whether the entry takes folded and bf16)."""
     from feat3dnet_tpu_torch import kernels
 
-    csrc = os.path.join(directory, "feat3dnet_tpu_torch", "csrc")
-    csrc = os.path.abspath(csrc if os.path.isdir(csrc) else directory)
+    csrc = tree_csrc(directory)
     headers = tuple(h for h in HEADERS if os.path.isfile(os.path.join(csrc, h)))
     info = kernels.build(csrc, ("fused_detect.cu",), headers)
     with open(os.path.join(csrc, "fused_detect.cu")) as f:
@@ -75,7 +90,7 @@ def main():
                                                 "ckpt4480_variables.npz"))
     w = [t.to(dev) for t in fd.transpose_unfolded_detector(
         fd.detector_weights_unfolded(variables, cfg))]
-    flat, table = fd._detect_kernel_weights(w, cfg, dev, True)[:2]
+    packs = {tag: tree_pack(directory, w, cfg, dev) for tag, directory in trees.items()}
     r = np.float32(cfg.base_scale)
     totals = dict.fromkeys(libs, 0.0)
     with torch.no_grad():
@@ -87,6 +102,7 @@ def main():
 
             def run(tag):
                 fn, modes = libs[tag]
+                flat, table = packs[tag]
                 head = [ctypes.c_void_p(offs.data_ptr()), ns, b, ctypes.c_void_p(flat.data_ptr()),
                         ctypes.c_void_p(table.data_ptr()), len(cfg.detector_mlp),
                         len(cfg.detector_mlp2)]

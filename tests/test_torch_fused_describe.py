@@ -193,15 +193,14 @@ def test_plain_k6_matches_jax_detect_2d(rng, source):
 def test_k6_weight_table_layout(rng):
     """K6's flat buffer: (Cin, Cout) kernel, bias, then mean, mul, bn_bias
     per conv (-1 for the heads), 16-byte aligned; first layer cut to 4
-    input rows; after them the top per-slot conv's tensor-core fragments,
-    |W| column sums and transposed kernel, the only offsets of the second
-    table."""
+    input rows; after them the top per-slot conv's tensor-core fragments
+    and column norms, the only offsets of the second table."""
     cfg = ModelConfig(**SMALL)
     wt = tfd.transpose_unfolded_detector(
         tfd.detector_weights_unfolded(init_variables(cfg, seed=1, bn_perturb=0.1), cfg))
     flat, table, extra = tfd._detect_kernel_weights(wt, cfg, torch.device("cpu"), unfolded=True)
     top = len(cfg.detector_mlp) - 1
-    assert extra.shape == (table.shape[0], 3) and extra.dtype == torch.int32
+    assert extra.shape == (table.shape[0], 2) and extra.dtype == torch.int32
     assert (extra[top] > table[:, 2:].max()).all() and (extra[top] % 4 == 0).all()
     assert (torch.cat([extra[:top], extra[top + 1:]]) == -1).all()
     convs, heads = tfd._detector_layers(wt, cfg, unfolded=True)

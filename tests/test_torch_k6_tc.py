@@ -11,9 +11,10 @@ What is emulated, per cluster of 64 slots:
 - conv 0 on the CUDA cores: an fmaf chain over (x, y, z, 0) in k order;
 - f32 modes: the per-slot convs below the top one on the CUDA cores, an
   fmaf chain in k order per output (f3d::slot_layer); the top conv on the
-  tensor cores in 1xTF32 (its default; 3xTF32 too) onto one running
-  accumulator, each mma rounded toward zero (tests/tf32_emulation.py),
-  then the bias and the BN replay; the rows whose value can be the
+  tensor cores in 1xTF32 onto one running accumulator, each mma rounded
+  toward zero (tests/tf32_emulation.py; its candidates also under the
+  worst case, each addend truncated at alignment), then the bias and the
+  BN replay; the rows whose value can be the
   cluster's largest within the slack (from the row and column norms) are
   summed again as a chain, and the pool is the largest of those;
 - bf16_operands: the same, its top conv's product on exact bf16 products,
@@ -76,21 +77,23 @@ def _bn(acc, b, mu, mul, beta):
     return v if mu is None else (v - mu[:, 0]) * mul[:, 0] + beta[:, 0]
 
 
-# the top conv's product on the tensor cores, as tc_mma.cuh sums it
+# the top conv's product on the tensor cores, as tc_mma.cuh sums it (and
+# *_aligned: each addend truncated at alignment, the worst case the slack
+# must hold); tf32x3 only for the convs below it (tc_below_top)
 PRODUCTS = {"tf32x1": tf32x1_matmul,
+            "tf32x1_aligned": functools.partial(tf32x1_matmul, aligned=True),
             "tf32x3": lambda a, b: tf32x3_matmul(a, b, block_sums=False),
-            "bf16": lambda a, b: bf16_matmul(a, b, block_sums=False)}
-F32_PRODUCT = "tf32x1"      # K6's default variant in the f32 modes
+            "bf16": lambda a, b: bf16_matmul(a, b, block_sums=False),
+            "bf16_aligned": lambda a, b: bf16_matmul(a, b, block_sums=False, aligned=True)}
+F32_PRODUCT = "tf32x1"      # K6's product in the f32 modes
 
 
 def tower_rel(product, cin):
     """csrc/fused_detect.cu:tower_rel."""
     chain = 5.97e-8 * cin
-    if product == "bf16":
-        return 2.0 * (chain + 7.46e-9 * cin + 1e-7)
-    if product == "tf32x3":
-        return 2.0 * (chain + 4.48e-8 * cin + 7.2e-7)
-    return 2.0 * (chain + 1.49e-8 * cin + 9.8e-4)
+    if product.startswith("bf16"):
+        return 2.0 * (chain + 1.1921e-7 * (cin // 16) * 18 + 1e-7)
+    return 2.0 * (chain + 1.1921e-7 * (cin // 8) * 10 + 9.8e-4)
 
 
 def pool_slack(b, mu, mul, beta, rel, hnorm, wnorm):
@@ -126,7 +129,7 @@ def top_pool(h, w, layer, mask, dup, product):
     u_c = y + b[ni, 0]
     if mu is not None:
         u_c = (u_c - mu[ni, 0]) * mul[ni, 0] + beta[ni, 0]
-    v = tfd._round_bf16(torch.relu(u_c)) if product == "bf16" else torch.relu(u_c)
+    v = tfd._round_bf16(torch.relu(u_c)) if product.startswith("bf16") else torch.relu(u_c)
     return _scatter_max(nb, w.shape[1], ci, ni, v), u_t, cand, slack
 
 
@@ -294,13 +297,17 @@ def test_emulated_k6_matches_jax(kind, mode):
 
 @pytest.mark.parametrize("kind", ["seeded", "trained"])
 @pytest.mark.parametrize("mode,product", [("unfolded", "tf32x1"), ("folded", "tf32x1"),
-                                          ("unfolded", "tf32x3"), ("bf16_operands", "bf16")])
+                                          ("unfolded", "tf32x1_aligned"),
+                                          ("bf16_operands", "bf16"),
+                                          ("bf16_operands", "bf16_aligned")])
 def test_top_pool_candidates_give_the_chain_pool(kind, mode, product):
     """The top conv's pool from the tensor-core values and the slack: on
     the first 16 clusters every row's u~ lies within half its slack of the
     k-order chain's value, and the pool equals the chain's pool bit for
-    bit; over all clusters few rows per cluster and channel are summed
-    again (1xTF32 reads fewer bits, so its slack admits more)."""
+    bit, also with every addend of each mma truncated at alignment (the
+    worst case tower_rel allows for); over all clusters few rows per
+    cluster and channel are summed again (1xTF32 reads fewer bits, so its
+    slack admits more)."""
     h, w, layer, mask, dup = _emulated(kind, mode)[2]
     pool, u_t, cand, slack = top_pool(h, w, layer, mask, dup, product)
     _, b, mu, mul, beta = layer
@@ -313,7 +320,7 @@ def test_top_pool_candidates_give_the_chain_pool(kind, mode, product):
     assert torch.equal(pool[:16], (v * mask[:16, :, None]).amax(dim=1))
     per = cand.sum(dim=1).float().mean().item()
     print(f"{kind} {mode} {product}: {per:.3f} candidates per cluster and channel")
-    assert per <= (4.0 if product == "tf32x1" else 1.5)
+    assert per <= (4.0 if product.startswith("tf32x1") else 1.5)
 
 
 def test_emulated_k6_bf16_operands():
@@ -349,54 +356,44 @@ def test_tensor_cores_below_the_top_conv_would_move_orientations(mode):
         assert err.max().item() > 1e-5
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["tf32x3", "bf16"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["tf32", "bf16"])
 def test_k6_fragments_follow_the_mma_layout(bf16):
     """The wrapper's W fragments, read as mma.sync's B fragments: lane
     4 g + t of block (kb, nb) holds B(k0 + t, n0 + g) and B(k0 + t + 4, n0 +
-    g) as TF32 hi then lo halves (m16n8k8), or the bf16 pairs B(k0 + 2t +
-    {0, 1}, n0 + g) and B(k0 + 2t + {8, 9}, n0 + g) (m16n8k16), for the top
-    per-slot conv, the one on the tensor cores; the offsets point at them,
-    at its column norms (rounded up) and at its transposed kernel."""
+    g) rounded to TF32 (m16n8k8), or the bf16 pairs B(k0 + 2t + {0, 1}, n0 +
+    g) and B(k0 + 2t + {8, 9}, n0 + g) (m16n8k16), 8 bytes a lane, for the
+    top per-slot conv, the one on the tensor cores; the offsets point at
+    them and at its column norms (rounded up)."""
     cfg = ModelConfig(detector_mlp=(32, 64, 128))
     wt = tfd.transpose_unfolded_detector(
         tfd.detector_weights_unfolded(init_variables(cfg, seed=3, bn_perturb=0.1), cfg))
     flat, table, extra = tfd._detect_kernel_weights(wt, cfg, "cpu", True, bf16=bf16)
+    assert extra.shape == (table.shape[0], 2)
     assert (extra[:2] == -1).all() and (extra[3:] == -1).all() and (extra[2] >= 0).all()
     cin, cout, w_off = table[2, :3].tolist()
-    w2 = flat[w_off:w_off + cin * cout].reshape(cin, cout)
+    w = flat[w_off:w_off + cin * cout].reshape(cin, cout)
     wnorm = flat[extra[2, 1]:extra[2, 1] + cout]
-    torch.testing.assert_close(wnorm, w2.norm(dim=0) * 1.0001, rtol=1e-6, atol=0)
-    assert torch.equal(flat[extra[2, 2]:extra[2, 2] + cin * cout].reshape(cout, cin), w2.t())
-    tc = (2,)
+    torch.testing.assert_close(wnorm, w.norm(dim=0) * 1.0001, rtol=1e-6, atol=0)
     kk = 16 if bf16 else 8
     lane = torch.arange(32)
     g, t = lane // 4, lane % 4
-    for li in tc:
-        cin, cout, w_off = table[li, :3].tolist()
-        w = flat[w_off:w_off + cin * cout].reshape(cin, cout)
-        off = extra[li, 0].item()
-        for kb in range(cin // kk):
-            for nb in range(cout // 8):
-                k0, n = kb * kk, nb * 8 + g
-                if bf16:
-                    per = 4                    # bf16 per lane
-                    got = flat[off:].view(torch.bfloat16)[
-                        ((kb * (cout // 8) + nb) * 32) * per:((kb * (cout // 8) + nb) * 32 + 32)
-                        * per].reshape(32, per).float()
-                    want = torch.stack([w[k0 + 2 * t, n], w[k0 + 2 * t + 1, n],
-                                        w[k0 + 2 * t + 8, n], w[k0 + 2 * t + 9, n]], dim=1)
-                    assert torch.equal(got, tfd._round_bf16(want))
-                else:
-                    base = off + (kb * (cout // 8) + nb) * 32 * 4
-                    got = flat[base:base + 128].reshape(32, 4)
-                    b0, b1 = w[k0 + t, n], w[k0 + t + 4, n]
-                    hi0, hi1 = tf32_rna(b0), tf32_rna(b1)
-                    want = torch.stack([hi0, hi1, tf32_rna(b0 - hi0), tf32_rna(b1 - hi1)], dim=1)
-                    assert torch.equal(got, want)
-    # the split the wrapper makes is the one the emulation models
+    off = extra[2, 0].item()
+    for kb in range(cin // kk):
+        for nb in range(cout // 8):
+            k0, n = kb * kk, nb * 8 + g
+            base = off + (kb * (cout // 8) + nb) * 32 * 2           # 2 floats a lane
+            got = flat[base:base + 64]
+            if bf16:
+                got = got.view(torch.bfloat16).reshape(32, 4).float()
+                want = torch.stack([w[k0 + 2 * t, n], w[k0 + 2 * t + 1, n],
+                                    w[k0 + 2 * t + 8, n], w[k0 + 2 * t + 9, n]], dim=1)
+                assert torch.equal(got, tfd._round_bf16(want))
+            else:
+                want = torch.stack([tf32_rna(w[k0 + t, n]), tf32_rna(w[k0 + t + 4, n])], dim=1)
+                assert torch.equal(got.reshape(32, 2), want)
+    # the rounding the wrapper makes is the one the emulation models
     v = torch.from_numpy(np.random.RandomState(0).randn(4096).astype(np.float32))
-    hi, lo = tfd._tf32_split(v)
-    assert torch.equal(hi, tf32_rna(v)) and torch.equal(lo, tf32_rna(v - tf32_rna(v)))
+    assert torch.equal(tfd._tf32_rna(v), tf32_rna(v))
 
 
 @pytest.mark.parametrize("block_sums", [True, False])

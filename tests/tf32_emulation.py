@@ -15,6 +15,11 @@ truncate in alignment: the pessimistic model).
 bf16 (mma.sync m16n8k16): a product of two bf16 values is exact in f32;
 an mma's sixteen are summed in float64 onto its accumulator and rounded
 toward zero to f32.
+
+aligned=True (K6's products, whose slack must hold the worst case): each
+mma aligns its addends, the accumulator and its products, to the largest
+of them and truncates each toward zero at 2^-23 of that one before it sums
+them, then truncates the sum toward zero to f32.
 """
 import torch
 
@@ -47,7 +52,22 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, block_sums: bool = True) -> 
     return acc
 
 
-def tf32x1_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def aligned_mma(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """acc (R, N) + a (R, k) @ b (k, N) as one mma, its addends truncated at
+    alignment (the module's aligned model); the products exact, in rows of
+    512 at a time."""
+    out = torch.empty_like(acc)
+    for r0 in range(0, acc.shape[0], 512):
+        r = slice(r0, r0 + 512)
+        terms = torch.cat([acc[r].double()[:, None], a[r].double()[:, :, None] * b.double()],
+                          dim=1)                                      # (rows, 1 + k, N)
+        _, e = torch.frexp(terms.abs().amax(dim=1, keepdim=True))
+        ulp = torch.ldexp(torch.ones(e.shape, dtype=torch.float64), e - 24)   # 2^-23 of it
+        out[r] = round_toward_zero((torch.trunc(terms / ulp) * ulp).sum(dim=1))
+    return out
+
+
+def tf32x1_matmul(a: torch.Tensor, b: torch.Tensor, aligned: bool = False) -> torch.Tensor:
     """a (R, K) @ b (K, N) as K6's 1xTF32 product sums it: both operands
     rounded to TF32 (A's bits plus half a TF32 ulp, truncated by the tensor
     cores: ties away from zero, as B's cvt.rna), every mma onto the one
@@ -56,18 +76,23 @@ def tf32x1_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
     for k0 in range(0, a.shape[1], 8):
         k = slice(k0, k0 + 8)
-        acc = round_toward_zero(acc.double() + a_h[:, k].double() @ b_h[k].double())
+        acc = (aligned_mma(acc, a_h[:, k], b_h[k]) if aligned else
+               round_toward_zero(acc.double() + a_h[:, k].double() @ b_h[k].double()))
     return acc
 
 
-def bf16_matmul(a: torch.Tensor, b: torch.Tensor, block_sums: bool = True) -> torch.Tensor:
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor, block_sums: bool = True,
+                aligned: bool = False) -> torch.Tensor:
     """a (R, K) @ b (K, N), both bf16 values in f32, as tc_tile_bf16 sums
     it: exact products, each 16-deep mma rounded toward zero, into fresh
     block sums added rounding to nearest, or (block_sums=False) onto the one
-    running accumulator."""
+    running accumulator (aligned: K6's top conv)."""
     acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
     for k0 in range(0, a.shape[1], 16):
         k = slice(k0, k0 + 16)
+        if aligned and not block_sums:
+            acc = aligned_mma(acc, a[:, k], b[k])
+            continue
         prod = a[:, k].double() @ b[k].double()
         acc = (acc + round_toward_zero(prod) if block_sums
                else round_toward_zero(acc.double() + prod))
