@@ -8,7 +8,9 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
   1. holds K1-K3 against their plain PyTorch versions at the forward's
      shapes (FPS and ball query index-exact on the four vendored clouds
      and a synthetic masked case; the fused describe kernel on 7 680
-     clusters within stated tolerances);
+     clusters within stated tolerances, with seeded weights and, in f32
+     and bf16_act, with the trained weights at phase 1's and phase 13's
+     limits);
   2. drives the forward/serving path with launch counters reset:
      Feat3DNet eval at the paper config (seeded weights, perturbed BN
      statistics) on each vendored cloud, then 8 ClusterDescriptorServer
@@ -16,7 +18,12 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
   3. checks those outputs (shapes, unit norms, agreement with the model
      on the CPU and with the model path on the card);
   4. times K1-K3 against their plain versions (CUDA events, in turns)
-     and the server's descriptors/s;
+     and the server's descriptors/s; per K3 forward mode and weights
+     (seeded, trained; k3_step) K3's shared memory and blocks per SM, its
+     time split (fused_describe_time_split: the weight packing, the kernel
+     leaving each cluster after each stage, the kernel alone, the whole
+     wrapper on weights packed once, in turns) and the rows each of its
+     two pooled convs re-sums;
   5. holds K4 (sorted ball query) and K5 (ball max) index-exact and K6
      (detector-only tower) within 1e-5 against their plain versions at the
      extraction shapes: the vendored clouds at their buckets and a seeded
@@ -95,11 +102,16 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      to f32 of at least 1e-4 (the bf16 rounding shows), then one training
      step, which takes the autograd route: a finite loss, no fused-tower
      launch.
-Option: --parent DIR also builds another tree's training kernels, K4 and
-K6 (its csrc/fused_train.cu, csrc/sorted_ball_query.cu, csrc/fused_detect.cu
-and the headers it has; DIR a checkout, e.g. a parent commit unpacked with
-git archive, or its csrc/). It prints the parent's ptxas lines for K4 and
-K6 and K6's SASS counts; in phase 5 it holds the parent's K4 bit-equal to
+Option: --parent DIR also builds another tree's training kernels, K3, K4
+and K6 (its csrc/fused_train.cu, csrc/fused_describe.cu,
+csrc/sorted_ball_query.cu, csrc/fused_detect.cu and the headers it has; DIR
+a checkout, e.g. a parent commit unpacked with git archive, or its csrc/).
+It prints the parent's ptxas lines for K3, K4 and K6 and K3's and K6's
+SASS counts; in phase 4 it holds the parent's K3 bit-equal to this one in
+f32 and bf16_act under the seeded and the trained weights, each tree on
+the weights it packs itself, timed in turns with the split of each tree
+that has it, and in phase 15 its decomposition bodies equal to this
+one's; in phase 5 it holds the parent's K4 bit-equal to
 this one on every centre of every cloud, padding centres included, and
 times both in turns (the split of each), and holds the parent's K6 to
 this one in each mode (within 1e-5; bf16_operands >= 99.9 % within 1e-4),
@@ -112,9 +124,9 @@ parent has the split build, K8's split of both trees in turns).
 It writes only under build/ in the checkout.
 The line before last is a JSON summary of the sixteen kernel entries (K1-K10
 and K3's and K6's extra modes: times, their bounds from this run's shapes at
-the H100's f32 (bf16 modes: bf16 tensor-core; K7-K10's products and K6's
-per-slot convs at least 8 wide: TF32 tensor-core; K6 bf16_operands: all
-bf16 tensor-core) and HBM peaks,
+the H100's f32 (bf16 modes: bf16 tensor-core; K7-K10's products and K3's
+and K6's per-slot convs at least 8 wide: TF32 tensor-core; K6
+bf16_operands: all bf16 tensor-core) and HBM peaks,
 launches on their path); the last line is
 {"ok": true, "device": {...}}. Any failure
 raises (non-zero exit). It needs a CUDA device and refuses to run without
@@ -240,12 +252,18 @@ def ms_in_turns(runs, reps):
 def serving_time_split(k3, weights_t, packed, cfg, reps=10):
     """K3's time split, as the JAX bench's `pct_matmul_floor` reads it: ms
     per call of the f32 forward, the bf16 forward and the decomposition
-    bodies (CUDA events, `reps` back-to-back calls, warmed up, in turns
-    forward then backward), plus elementwise_share = (f32 - matmul) / f32
-    and product_share = (matmul - stream) / f32."""
+    bodies, each on its weights packed once (CUDA events, `reps`
+    back-to-back calls, warmed up, in turns forward then backward), plus
+    elementwise_share = (f32 - matmul) / f32 and product_share = (matmul -
+    stream) / f32. The forward's pooled convs run on the tensor cores and
+    the bodies' on FFMA, so the shares no longer split the forward
+    (fused_describe_time_split does)."""
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+
     calls = {"f32": {}, "bf16": {"bf16_act": True}, "matmul": {"ablate": "matmul"},
              "matmul_2d": {"ablate": "matmul_2d"}, "stream": {"ablate": "stream"}}
-    ms = ms_in_turns({k: (lambda kw=kw: k3(weights_t, packed, cfg, **kw))
+    packs = {k: fd._describe_kernel_weights(weights_t, cfg, packed.device, k) for k in calls}
+    ms = ms_in_turns({k: (lambda k=k, kw=kw: k3(weights_t, packed, cfg, packed=packs[k], **kw))
                       for k, kw in calls.items()}, reps)
     ms["elementwise_share"] = (ms["f32"] - ms["matmul"]) / ms["f32"]
     ms["product_share"] = (ms["matmul"] - ms["stream"]) / ms["f32"]
@@ -440,6 +458,136 @@ def detect_occupancy_line(tag, w, cfg, kw, ns, csrc=None):
           f"{blocks} blocks/SM")
 
 
+def describe_pack(csrc, w, cfg, device, mode):
+    """K3's weights as a tree (None: this one; else its csrc/) packs them
+    for its own K3 in `mode`, as the arguments of this tree's launch: a
+    tree whose K3 takes no offsets of tensor-core fragments (K3's FFMA
+    design) gets None for them, which other_library drops."""
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+
+    mod = other_fused_describe(csrc) if csrc else fd
+    if hasattr(mod, "_describe_kernel_weights"):
+        packed = tuple(mod._describe_kernel_weights(w, cfg, device, mode))
+    else:
+        packed = tuple(mod._kernel_weights(w, cfg, device, bf16=mode == "bf16"))
+    return packed if len(packed) == 3 else (*packed, None)
+
+
+# K3's forward modes as the wrapper takes them
+K3_MODES = {"f32": {}, "bf16": {"bf16_act": True}}
+
+
+def fused_describe_time_split(w, x, cfg, mode, trees, reps):
+    """K3's time split on packed clusters `x` in one forward mode, ms per
+    call (CUDA events, `reps` back-to-back calls, in turns): this tree's
+    weight packing alone (`_describe_kernel_weights`); per tree (`trees`
+    maps a tag to None for this one or to another tree's csrc/) the kernel
+    alone on the weights that tree packs, the kernel leaving each cluster
+    after each stage where the tree has the split entry
+    (kernels.describe_stops: input and membership, each detector conv below
+    the top one, the top conv and its pool, the post convs and heads, the
+    rotation, the descriptor convs, the mid conv and its pool; the rest is
+    the post conv and the L2 norm), and the whole wrapper on those packed
+    weights, as the server calls it."""
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+
+    b = x.shape[1]
+    desc = torch.empty((b, cfg.feature_dim), device=x.device)
+    att = torch.empty((b,), device=x.device)
+    runs = {"pack": lambda: fd._describe_kernel_weights(w, cfg, x.device, mode)}
+    for tag, csrc in trees.items():
+        def within(fn, csrc=csrc):
+            with kernels_from(csrc) if csrc else contextlib.nullcontext():
+                fn()
+        packed = describe_pack(csrc, w, cfg, x.device, mode)
+        lib = other_library(csrc) if csrc else kernels.library()
+        stops = [k for k in kernels.describe_stops(len(cfg.detector_mlp))
+                 if "candidates" not in k]
+        for stop in ((*stops, None) if hasattr(lib, "f3d_fused_describe_split") else (None,)):
+            runs[f"{tag} {stop or 'kernel'}"] = functools.partial(
+                within, functools.partial(fd._launch_describe, x, packed, cfg, mode, desc, att,
+                                          stop=stop))
+        runs[f"{tag} whole"] = functools.partial(
+            within, functools.partial(fd.fused_describe_clusters_t, w, x, cfg, packed=packed,
+                                      **K3_MODES[mode]))
+    return ms_in_turns(runs, reps)
+
+
+def describe_occupancy_line(tag, w, cfg, mode, csrc=None):
+    """K3's launch in a tree (None: this one) that has the occupancy entry:
+    dynamic shared memory and blocks per SM."""
+    from feat3dnet_tpu_torch import kernels
+
+    lib = other_library(csrc) if csrc else kernels.library()
+    if not hasattr(lib, "f3d_fused_describe_occupancy"):
+        return
+    with kernels_from(csrc) if csrc else contextlib.nullcontext():
+        layers = describe_pack(csrc, w, cfg, "cpu", mode)[1]
+        smem, blocks = kernels.describe_occupancy(cfg.num_samples, layers,
+                                                  len(cfg.detector_mlp),
+                                                  len(cfg.detector_mlp2),
+                                                  len(cfg.descriptor_mlp), mode)
+    print(f"  occupancy ({tag}): fused_describe {mode}: {smem} B, {blocks} blocks/SM")
+
+
+def k3_step(card, label, w, x, cfg, parent):
+    """K3 per forward mode on packed clusters `x` and weights `w` (`label`
+    names them): each tree's occupancy line, the time split of each tree in
+    turns (fused_describe_time_split), the pool candidates this tree's
+    kernel re-sums per pooled conv where it has the candidate stages, and,
+    with a parent tree (its csrc/), the parent's descriptors and attention
+    held bit-equal to this tree's, each on the weights it packs itself.
+    Returns {mode: (parent kernel ms, this kernel ms)} (parent None without
+    one)."""
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+
+    trees = {"this": None} if parent is None else {"parent": parent, "this": None}
+    b = x.shape[1]
+    times = {}
+    for mode, kw in K3_MODES.items():
+        for tag, csrc in trees.items():
+            describe_occupancy_line(tag, w, cfg, mode, csrc)
+        sp = fused_describe_time_split(w, x, cfg, mode, trees, reps=5)
+        print_split(card, f"fused_describe {mode} {label} B={b}", sp)
+        times[mode] = (sp.get("parent kernel"), sp["this kernel"])
+        packed = fd._describe_kernel_weights(w, cfg, x.device, mode)
+        stops = kernels.describe_stops(len(cfg.detector_mlp))
+        if "top_candidates" in stops:
+            # the pools' work: their candidates, counted per block by the
+            # candidate stages; a block holds TOWER_CLUSTERS_PER_BLOCK clusters
+            desc = torch.empty((b, cfg.feature_dim), device=x.device)
+            att = torch.empty((b,), device=x.device)
+            nblk = -(-b // TOWER_CLUSTERS_PER_BLOCK)
+            line = []
+            for conv, width in (("top", cfg.detector_mlp[-1]), ("mid", cfg.descriptor_mlp2[-1])):
+                fd._launch_describe(x, packed, cfg, mode, desc, att, stop=f"{conv}_candidates")
+                per = desc.view(-1)[:nblk] / (TOWER_CLUSTERS_PER_BLOCK * width)
+                line.append(f"{conv} conv {per.mean().item():.4f} (a block's max "
+                            f"{per.max().item():.4f})")
+            print(f"  fused_describe {mode} {label}: pool candidates per cluster and channel: "
+                  + ", ".join(line))
+        if parent is None:
+            continue
+        d, a = fd.fused_describe_clusters_t(w, x, cfg, packed=packed, **kw)
+        with kernels_from(parent):
+            d_p, a_p = fd.fused_describe_clusters_t(
+                w, x, cfg, packed=describe_pack(parent, w, cfg, x.device, mode), **kw)
+        require(torch.equal(d, d_p) and torch.equal(a, a_p),
+                f"K3 {mode} {label}: not bit-equal to the parent (desc max|d| "
+                f"{(d - d_p).abs().max().item():.3e}, att {(a - a_p).abs().max().item():.3e})")
+        print(f"[{card}] fused_describe {mode} {label} B={b}: parent {sp['parent kernel']:.4f} "
+              f"ms, this {sp['this kernel']:.4f} ms (kernels alone, in turns); wrapper on "
+              f"packed weights parent {sp['parent whole']:.4f}, this {sp['this whole']:.4f} ms; "
+              "descriptors and attention bit-equal to the parent")
+    return times
+
+
 def sorted_ball_query_time_split(sc, ctr, launchers, reps):
     """K4's time split at tile 256: ms per call (CUDA events, `reps`
     back-to-back calls, in turns) of the hit mask alone (`_padded_hitmask`),
@@ -533,27 +681,34 @@ def k6_share_within(att, ori, att_p, ori_p, tol):
     return ((rel <= tol) & (_wrapped(ori - ori_p).abs() <= tol)).float().mean().item()
 
 
-def k6_bound(cfg, m, moved, bf16):
-    """K6's bound on m clusters, priced by the function and not by the
-    kernel's choice of unit: in the f32 modes the per-slot convs at least 8
-    wide at the TF32 peak and the rest (conv 0, the post convs, the heads)
-    at the f32 peak; under bf16_operands, where every product takes bf16
-    operands, all at the bf16 peak; against the bytes moved. Beside it, the
-    bound with every product at the f32 peak."""
-    widths = (3,) + tuple(cfg.detector_mlp)
-    wide = cfg.num_samples * sum(a * b for a, b in zip(widths, widths[1:]) if a >= 8)
-    total = tower_macs(cfg, descriptor=False)
+def tower_bound(cfg, m, moved, bf16, descriptor=False):
+    """K6's (descriptor False) or K3's bound on m clusters, priced by the
+    function and not by the kernel's choice of unit: in f32 the per-slot
+    convs at least 8 wide (the descriptor's mid conv among them) at the
+    TF32 peak and the rest (the 3-wide first convs, the single-row layers)
+    at the f32 peak; where every product takes bf16 operands (bf16), all at
+    the bf16 peak; against the bytes moved. Beside it, the bound with every
+    product at the f32 peak."""
+    def wide(widths):
+        return sum(a * b for a, b in zip(widths, widths[1:]) if a >= 8)
+    per_slot = wide((3,) + tuple(cfg.detector_mlp))
+    if descriptor:
+        per_slot += (wide((3,) + tuple(cfg.descriptor_mlp))
+                     + wide((2 * cfg.descriptor_mlp[-1],) + tuple(cfg.descriptor_mlp2)))
+    wide_macs = cfg.num_samples * per_slot
+    total = tower_macs(cfg, descriptor=descriptor)
     if bf16:
         t_ops = 2.0 * total / PEAK_BF16_FLOPS * m * 1e3
     else:
-        t_ops = (2.0 * wide / PEAK_TF32_FLOPS + 2.0 * (total - wide) / PEAK_F32_FLOPS) * m * 1e3
+        t_ops = (2.0 * wide_macs / PEAK_TF32_FLOPS
+                 + 2.0 * (total - wide_macs) / PEAK_F32_FLOPS) * m * 1e3
     t_mem = moved / PEAK_HBM_BYTES * 1e3
     return (((t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")),
             bound_ms(2.0 * total * m, moved))
 
 
-# clusters per block of K6's launch (csrc/fused_detect.cu kC)
-K6_CLUSTERS_PER_BLOCK = 2
+# clusters per block of K3's and K6's launches (csrc/tower_pool.cuh kC)
+TOWER_CLUSTERS_PER_BLOCK = 2
 
 
 def k6_step(card, name, offs, weights, cfg, parent):
@@ -583,8 +738,8 @@ def k6_step(card, name, offs, weights, cfg, parent):
         # the pool's work: its candidates, counted per block by the
         # candidates stage (kernels.detect_stops)
         fd._launch_detect(offs, packed, cfg, unf, bf16, out, stop="candidates")
-        nblk = -(-offs.shape[0] // K6_CLUSTERS_PER_BLOCK)
-        per = out.view(-1)[:nblk] / (K6_CLUSTERS_PER_BLOCK * cfg.detector_mlp[-1])
+        nblk = -(-offs.shape[0] // TOWER_CLUSTERS_PER_BLOCK)
+        per = out.view(-1)[:nblk] / (TOWER_CLUSTERS_PER_BLOCK * cfg.detector_mlp[-1])
         print(f"  fused_detect {mode} {name}: pool candidates per cluster and channel mean "
               f"{per.mean().item():.4f}, a block's max {per.max().item():.4f}")
         if parent is None:
@@ -684,8 +839,8 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
                     8.0 * cnt_k[real].sum().item(), nbytes(sc.pts4, ctr, top_k, cnt_k)))
                 bounds["ball_max"].append(bound_ms(
                     9.0 * cnt_nms[real].sum().item(), nbytes(sc.pts4, att_k, bm_k)))
-                b6, b6_f32 = k6_bound(cfg, offs.shape[0], nbytes(offs, *w_det) + offs.shape[0] * 8,
-                                      False)
+                b6, b6_f32 = tower_bound(cfg, offs.shape[0],
+                                          nbytes(offs, *w_det) + offs.shape[0] * 8, False)
                 bounds["fused_detect"].append(b6)
                 print(f"  fused_detect {name} bound {b6[0]:.4f} ms ({b6[1]}; every product at "
                       f"the f32 peak: {b6_f32[0]:.4f} ms)")
@@ -836,9 +991,10 @@ TRAIN_KERNELS = ("train_stats", "train_final", "train_bwd_top", "train_bwd")
 EXACT_TO_PARENT = ("train_final", "train_bwd_top")
 # --parent: the sources and headers of the other tree that are built (and
 # its tensor-core header where it has one)
-PARENT_BUILD = (("fused_train.cu", "sorted_ball_query.cu", "fused_detect.cu"),
+PARENT_BUILD = (("fused_train.cu", "sorted_ball_query.cu", "fused_detect.cu",
+                 "fused_describe.cu"),
                 ("common.cuh", "slot_layer.cuh"))
-PARENT_OPTIONAL_HEADERS = ("tc_mma.cuh",)
+PARENT_OPTIONAL_HEADERS = ("tc_mma.cuh", "tower_pool.cuh")
 
 
 def compare(name, got, want, rtol, atol, max_share=0.0):
@@ -1339,13 +1495,14 @@ def parent_cdll(csrc):
 
 @functools.lru_cache(maxsize=None)
 def other_library(csrc):
-    """This tree's entry points, but the training passes' (f3d_train_*) and
-    K6's (f3d_fused_detect*) from another tree's csrc/, built alone; one the
-    other tree lacks is left undefined. The training passes are declared as
-    this tree's are. K6's are called with this tree's arguments and the
-    weights that tree packs itself (detect_pack): a tree whose K6 takes no
-    offsets of tensor-core fragments (K6's FFMA design) gets the same call
-    without them."""
+    """This tree's entry points, but the training passes' (f3d_train_*),
+    K6's (f3d_fused_detect*) and K3's (f3d_fused_describe*) from another
+    tree's csrc/, built alone; one the other tree lacks is left undefined.
+    The training passes are declared as this tree's are. K6's and K3's are
+    called with this tree's arguments and the weights that tree packs itself
+    (detect_pack, describe_pack): a tree whose K6 or K3 takes no offsets of
+    tensor-core fragments (their FFMA designs) gets the same call without
+    them."""
     import ctypes
     import types
 
@@ -1361,21 +1518,23 @@ def other_library(csrc):
             setattr(lib, name, fn)
         else:
             delattr(lib, name)
-    with open(os.path.join(csrc, "fused_detect.cu")) as f:
-        ffma = "const int* extra" not in f.read()
-    for name in [n for n in vars(lib) if n.startswith("f3d_fused_detect")]:
-        if not hasattr(theirs, name):
-            delattr(lib, name)
-            continue
-        fn, ref = getattr(theirs, name), getattr(mine, name)
-        fn.restype = ctypes.c_int
-        if not ffma or name == "f3d_fused_detect_occupancy":
-            fn.argtypes = ref.argtypes
-            setattr(lib, name, fn)
-        else:
-            # clusters, ns, batch, weights, layers | extra | n_det ...
-            fn.argtypes = ref.argtypes[:5] + ref.argtypes[6:]
-            setattr(lib, name, lambda *a, fn=fn: fn(*a[:5], *a[6:]))
+    for src, prefix in (("fused_detect.cu", "f3d_fused_detect"),
+                        ("fused_describe.cu", "f3d_fused_describe")):
+        with open(os.path.join(csrc, src)) as f:
+            ffma = "const int* extra" not in f.read()
+        for name in [n for n in vars(lib) if n.startswith(prefix)]:
+            if not hasattr(theirs, name):
+                delattr(lib, name)
+                continue
+            fn, ref = getattr(theirs, name), getattr(mine, name)
+            fn.restype = ctypes.c_int
+            if not ffma or name.endswith("_occupancy"):
+                fn.argtypes = ref.argtypes
+                setattr(lib, name, fn)
+            else:
+                # packed or clusters, ns, batch, weights, layers | extra | n_det ...
+                fn.argtypes = ref.argtypes[:5] + ref.argtypes[6:]
+                setattr(lib, name, lambda *a, fn=fn: fn(*a[:5], *a[6:]))
     return lib
 
 
@@ -1440,13 +1599,14 @@ def train_build_report(tag, info):
         print(f"  sass ({tag}): {name}: {c['HMMA']} HMMA, {c['FFMA']} FFMA")
 
 
-def detect_build_report(tag, info):
-    """K6's lines of a build's ptxas report and its SASS counts: tensor-core
-    (HMMA), f32 CUDA-core (FFMA), shared (LDS), global (LDG) and local
-    (LDL, STL) memory instructions, per instantiation."""
-    ptxas_lines(tag, info, "fused_detect")
+def tower_build_report(tag, info, marker):
+    """The lines of a build's ptxas report and its SASS counts for the
+    kernels whose name holds `marker` (K3: "describe", K6: "fused_detect"):
+    tensor-core (HMMA), f32 CUDA-core (FFMA), shared (LDS), global (LDG) and
+    local (LDL, STL) memory instructions, per instantiation."""
+    ptxas_lines(tag, info, marker)
     ops = ("HMMA", "FFMA", "LDS", "LDG", "LDL", "STL")
-    for name, c in sass_counts(info, r"\w*fused_detect\w*", ops).items():
+    for name, c in sass_counts(info, rf"\w*{marker}\w*", ops).items():
         print(f"  sass ({tag}): {name}: " + ", ".join(f"{c[op]} {op}" for op in ops))
 
 
@@ -1819,10 +1979,11 @@ def bf16_model_phase(dev, card):
 
 
 def serving_mode_phases(dev, card, model, server, weights_t, packed, packed_host,
-                        clusters_host, cfg):
+                        clusters_host, cfg, parent=None):
     """Phases 13-15: K3's bf16 mode against its plain version and f32, the
-    bf16 serving path with counters reset, K3's decomposition bodies and
-    the time split. Returns ({kernel entry: report}, {entry: launches})."""
+    bf16 serving path with counters reset, K3's decomposition bodies (and,
+    with a parent tree, held equal to the parent's) and the time split.
+    Returns ({kernel entry: report}, {entry: launches})."""
     import torch
 
     from feat3dnet_tpu_torch.inference import ClusterDescriptorServer
@@ -1907,19 +2068,30 @@ def serving_mode_phases(dev, card, model, server, weights_t, packed, packed_host
                 require(err <= 1e-5, f"K3 {ab} body vs plain: {err:.3e} of max|ref|")
             report[names[ab]]["max_abs_err"] = max((dk - dp).abs().max().item(),
                                                    (ak - ap).abs().max().item())
+            same = ""
+            if parent is not None:
+                with kernels_from(parent):
+                    dq, aq = k3(weights_t, packed, cfg, ablate=ab,
+                                packed=describe_pack(parent, weights_t, cfg, dev, ab))
+                require(torch.equal(dk, dq) and torch.equal(ak, aq),
+                        f"K3 {ab} body != the parent's")
+                same = "; equal to the parent's"
             print(f"K3 {ab} body vs plain: "
-                  + ("exact" if ab == "stream" else f"{err:.3e} of max|ref| (<= 1e-5)"))
+                  + ("exact" if ab == "stream" else f"{err:.3e} of max|ref| (<= 1e-5)") + same)
         k3.mode_launches.update(dict.fromkeys(k3.mode_launches, 0))
         split = serving_time_split(k3, weights_t, packed, cfg, reps=10)
         for ab in ablations:
             launches[names[ab]] = k3.mode_launches[ab]
         require(all(launches[names[ab]] > 0 for ab in ablations),
                 f"decomposition launches {dict(k3.mode_launches)}")
-        host_ms = profiling.timed_device_call(k3, weights_t, packed, cfg, repeats=7) * 1e3
+        host_ms = profiling.timed_device_call(
+            functools.partial(k3, packed=fd._describe_kernel_weights(weights_t, cfg, dev)),
+            weights_t, packed, cfg, repeats=7) * 1e3
         for mode, kw in [("bf16", {"bf16_act": True})] + [(ab, {"ablate": ab})
                                                           for ab in ablations]:
+            pk = fd._describe_kernel_weights(weights_t, cfg, dev, mode)   # packed once
             report[names[mode]].update(zip(("ms", "plain_ms"), in_turns(
-                lambda kw=kw: k3(weights_t, packed, cfg, **kw),
+                lambda kw=kw, pk=pk: k3(weights_t, packed, cfg, packed=pk, **kw),
                 lambda kw=kw: k3.plain(weights_t, packed, cfg, **kw), 10, 3)))
     print(f"[{card}] K3 time split at {BATCH} clusters (CUDA events, in turns): f32 "
           f"{split['f32']:.4f} ms, bf16 {split['bf16']:.4f} ms, matmul {split['matmul']:.4f} ms, "
@@ -2034,8 +2206,8 @@ def detector_mode_phase(dev, card, clouds, npz_path):
                                          w, offs, cfg, **kw), 3, 2)
                     times[m].append(ms[m])
                     moved = nbytes(offs, *w) + offs.shape[0] * 8
-                    bounds[m].append(k6_bound(cfg, offs.shape[0], moved,
-                                              m == "bf16_operands")[0])
+                    bounds[m].append(tower_bound(cfg, offs.shape[0], moved,
+                                                 m == "bf16_operands")[0])
                 ms_u, _ = in_turns(lambda: k6(w_unf, offs, cfg, unfolded=True, packed=pk_unf),
                                    lambda: k6(w_fold, offs, cfg, packed=packs["folded"]), 3, 3)
                 print(f"[{card}] K6 modes {name} M={offs.shape[0]}: folded {ms['folded'][0]:.4f} "
@@ -2059,8 +2231,9 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="another tree (a checkout or its csrc/): build its K4 and training "
-                         "kernels too and hold this tree's against them (phase 5, parent_ab)")
+                    help="another tree (a checkout or its csrc/): build its K3, K4, K6 and "
+                         "training kernels too and hold this tree's against them (phases 4, "
+                         "5, 15, parent_ab)")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2080,7 +2253,7 @@ def main():
     from feat3dnet_tpu_torch.models import Feat3DNet
     from feat3dnet_tpu_torch.ops import batch_group, fps, fused_describe
     from feat3dnet_tpu_torch.ops.neighborhoods import gather_points, group_points
-    from feat3dnet_tpu_torch.utils import init_variables, load_variables
+    from feat3dnet_tpu_torch.utils import init_variables, load_variables, load_variables_npz
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2097,13 +2270,15 @@ def main():
     kernels.library()
     print(f"build: {info.seconds:.1f} s -> {os.path.relpath(info.path, HERE)}")
     ptxas_lines("this", info, "")
-    detect_build_report("this", info)
-    parent_lib = None
+    for marker in ("fused_detect", "describe"):
+        tower_build_report("this", info, marker)
+    parent_lib = parent = None
     if opts.parent:
-        csrc = parent_csrc(opts.parent)
-        ptxas_lines("parent", parent_build(csrc), "sorted_ball_query")
-        detect_build_report("parent", parent_build(csrc))
-        parent_lib = parent_cdll(csrc)
+        parent = parent_csrc(opts.parent)
+        ptxas_lines("parent", parent_build(parent), "sorted_ball_query")
+        for marker in ("fused_detect", "describe"):
+            tower_build_report("parent", parent_build(parent), marker)
+        parent_lib = parent_cdll(parent)
     clouds = {n: torch.from_numpy(
         np.ascontiguousarray(load_point_cloud(example_cloud_path(n))[:, :3]))[None]
         for n in CLOUDS}
@@ -2174,6 +2349,29 @@ def main():
     require(err <= 1e-4 and cos >= 0.99999 and att_rel <= 1e-4,
             "fused describe kernel outside tolerance vs plain")
     report["fused_describe"]["max_abs_err"] = err
+    # the trained weights (ckpt/4480) on the same clusters: f32 at the limits
+    # above, bf16_act at phase 13's
+    npz_path = os.path.join(HERE, "feat3dnet_tpu_torch", "assets", "ckpt4480_variables.npz")
+    wt_trained = [w.to(dev) for w in fused_describe.transpose_folded_weights(
+        fused_describe.folded_weights(load_variables_npz(npz_path), cfg))]
+    for mode, kw in K3_MODES.items():
+        (dk, ak), (dp, ap) = (k3(wt_trained, packed, cfg, **kw),
+                              k3_plain(wt_trained, packed, cfg, **kw))
+        torch.cuda.synchronize()
+        dmax = (dk - dp).abs().amax(dim=1)
+        cos = torch.nn.functional.cosine_similarity(dk, dp, dim=1).min().item()
+        att_rel = ((ak - ap).abs() / ap.abs().clamp(min=1e-6)).max().item()
+        if mode == "f32":
+            ok = dmax.max().item() <= 1e-4 and cos >= 0.99999 and att_rel <= 1e-4
+            held = "(<= 1e-4, cos >= 0.99999, att rel <= 1e-4)"
+        else:
+            within = (dmax <= 2.0 ** -8).float().mean().item()
+            ok = cos >= 0.9999 and within >= 0.999 and att_rel <= 1e-2
+            held = (f"{100 * within:.3f} % within 2^-8 (>= 99.9 %, cos >= 0.9999, att rel "
+                    "<= 1e-2)")
+        print(f"K3 fused_describe {mode} trained weights {BATCH} clusters: max|d| "
+              f"{dmax.max().item():.3e}, min cos {cos:.7f}, att rel {att_rel:.3e} {held}")
+        require(ok, f"fused describe kernel {mode} outside tolerance vs plain, trained weights")
 
     # ---- 2. the main path, with launch counters from zero --------------------
     for w in wrappers.values():
@@ -2259,13 +2457,18 @@ def main():
             report[key]["ms"] = float(np.mean([p[0] for p in per]))
             report[key]["plain_ms"] = float(np.mean([p[1] for p in per]))
             report[key]["bound_ms"], report[key]["bound_by"] = mean_bound(bounds)
-        ms_k, ms_p = in_turns(lambda: k3(weights_t, packed, cfg),
+        pk3 = fused_describe._describe_kernel_weights(weights_t, cfg, dev)   # packed once
+        ms_k, ms_p = in_turns(lambda: k3(weights_t, packed, cfg, packed=pk3),
                               lambda: k3_plain(weights_t, packed, cfg), 10, 3)
-        b3 = bound_ms(2.0 * tower_macs(cfg) * BATCH,
-                      nbytes(packed, *weights_t) + BATCH * (cfg.feature_dim + 1) * 4)
+        b3, b3_f32 = tower_bound(cfg, BATCH, nbytes(packed, *weights_t)
+                                 + BATCH * (cfg.feature_dim + 1) * 4, False, descriptor=True)
         report["fused_describe"].update(ms=ms_k, plain_ms=ms_p, bound_ms=b3[0], bound_by=b3[1])
         print(f"[{card}] fused_describe {BATCH} clusters: kernel {ms_k:.4f} ms "
-              f"({BATCH / ms_k * 1e3:.0f} desc/s), plain {ms_p:.4f} ms")
+              f"({BATCH / ms_k * 1e3:.0f} desc/s), plain {ms_p:.4f} ms, bound {b3[0]:.4f} ms "
+              f"({b3[1]}; every product at the f32 peak: {b3_f32[0]:.4f} ms)")
+        # K3 per forward mode: split, occupancy, candidates (and the parent)
+        for label, w in (("seeded", weights_t), ("trained", wt_trained)):
+            k3_step(card, label, w, packed, cfg, parent)
         # server: host-packed requests in, descriptors on the host out
         server.describe_packed(packed_host)
         torch.cuda.synchronize()
@@ -2311,8 +2514,7 @@ def main():
         dev, card, ext_clouds,
         os.path.join(HERE, "feat3dnet_tpu_torch", "assets", "ckpt4480_variables.npz"),
         os.path.dirname(example_cloud_path(CLOUDS[0])),
-        os.path.join(HERE, "build", "chip_smoke_extract"), parent_lib,
-        parent_csrc(opts.parent) if opts.parent else None)
+        os.path.join(HERE, "build", "chip_smoke_extract"), parent_lib, parent)
     report.update(ext_report)
     # K1-K3 count on the forward/serving path, K4-K6 on the extraction path
     launches.update({k: ext_launches[k] for k in ext_report})
@@ -2324,7 +2526,7 @@ def main():
 
     # ---- 13-16. K3's bf16 and decomposition modes, K6's folded and bf16 modes -----------
     for more in (serving_mode_phases(dev, card, model, server, weights_t, packed, packed_host,
-                                     clusters.cpu().numpy(), cfg),
+                                     clusters.cpu().numpy(), cfg, parent),
                  detector_mode_phase(dev, card, ext_clouds, os.path.join(
                      HERE, "feat3dnet_tpu_torch", "assets", "ckpt4480_variables.npz"))):
         report.update(more[0])

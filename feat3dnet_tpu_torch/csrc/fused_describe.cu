@@ -13,8 +13,7 @@
 //   x' = x c - y s, y' = x s + y c -> descriptor convs (ReLU) per slot ->
 //   masked pool -> [pointwise | pooled] -> mid conv (no ReLU), masked with
 //   -1e30 and pooled -> post conv -> L2 normalisation.
-// Modes (a template parameter; the same grid, block, shared memory and
-// weight reads in all five):
+// Modes:
 //   kF32       the forward in f32.
 //   kBf16      bf16_act: every kernel matrix arrives rounded to bf16 (the
 //              wrapper rounds it); the scaled input, every ReLU output, the
@@ -38,91 +37,352 @@
 //              mid conv's input is [d_s ; d_s].
 //
 // What bounds it on this card: arithmetic. At the paper widths a cluster of
-// 64 slots costs about 3.9 M multiply-adds (the 128->256 detector conv is
-// two thirds of it) against 768 B of input and 132 B of output; the folded
-// weights are about 106 k floats (425 KB), more than a block's shared
-// memory, and are read by every cluster from L2.
+// 64 slots costs about 3.9 M multiply-adds against 768 B of input and 132 B
+// of output: the detector's top conv (128->256, pooled) 2.1 M (55 %), the
+// descriptor's mid conv (128->128, pooled) 1.05 M (27 %), the detector's
+// conv1 (64->128) 0.52 M, the descriptor's conv1 (32->64) 0.13 M. The
+// folded weights are about 106 k floats (425 KB), more than a block's
+// shared memory; every block reads them from L2.
 //
-// What the design does about it: one block of 256 threads per cluster. The
-// activations of all 64 slots stay in shared memory (two ping-pong buffers
-// of 64 x 128 floats at the paper widths); the widest layer of each tower
-// is never stored, its outputs go straight into the pool. The per-slot
-// layer (slot_layer.cuh, shared with K6) is register-tiled: each warp owns
-// 8 slots, each lane Cout/32 channels, so a thread keeps up to 8 x 8 sums
-// in registers and does 16 FMAs per value it loads. Activations come as
-// float4 broadcasts from shared memory; weights (stored (Cin, Cout),
-// 16-byte aligned) as coalesced vector reads that all 8 warps share through
-// L1. Plain f32 FMA on the CUDA cores in every mode, bf16 included;
-// tensor-core (mma / wgmma) tiles over many clusters per block are later
-// work.
+// What the design does about it, in the forward modes (describe_kernel):
+// - The outputs equal the previous design's bit for bit. That design (one
+//   block of 256 threads a cluster, every product an FFMA register tile)
+//   summed each output as one fmaf chain in k order, as the plain version's
+//   cuBLAS f32 GEMMs do on this card. K3 rotates its descriptor's input by
+//   the detector's orientation, and on the trained weights some clusters'
+//   orientation moves by 1e-5-1e-4 rad when any conv sums in another order
+//   (K6's finding, tests/test_torch_k6_tc.py); the descriptor is held to
+//   1e-4 and cosine 0.99999.
+// - The two max-pooled convs, 82 % of the work, run on the tensor cores
+//   (tower_pool.cuh's pooled_conv, K6's code): 1xTF32 m16n8k8 through
+//   ldmatrix in f32, bf16 m16n8k16 on bf16_act's bf16 operands. The product
+//   only marks the rows that can hold a channel's maximum (within a slack
+//   from the row and column norms) and a thread per channel re-sums those
+//   rows as k-order chains, so the pools are the chains' pools. The mid
+//   conv's values are signed (no ReLU): its candidates are not clamped at
+//   0, and rows outside the ball are never candidates. A cluster always
+//   has a member row (an empty ball keeps its nearest slot), so the -1e30
+//   fill of its masked pool never reaches the output. Its input's right
+//   half, the pool, is the same in every row of a cluster, so the TF32
+//   rounding of those products is the same error in every row and its
+//   slack leaves it out (pooled_conv's kShared): 1.0-1.2 candidates per
+//   cluster and channel instead of 2.4-3.
+// - kC = 2 clusters a block of 8 warps (128 slot rows), as K6: each
+//   pooled conv's warp tile is 64 rows of one cluster by 16 channels, the
+//   single-row layers (post convs, heads, the descriptor's post conv) run
+//   a thread per channel with both clusters' chains, W loaded once for both.
+// - The other per-slot convs stay on the CUDA cores in k order
+//   (f3d::slot_layer, per cluster); the descriptor's last conv is pooled
+//   after it is stored (a max of ReLU values, exact in any order).
+// - Conv inputs keep a row stride of cin + 4 floats, so a fragment's eight
+//   rows fall in eight bank groups. The pooled convs' W fragments (TF32
+//   values, or bf16 pairs) and column norms are laid out by the wrapper,
+//   once per weight list.
+// - Shared memory at the paper widths: 105 504 B (2 blocks per SM): the
+//   coordinates, mask, repeat flags and heads, then two buffers, 128 x 68
+//   and 128 x 132 floats, that the per-slot convs ping-pong through; each
+//   pooled conv keeps its pool, the single-row vectors, its input's row
+//   norms and its candidate marks in the buffer it does not read.
+// The decomposition bodies keep the previous design's one cluster a block
+// of FFMA tiles (decompose_kernel): their pools are sums, so no row of
+// them can be picked.
+#include <cuda_bf16.h>
+
+#include "common.cuh"
 #include "slot_layer.cuh"
+#include "tc_mma.cuh"
+#include "tower_pool.cuh"
 
 namespace {
 
 using f3d::BiasAct;
 using f3d::kNoPool;
-using f3d::kPoolMaskedNeg;
-using f3d::kPoolRelu;
 using f3d::kPoolSum;
+using namespace f3d::tower;
 
-constexpr int kThreads = f3d::kTowerThreads;
-constexpr int kSlots = f3d::kTowerSlots;
 constexpr int kVec = 256;           // widest pooled / single-row vector
 constexpr int kMaxLayers = 16;
 
 enum Mode { kF32 = 0, kBf16 = 1, kStream = 2, kMatmul = 3, kMatmul2d = 4 };
 
-struct Layer { int cin, cout, w, b; };  // offsets into the flat weight buffer
 struct Tower {
-  int n_det, n_det2, n_desc;
-  int buf_width;                         // widest stored per-slot activation
-  Layer l[kMaxLayers];
+  int n_det, n_det2, n_desc, ns, batch;
+  float r2, inv_r;
+  int x_off, mask_off, dup_off, head_off, buf_off[2];   // describe_kernel's shared memory
+  int smem_floats;                      // describe_kernel's shared memory
+  int buf_width;                        // decompose_kernel's widest stored activation
+  Layer l[kMaxLayers];                  // detector convs, post convs, attention,
+                                        // orientation, descriptor convs, mid, post
 };
 
+// A pooled conv's room in the buffer it does not read: its pool, two
+// single-row vectors (kC x kMaxC each), its input's row norms and those of
+// the rows' left halves (kRows each), the candidate marks (kC x kMaxC x 2
+// words) and their count.
+struct PoolRoom {
+  float* pooled;
+  float* vec[2];
+  float* hnorm;
+  float* hnorm_l;
+  unsigned* rowmask;
+  int* count;
+  __device__ explicit PoolRoom(float* p)
+      : pooled(p), vec{p + kC * kMaxC, p + 2 * kC * kMaxC}, hnorm(p + 3 * kC * kMaxC),
+        hnorm_l(hnorm + kRows), rowmask(reinterpret_cast<unsigned*>(hnorm_l + kRows)),
+        count(reinterpret_cast<int*>(rowmask + 2 * kC * kMaxC)) {}
+};
+constexpr int kPoolRoomFloats = 5 * kC * kMaxC + 2 * kRows + 1;
+
+// Pooled conv L on the block's rows of `in` (row stride ld) into room.pooled:
+// marks cleared, input row norms, then pooled_conv in the phase the split
+// asks (2: all); with phase 1, the candidates' count into desc[block].
+// kRelu: the detector's top conv; else the mid conv, whose input's right
+// half is the same in every row of a cluster (pooled_conv's kShared).
+// Out of line: the pooled convs' registers then spill less into the rest.
+template <bool kBf16, bool kRelu>
+__device__ __noinline__ void pool_layer(const Layer& L, const float* __restrict__ wts,
+                                        const float* in, int ld, const float* mask,
+                                        const int* dup, const PoolRoom& room, int phase,
+                                        float* desc) {
+  for (int i = threadIdx.x; i < 2 * kC * kMaxC; i += kThreads) room.rowmask[i] = 0u;
+  if (threadIdx.x == 0) *room.count = 0;
+  row_norms(in, ld, L.cin, kRelu ? L.cin : L.cin / 2, room.hnorm, room.hnorm_l, threadIdx.x);
+  __syncthreads();
+  pooled_conv<kBf16, kRelu, !kRelu>(L, wts, in, ld, mask, dup, room.hnorm, room.pooled,
+                                    room.rowmask, room.count, phase, room.hnorm_l);
+  if (phase == 1 && threadIdx.x == 0) desc[blockIdx.x] = static_cast<float>(*room.count);
+}
+
+// out[c * kMaxC + n] = epi(sum_k x[c * kMaxC + k] W[k][n]) for the block's
+// clusters: a thread per channel keeping the kC clusters' fmaf chains in k
+// order; epi rounds as BiasAct does. Ends synced.
+template <bool kRound>
+__device__ __forceinline__ void row_layer(const Layer& L, const float* __restrict__ wts,
+                                          const float* x, bool relu, float* out) {
+  const BiasAct<kRound> epi{wts + L.b, relu};
+  for (int n = threadIdx.x; n < L.cout; n += kThreads) {
+    float acc[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[c] = 0.f;
+    column_chains<kC>(x, wts + L.w + n, L.cout, L.cin, acc);
+    const float b = epi.chan(n);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) out[c * kMaxC + n] = epi.apply(acc[c], b);
+  }
+  __syncthreads();
+}
+
+// The forward, kC clusters a block; `stop` (the time split) leaves after a
+// stage: 1 input and membership, 2 + l detector conv l below the top one,
+// then from s = n_det + 1 on: s the top conv's products, s + 1 its pool,
+// s + 2 the post convs and heads, s + 3 the rotation, s + 4 the descriptor
+// convs, s + 5 the mid conv's products, s + 6 its pool; s + 7 and s + 8
+// the top and the mid conv's candidates marked, their count in
+// desc[block]; 0 runs everything.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+describe_kernel(const float* __restrict__ packed, const float* __restrict__ wts,
+                const __grid_constant__ Tower T, float* __restrict__ desc,
+                float* __restrict__ att, int stop) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* xin = sm + T.x_off;                           // kRows x 4: x, y, z, 0 (scaled)
+  float* mask = sm + T.mask_off;                       // kRows
+  int* dup = reinterpret_cast<int*>(sm + T.dup_off);   // kRows (first the distances)
+  float* head = sm + T.head_off;                       // kC x 4: attention, c, s, -
+  float* buf[2] = {sm + T.buf_off[0], sm + T.buf_off[1]};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b0 = blockIdx.x * kC, batch = T.batch;
+  const int top = T.n_det - 1, d0 = T.n_det + T.n_det2 + 2, mid = d0 + T.n_desc;
+  const int s = T.n_det + 1;
+  const auto act = [](float v) { return kBf16 ? f3d::round_bf16(v) : v; };
+  const auto coord = [&](int slot, int j, int b) {
+    return packed[static_cast<size_t>(8 * slot + j) * batch + b];
+  };
+
+  // ---- coordinates and membership; then, per slot, whether its
+  // coordinates repeat its cluster's slot 0 (a ball query's padding: every
+  // value of the row is slot 0's, and so is its membership)
+  float* d2s = reinterpret_cast<float*>(dup);
+  for (int row = tid; row < kRows; row += kThreads) {
+    const int slot = row % kSlots, b = b0 + row / kSlots;
+    float x = 0.f, y = 0.f, z = 0.f, d2 = INFINITY;
+    if (b < batch && slot < T.ns) {
+      x = coord(slot, 0, b);
+      y = coord(slot, 1, b);
+      z = coord(slot, 2, b);
+      d2 = f3d::sqdist3(x, y, z);
+    }
+    xin[4 * row + 0] = act(__fmul_rn(x, T.inv_r));
+    xin[4 * row + 1] = act(__fmul_rn(y, T.inv_r));
+    xin[4 * row + 2] = act(__fmul_rn(z, T.inv_r));
+    xin[4 * row + 3] = 0.f;
+    d2s[row] = d2;
+  }
+  __syncthreads();
+  for (int c = warp; c < kC; c += kWarps)
+    membership(d2s + c * kSlots, T.r2, mask + c * kSlots, lane);
+  __syncthreads();
+  for (int row = tid; row < kRows; row += kThreads) {
+    const int slot = row % kSlots, b = b0 + row / kSlots;
+    bool rep = b < batch && slot > 0 && slot < T.ns;
+    for (int j = 0; j < 3 && rep; ++j)
+      rep = __float_as_uint(coord(slot, j, b)) == __float_as_uint(coord(0, j, b));
+    dup[row] = rep;
+  }
+  if (stop == 1) return;
+
+  // ---- detector convs below the top one: CUDA cores, k order, per cluster
+  const float* in = xin;
+  int ld = 4;
+  for (int l = 0; l < top; ++l) {
+    const Layer& L = T.l[l];
+    float* out = buf[l & 1];
+    const int out_ld = L.cout + 4;
+    for (int c = 0; c < kC; ++c)
+      f3d::slot_layer_any(L.cout, in + c * kSlots * ld, L.cin, ld, wts + L.w,
+                          BiasAct<kBf16>{wts + L.b, true}, out + c * kSlots * out_ld, out_ld,
+                          kNoPool, mask + c * kSlots, nullptr, nullptr);
+    in = out;
+    ld = out_ld;
+    if (stop == 2 + l) return;
+  }
+
+  // ---- the top conv on the tensor cores, its pool re-summed in k order
+  const PoolRoom det(buf[top & 1]);
+  pool_layer<kBf16, true>(T.l[top], wts, in, ld, mask, dup, det,
+                          stop == s ? 0 : stop == s + 7 ? 1 : 2, desc);
+  if (stop == s || stop == s + 1 || stop == s + 7) return;
+
+  // ---- post convs (ReLU), then the heads: attention (cin -> 1) and
+  // orientation (cin -> 2), a thread per cluster and output, k order
+  const float* g = det.pooled;
+  for (int i = 0; i < T.n_det2; ++i) {
+    row_layer<kBf16>(T.l[T.n_det + i], wts, g, true, det.vec[i & 1]);
+    g = det.vec[i & 1];
+  }
+  {
+    const int li = T.n_det + T.n_det2;
+    const int cin = T.l[li].cin;
+    for (int o = tid; o < 3 * kC; o += kThreads) {
+      const int c = o / 3, j = o % 3;
+      const Layer& H = T.l[li + (j > 0)];
+      const int col = j > 0 ? j - 1 : 0;
+      float acc[1] = {0.f};
+      column_chains<1>(g + c * kMaxC, wts + H.w + col, H.cout, cin, acc);
+      head[c * 4 + j] = acc[0] + __ldg(wts + H.b + col);
+    }
+  }
+  __syncthreads();
+  if (tid < kC) {
+    const float a = head[tid * 4], oc = head[tid * 4 + 1], os = head[tid * 4 + 2];
+    head[tid * 4] = fmaxf(a, 0.f) + log1pf(expf(-fabsf(a)));   // logaddexp(a, 0)
+    const float inv = 1.f / sqrtf(fmaxf(__fadd_rn(__fmul_rn(oc, oc), __fmul_rn(os, os)), 1e-8f));
+    head[tid * 4 + 1] = __fmul_rn(oc, inv);
+    head[tid * 4 + 2] = __fmul_rn(os, inv);
+  }
+  __syncthreads();
+  if (stop == s + 2) return;
+
+  // ---- rotate into the canonical orientation (from the unrounded x / r)
+  for (int row = tid; row < kRows; row += kThreads) {
+    const int slot = row % kSlots, c = row / kSlots, b = b0 + c;
+    const float co = head[c * 4 + 1], si = head[c * 4 + 2];
+    float x = 0.f, y = 0.f;
+    if (b < batch && slot < T.ns) {
+      x = __fmul_rn(coord(slot, 0, b), T.inv_r);
+      y = __fmul_rn(coord(slot, 1, b), T.inv_r);
+    }
+    xin[4 * row] = act(__fsub_rn(__fmul_rn(x, co), __fmul_rn(y, si)));
+    xin[4 * row + 1] = act(__fadd_rn(__fmul_rn(x, si), __fmul_rn(y, co)));
+  }
+  __syncthreads();
+  if (stop == s + 3) return;
+
+  // ---- descriptor convs on the CUDA cores; the last one stored into the
+  // left half of [h | pool], then its masked max pool into the right half
+  in = xin;
+  ld = 4;
+  int c_last = 0;
+  for (int i = 0; i < T.n_desc; ++i) {
+    const Layer& L = T.l[d0 + i];
+    const bool last = i == T.n_desc - 1;
+    float* out = buf[i & 1];
+    const int out_ld = (last ? 2 * L.cout : L.cout) + 4;
+    for (int c = 0; c < kC; ++c)
+      f3d::slot_layer_any(L.cout, in + c * kSlots * ld, L.cin, ld, wts + L.w,
+                          BiasAct<kBf16>{wts + L.b, true}, out + c * kSlots * out_ld, out_ld,
+                          kNoPool, mask + c * kSlots, nullptr, nullptr);
+    in = out;
+    ld = out_ld;
+    c_last = L.cout;
+  }
+  float* cat = buf[(T.n_desc - 1) & 1];
+  for (int e = tid; e < kC * c_last; e += kThreads) {
+    const int c = e / c_last, k = e - c * c_last;
+    float* col = cat + c * kSlots * ld + k;
+    float p = 0.f;                      // ReLU values: the max of mask * v is exact
+    for (int r = 0; r < kSlots; ++r) p = fmaxf(p, col[r * ld] * mask[c * kSlots + r]);
+    for (int r = 0; r < kSlots; ++r) col[r * ld + c_last] = p;
+  }
+  __syncthreads();
+  if (stop == s + 4) return;
+
+  // ---- the mid conv (no ReLU) on the tensor cores, its masked pool
+  // re-summed in k order; the post conv; L2
+  const PoolRoom dsc(buf[T.n_desc & 1]);
+  pool_layer<kBf16, false>(T.l[mid], wts, cat, ld, mask, dup, dsc,
+                           stop == s + 5 ? 0 : stop == s + 8 ? 1 : 2, desc);
+  if (stop == s + 5 || stop == s + 6 || stop == s + 8) return;
+  const Layer& P = T.l[mid + 1];
+  row_layer<false>(P, wts, dsc.pooled, false, dsc.vec[0]);
+  if (warp < kC && b0 + warp < batch) {
+    const float* v = dsc.vec[0] + warp * kMaxC;
+    float sq = 0.f;
+    for (int c = lane; c < P.cout; c += 32) sq = fmaf(v[c], v[c], sq);
+    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    const float inv = 1.f / sqrtf(fmaxf(sq, 1e-8f));
+    const size_t b = b0 + warp;
+    for (int c = lane; c < P.cout; c += 32) desc[b * P.cout + c] = v[c] * inv;
+    if (lane == 0) att[b] = head[warp * 4];
+  }
+}
+
+// The decomposition bodies (kStream, kMatmul, kMatmul2d), one cluster a
+// block: per-slot layers on f3d::slot_layer (pooled as sums, or as slot
+// 0's row), single-row layers on f3d::vec_layer, all FFMA in k order.
 template <int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_describe_kernel(const float* __restrict__ packed, int ns, int batch,
-                      const float* __restrict__ wts, Tower tw, float r2,
-                      float inv_r, float* __restrict__ desc,
-                      float* __restrict__ att) {
-  constexpr bool kFull = kMode == kF32 || kMode == kBf16;  // the forward itself
-  constexpr bool kRound = kMode == kBf16;
+decompose_kernel(const float* __restrict__ packed, const float* __restrict__ wts,
+                 const __grid_constant__ Tower T, float* __restrict__ desc,
+                 float* __restrict__ att) {
   extern __shared__ float4 smem4[];
   float* xin = reinterpret_cast<float*>(smem4);  // kSlots x 4: x, y, z, 0
   float* mask = xin + kSlots * 4;                // kSlots
-  float* d2s = mask + kSlots;                    // kSlots
-  float* red = d2s + kSlots;                     // (kThreads / 32) x kVec
-  float* v0 = red + (kThreads / 32) * kVec;      // kVec
+  float* red = mask + kSlots;                    // kWarps x kVec
+  float* v0 = red + kWarps * kVec;               // kVec
   float* v1 = v0 + kVec;                         // kVec
-  float* head = v1 + kVec;                       // 4: att, c, s, -
-  float* buf[2] = {head + 4, head + 4 + kSlots * tw.buf_width};
+  float* head = v1 + kVec;                       // 4: att, orientation
+  float* buf[2] = {head + 4, head + 4 + kSlots * T.buf_width};
 
   const int b = blockIdx.x;
   const int t = threadIdx.x;
-  const auto act = [](float v) { return kRound ? f3d::round_bf16(v) : v; };
-  const Layer& P = tw.l[tw.n_det + tw.n_det2 + 2 + tw.n_desc + 1];   // post conv
+  const auto dense = [&](const Layer& L) { return BiasAct<false>{wts + L.b, false}; };
+  const Layer& P = T.l[T.n_det + T.n_det2 + 2 + T.n_desc + 1];   // post conv
 
-  // ---- coordinates and membership --------------------------------------
   if (t < kSlots) {
-    float x = 0.f, y = 0.f, z = 0.f, d2 = INFINITY;
-    if (t < ns) {
-      x = packed[static_cast<size_t>(8 * t + 0) * batch + b];
-      y = packed[static_cast<size_t>(8 * t + 1) * batch + b];
-      z = packed[static_cast<size_t>(8 * t + 2) * batch + b];
-      if constexpr (kFull) d2 = f3d::sqdist3(x, y, z);
-    }
-    if constexpr (kFull) {
-      x = act(__fmul_rn(x, inv_r));
-      y = act(__fmul_rn(y, inv_r));
-      z = act(__fmul_rn(z, inv_r));
+    float x = 0.f, y = 0.f, z = 0.f;
+    if (t < T.ns) {
+      x = packed[static_cast<size_t>(8 * t + 0) * T.batch + b];
+      y = packed[static_cast<size_t>(8 * t + 1) * T.batch + b];
+      z = packed[static_cast<size_t>(8 * t + 2) * T.batch + b];
     }
     xin[4 * t + 0] = x;
     xin[4 * t + 1] = y;
     xin[4 * t + 2] = z;
     xin[4 * t + 3] = 0.f;
-    d2s[t] = d2;
-    if constexpr (kMode == kMatmul) mask[t] = t < ns ? 1.f : 0.f;   // sum every slot
-    if constexpr (kMode == kMatmul2d) mask[t] = t == 0 ? 1.f : 0.f;  // "sum" = slot 0
+    if constexpr (kMode == kMatmul) mask[t] = t < T.ns ? 1.f : 0.f;   // sum every slot
+    if constexpr (kMode == kMatmul2d) mask[t] = t == 0 ? 1.f : 0.f;   // "sum" = slot 0
   }
   __syncthreads();
   if constexpr (kMode == kStream) {
@@ -131,61 +391,30 @@ fused_describe_kernel(const float* __restrict__ packed, int ns, int batch,
     if (t == 0) att[b] = xin[1];
     return;
   }
-  if constexpr (kFull) {
-    if (t < 32) f3d::tower_membership(d2s, r2, mask);
-    __syncthreads();
-  }
-  constexpr int kSlotPool = kFull ? kPoolRelu : kPoolSum;
-  constexpr int kMidPool = kFull ? kPoolMaskedNeg : kPoolSum;
 
   // ---- detector: per-slot convs, the last one pooled ---------------------
   int li = 0;
   const float* in = xin;
   int cin_stride = 4;
   int nb = 0;
-  for (int i = 0; i < tw.n_det; ++i, ++li) {
-    const Layer& L = tw.l[li];
-    const bool last = i == tw.n_det - 1;
+  for (int i = 0; i < T.n_det; ++i, ++li) {
+    const Layer& L = T.l[li];
+    const bool last = i == T.n_det - 1;
     float* out = last ? nullptr : buf[nb];
-    f3d::slot_layer_any(L.cout, in, L.cin, cin_stride, wts + L.w,
-                        BiasAct<kRound>{wts + L.b, kFull}, out, L.cout,
-                        last ? kSlotPool : kNoPool, mask, red, v0);
+    f3d::slot_layer_any(L.cout, in, L.cin, cin_stride, wts + L.w, dense(L), out, L.cout,
+                        last ? kPoolSum : kNoPool, mask, red, v0);
     if (!last) { in = out; cin_stride = L.cout; nb ^= 1; }
   }
   float* g = v0;
   float* g2 = v1;
-  for (int i = 0; i < tw.n_det2; ++i, ++li) {
-    const Layer& L = tw.l[li];
-    f3d::vec_layer(g, L.cin, L.cout, wts + L.w, BiasAct<kRound>{wts + L.b, kFull}, g2);
+  for (int i = 0; i < T.n_det2; ++i, ++li) {
+    const Layer& L = T.l[li];
+    f3d::vec_layer(g, L.cin, L.cout, wts + L.w, dense(L), g2);
     float* tmp = g; g = g2; g2 = tmp;
   }
-  for (int h = 0; h < 2; ++h, ++li) {                   // attention -> head[0], orientation -> head[1:3]
-    const Layer& L = tw.l[li];
-    f3d::vec_layer(g, L.cin, L.cout, wts + L.w, BiasAct<false>{wts + L.b, false}, head + h);
-  }
-  if constexpr (kFull) {
-    if (t == 0) {
-      const float a = head[0];
-      head[0] = fmaxf(a, 0.f) + log1pf(expf(-fabsf(a)));  // logaddexp(a, 0)
-      const float oc = head[1], os = head[2];
-      const float inv = 1.f / sqrtf(fmaxf(__fadd_rn(__fmul_rn(oc, oc), __fmul_rn(os, os)), 1e-8f));
-      head[1] = __fmul_rn(oc, inv);
-      head[2] = __fmul_rn(os, inv);
-    }
-    __syncthreads();
-
-    // ---- rotate into the canonical orientation (from the unrounded x / r)
-    if (t < kSlots) {
-      const float c = head[1], s = head[2];
-      float x = 0.f, y = 0.f;
-      if (t < ns) {
-        x = __fmul_rn(packed[static_cast<size_t>(8 * t + 0) * batch + b], inv_r);
-        y = __fmul_rn(packed[static_cast<size_t>(8 * t + 1) * batch + b], inv_r);
-      }
-      xin[4 * t] = act(__fsub_rn(__fmul_rn(x, c), __fmul_rn(y, s)));
-      xin[4 * t + 1] = act(__fadd_rn(__fmul_rn(x, s), __fmul_rn(y, c)));
-    }
-    __syncthreads();
+  for (int h = 0; h < 2; ++h, ++li) {          // attention -> head[0], orientation -> head[1:3]
+    const Layer& L = T.l[li];
+    f3d::vec_layer(g, L.cin, L.cout, wts + L.w, dense(L), head + h);
   }
 
   // ---- descriptor: per-slot convs; the last stored into [h | pool] -------
@@ -193,14 +422,13 @@ fused_describe_kernel(const float* __restrict__ packed, int ns, int batch,
   cin_stride = 4;
   int c_last = 0;
   float* cat = nullptr;
-  for (int i = 0; i < tw.n_desc; ++i, ++li) {
-    const Layer& L = tw.l[li];
-    const bool last = i == tw.n_desc - 1;
+  for (int i = 0; i < T.n_desc; ++i, ++li) {
+    const Layer& L = T.l[li];
+    const bool last = i == T.n_desc - 1;
     float* out = buf[nb];
     const int stride = last ? 2 * L.cout : L.cout;
-    f3d::slot_layer_any(L.cout, in, L.cin, cin_stride, wts + L.w,
-                        BiasAct<kRound>{wts + L.b, kFull}, out, stride,
-                        last ? kSlotPool : kNoPool, mask, red, v0);
+    f3d::slot_layer_any(L.cout, in, L.cin, cin_stride, wts + L.w, dense(L), out, stride,
+                        last ? kPoolSum : kNoPool, mask, red, v0);
     if (last) { cat = out; c_last = L.cout; }
     in = out; cin_stride = stride; nb ^= 1;
   }
@@ -210,38 +438,143 @@ fused_describe_kernel(const float* __restrict__ packed, int ns, int batch,
   }
   __syncthreads();
 
-  // ---- mid conv (no ReLU), masked pool; post conv; L2 --------------------
+  // ---- mid conv, pooled as a sum; post conv ------------------------------
   {
-    const Layer& L = tw.l[li++];
-    f3d::slot_layer_any(L.cout, cat, L.cin, 2 * c_last, wts + L.w,
-                        BiasAct<kRound>{wts + L.b, false}, nullptr, 0, kMidPool, mask,
-                        red, v1);
+    const Layer& L = T.l[li++];
+    f3d::slot_layer_any(L.cout, cat, L.cin, 2 * c_last, wts + L.w, dense(L), nullptr, 0,
+                        kPoolSum, mask, red, v1);
   }
-  f3d::vec_layer(v1, P.cin, P.cout, wts + P.w, BiasAct<false>{wts + P.b, false}, v0);
+  f3d::vec_layer(v1, P.cin, P.cout, wts + P.w, dense(P), v0);
   if (t < 32) {
-    float inv = 1.f;
-    if constexpr (kFull) {
-      float sq = 0.f;
-      for (int c = t; c < P.cout; c += 32) sq = fmaf(v0[c], v0[c], sq);
-      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-      inv = 1.f / sqrtf(fmaxf(sq, 1e-8f));
-    }
-    for (int c = t; c < P.cout; c += 32)
-      desc[static_cast<size_t>(b) * P.cout + c] = kFull ? v0[c] * inv : v0[c];
-    if (t == 0) att[b] = kFull ? head[0] : __fadd_rn(head[0], __fmul_rn(head[1], 1e-30f));
+    for (int c = t; c < P.cout; c += 32) desc[static_cast<size_t>(b) * P.cout + c] = v0[c];
+    if (t == 0) att[b] = __fadd_rn(head[0], __fmul_rn(head[1], 1e-30f));
   }
 }
 
-template <int kMode>
-cudaError_t launch(const float* packed, int ns, int batch, const float* weights,
-                   const Tower& tw, float r2, float inv_r, float* desc, float* att,
-                   size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_describe_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  fused_describe_kernel<kMode><<<batch, kThreads, smem, stream>>>(
-      packed, ns, batch, weights, tw, r2, inv_r, desc, att);
+// Host: the tower from the (n, 4) layer table and the (n, 2) offsets of the
+// pooled convs' W fragments and column norms (extra: NULL for the
+// decomposition bodies and the occupancy query), with the forward's and
+// the decomposition kernel's shared-memory layouts. Returns false for a
+// tower the kernels do not take.
+bool slot_width(int c) { return c == 32 || c == 64 || c == 128 || c == 256; }
+
+bool make_tower(Tower* T, int ns, int batch, const int* layers, const int* extra, int n_det,
+                int n_det2, int n_desc, bool forward) {
+  const int n_layers = n_det + n_det2 + 2 + n_desc + 2;
+  if (ns < 1 || ns > kSlots || batch < 0 || n_det < 1 || n_det2 < 0 || n_desc < 1 ||
+      n_layers > kMaxLayers)
+    return false;
+  *T = Tower{};
+  T->n_det = n_det;
+  T->n_det2 = n_det2;
+  T->n_desc = n_desc;
+  T->ns = ns;
+  T->batch = batch;
+  const int d0 = n_det + n_det2 + 2, mid = d0 + n_desc;
+  for (int i = 0; i < n_layers; ++i) {
+    const int* q = layers + 4 * i;
+    Layer& L = T->l[i];
+    L = Layer{q[0], q[1], q[2], q[3], -1, -1, -1, extra ? extra[2 * i] : -1,
+              extra ? extra[2 * i + 1] : -1};
+    const bool slot = i < n_det || (i >= d0 && i < mid);
+    if (L.cin < 1 || L.cout < 1 || L.cout > kVec || (slot && (!slot_width(L.cout) || L.cin % 4)))
+      return false;
+  }
+  if (T->l[0].cin != 4 || T->l[d0].cin != 4) return false;
+  if (forward)
+    for (int i = 0; i < n_layers; ++i)
+      if (T->l[i].cin > kMaxC) return false;
+  if (!forward) {
+    for (int i = 0; i < n_det - 1; ++i)
+      T->buf_width = T->buf_width > T->l[i].cout ? T->buf_width : T->l[i].cout;
+    for (int i = 0; i < n_desc; ++i) {
+      const int w = i == n_desc - 1 ? 2 * T->l[d0 + i].cout : T->l[d0 + i].cout;
+      T->buf_width = T->buf_width > w ? T->buf_width : w;
+    }
+    return true;
+  }
+  // the forward: the two pooled convs on the tensor cores (16-channel warp
+  // tiles, 32-deep re-sum slices), the heads 1 and 2 wide
+  const Layer& top = T->l[n_det - 1];
+  const Layer& m = T->l[mid];
+  if (n_det < 2 || top.cin % 32 || top.cout % 16 || m.cin != 2 * T->l[mid - 1].cout ||
+      m.cin % 32 || m.cout % 16 || T->l[n_det + n_det2].cout != 1 ||
+      T->l[n_det + n_det2 + 1].cout != 2 || T->l[mid + 1].cin != m.cout)
+    return false;
+  if (extra && (top.frag < 0 || top.wnorm < 0 || m.frag < 0 || m.wnorm < 0)) return false;
+  // buffer j holds what the per-slot convs write into it (conv l of a tower
+  // writes buffer l & 1, the descriptor's last one [h | pool]) and the room
+  // of the pooled conv that reads the other buffer
+  int words[2] = {0, 0};
+  const auto need = [&](int j, int n) { words[j] = words[j] > n ? words[j] : n; };
+  for (int l = 0; l + 1 < n_det; ++l) need(l & 1, kRows * (T->l[l].cout + 4));
+  for (int i = 0; i < n_desc; ++i) {
+    const int c = T->l[d0 + i].cout;
+    need(i & 1, kRows * ((i == n_desc - 1 ? 2 * c : c) + 4));
+  }
+  const int room = (kPoolRoomFloats + 3) / 4 * 4;
+  need((n_det - 1) & 1, room);
+  need(n_desc & 1, room);
+  int off = 0;
+  T->x_off = off;
+  off += 4 * kRows;
+  T->mask_off = off;
+  off += kRows;
+  T->dup_off = off;
+  off += kRows;
+  T->head_off = off;
+  off += 4 * kC;
+  for (int j = 0; j < 2; ++j) {
+    T->buf_off[j] = off;
+    off += words[j];
+  }
+  T->smem_floats = off;
+  return true;
+}
+
+// Sets a kernel's dynamic shared memory; with occ, writes (bytes, blocks
+// per SM) into it.
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem, int* occ) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess || !occ) return err;
+  occ[0] = static_cast<int>(smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ + 1, kernel, kThreads, smem);
+}
+
+// One entry for the launch, the time split and the occupancy query (occ
+// given: nothing launched).
+int describe(const float* packed, int ns, int batch, const float* weights, const int* layers,
+             const int* extra, int n_det, int n_det2, int n_desc, int mode, float r2,
+             float inv_r, float* desc, float* att, int stop, cudaStream_t stream, int* occ) {
+  const bool forward = mode == kF32 || mode == kBf16;
+  if (mode < kF32 || mode > kMatmul2d || stop < 0 || (!forward && stop) ||
+      stop > n_det + 9 || (forward && !extra && !occ))
+    return cudaErrorInvalidValue;
+  Tower T;
+  if (!make_tower(&T, ns, batch, layers, extra, n_det, n_det2, n_desc, forward))
+    return cudaErrorInvalidValue;
+  T.r2 = r2;
+  T.inv_r = inv_r;
+  if (forward) {
+    const auto kernel = mode == kF32 ? describe_kernel<false> : describe_kernel<true>;
+    const size_t smem = sizeof(float) * static_cast<size_t>(T.smem_floats);
+    const cudaError_t err = prepare(kernel, smem, occ);
+    if (err != cudaSuccess || occ || batch == 0) return err;
+    kernel<<<(batch + kC - 1) / kC, kThreads, smem, stream>>>(packed, weights, T, desc, att,
+                                                              stop);
+    return cudaGetLastError();
+  }
+  const auto kernel = mode == kStream ? decompose_kernel<kStream>
+                      : mode == kMatmul ? decompose_kernel<kMatmul>
+                                        : decompose_kernel<kMatmul2d>;
+  const size_t smem = sizeof(float) *
+      (kSlots * 4 + kSlots + kWarps * kVec + 2 * kVec + 4 +
+       2 * static_cast<size_t>(kSlots) * T.buf_width);
+  const cudaError_t err = prepare(kernel, smem, occ);
+  if (err != cudaSuccess || occ || batch == 0) return err;
+  kernel<<<batch, kThreads, smem, stream>>>(packed, weights, T, desc, att);
   return cudaGetLastError();
 }
 
@@ -251,41 +584,36 @@ cudaError_t launch(const float* packed, int ns, int batch, const float* weights,
 // rounded to bf16 values for mode 1); layers: host int32 array of (cin,
 // cout, w_offset, b_offset) per layer in the order detector convs, detector
 // post convs, attention, orientation, descriptor convs, mid conv, post
-// conv; mode: 0 f32, 1 bf16 activations, 2 stream, 3 matmul, 4 matmul_2d;
-// desc (batch, D) f32; att (batch,) f32.
+// conv; extra: host int32 (n, 2), per layer the offsets of its W fragments
+// for the tensor cores (TF32 values, bf16 pairs in mode 1) and of its
+// column 2-norms (rounded up), -1 where it has none (all but the detector's
+// top conv and the mid conv); NULL in modes 2-4; mode: 0 f32, 1 bf16
+// activations, 2 stream, 3 matmul, 4 matmul_2d; desc (batch, D) f32; att
+// (batch,) f32.
 F3D_EXPORT int f3d_fused_describe(const float* packed, int ns, int batch,
-                                  const float* weights, const int* layers,
+                                  const float* weights, const int* layers, const int* extra,
                                   int n_det, int n_det2, int n_desc, int mode,
                                   float r2, float inv_r, float* desc, float* att,
                                   cudaStream_t stream) {
-  Tower tw;
-  const int n_layers = n_det + n_det2 + 2 + n_desc + 2;
-  if (ns < 1 || ns > kSlots || n_layers > kMaxLayers || n_det < 1 || n_desc < 1 ||
-      mode < kF32 || mode > kMatmul2d)
-    return cudaErrorInvalidValue;
-  tw.n_det = n_det;
-  tw.n_det2 = n_det2;
-  tw.n_desc = n_desc;
-  tw.buf_width = 0;
-  for (int i = 0; i < n_layers; ++i) {
-    tw.l[i] = Layer{layers[4 * i], layers[4 * i + 1], layers[4 * i + 2], layers[4 * i + 3]};
-  }
-  for (int i = 0; i < n_det - 1; ++i)
-    tw.buf_width = tw.buf_width > tw.l[i].cout ? tw.buf_width : tw.l[i].cout;
-  const int d0 = n_det + n_det2 + 2;
-  for (int i = 0; i < n_desc; ++i) {
-    const int w = i == n_desc - 1 ? 2 * tw.l[d0 + i].cout : tw.l[d0 + i].cout;
-    tw.buf_width = tw.buf_width > w ? tw.buf_width : w;
-  }
-  if (batch == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) *
-      (kSlots * 4 + 2 * kSlots + (kThreads / 32) * kVec + 2 * kVec + 4 +
-       2 * static_cast<size_t>(kSlots) * tw.buf_width);
-  switch (mode) {
-    case kF32: return launch<kF32>(packed, ns, batch, weights, tw, r2, inv_r, desc, att, smem, stream);
-    case kBf16: return launch<kBf16>(packed, ns, batch, weights, tw, r2, inv_r, desc, att, smem, stream);
-    case kStream: return launch<kStream>(packed, ns, batch, weights, tw, r2, inv_r, desc, att, smem, stream);
-    case kMatmul: return launch<kMatmul>(packed, ns, batch, weights, tw, r2, inv_r, desc, att, smem, stream);
-    default: return launch<kMatmul2d>(packed, ns, batch, weights, tw, r2, inv_r, desc, att, smem, stream);
-  }
+  return describe(packed, ns, batch, weights, layers, extra, n_det, n_det2, n_desc, mode, r2,
+                  inv_r, desc, att, 0, stream, nullptr);
+}
+
+// As f3d_fused_describe in modes 0 and 1, leaving each cluster after stage
+// `stop` (describe_kernel; 0 = all). The time split.
+F3D_EXPORT int f3d_fused_describe_split(const float* packed, int ns, int batch,
+                                        const float* weights, const int* layers,
+                                        const int* extra, int n_det, int n_det2, int n_desc,
+                                        int mode, float r2, float inv_r, float* desc,
+                                        float* att, int stop, cudaStream_t stream) {
+  return describe(packed, ns, batch, weights, layers, extra, n_det, n_det2, n_desc, mode, r2,
+                  inv_r, desc, att, stop, stream, nullptr);
+}
+
+// The launch on this tower in `mode`: out = (dynamic shared-memory bytes,
+// blocks per SM).
+F3D_EXPORT int f3d_fused_describe_occupancy(int ns, const int* layers, int n_det, int n_det2,
+                                            int n_desc, int mode, int* out) {
+  return describe(nullptr, ns, 1, nullptr, layers, nullptr, n_det, n_det2, n_desc, mode, 1.f,
+                  1.f, nullptr, nullptr, 0, nullptr, out);
 }

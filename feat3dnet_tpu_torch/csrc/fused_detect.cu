@@ -41,8 +41,9 @@
 // order (3xTF32, or exactly) moves their angle by 1e-5-1e-4 rad
 // (tests/test_torch_k6_tc.py). So the outputs keep the previous design's
 // sums, bit for bit, and the tensor cores only decide which sums to do:
-// - The top per-slot conv runs on the tensor cores (tc_mma.cuh, shared
-//   with K7-K10): f32 modes mma.sync m16n8k8 on operands rounded to TF32
+// - The top per-slot conv runs on the tensor cores (tower_pool.cuh's
+//   pooled_conv, shared with K3, on tc_mma.cuh, shared with K7-K10): f32
+//   modes mma.sync m16n8k8 on operands rounded to TF32
 //   (1xTF32, A through ldmatrix: 3xTF32's fewer candidates did not pay for
 //   its three products), bf16_operands m16n8k16 on its bf16 operands. Its
 //   output is never stored. Per tile and channel, the rows whose value can
@@ -73,16 +74,14 @@
 #include "common.cuh"
 #include "slot_layer.cuh"
 #include "tc_mma.cuh"
+#include "tower_pool.cuh"
 
 namespace {
 
-constexpr int kThreads = f3d::kTcThreads;
-constexpr int kWarps = f3d::kTcWarps;
-constexpr int kSlots = 64;          // slots per cluster, padded (ns <= 64)
-constexpr int kMaxC = 256;          // widest conv
+using namespace f3d::tower;   // kC clusters a block, Layer, the pooled conv
+
 constexpr int kMaxLayers = 12;
 
-struct Layer { int cin, cout, w, b, mu, mul, beta, frag, wnorm; };   // offsets; -1 = none
 struct Tower {
   int n_det, n_det2, ns, batch, folded;
   float r, inv_r, r2;
@@ -90,52 +89,6 @@ struct Tower {
   int buf_off[2], buf_ld[2];              // per-slot activations
   Layer l[kMaxLayers];
 };
-
-constexpr int kC = 2;               // clusters per block
-constexpr int kMT = 4;              // the top conv's warp tile: kMT m16 tiles by 8 / kMT n8 tiles
-constexpr int kRows = kC * kSlots;
-
-// Ball membership of one cluster's 64 slots, as f3d::tower_membership, for
-// the warp whose lane is `lane`: d2 < r2, and an empty ball keeps the FIRST
-// slot at the minimum distance. Writes mask[0..63] as 0/1.
-__device__ __forceinline__ void membership(const float* d2s, float r2, float* mask, int lane) {
-  const float da = d2s[lane], db = d2s[lane + 32];
-  const bool ia = da < r2, ib = db < r2;
-  const int count = __popc(__ballot_sync(0xffffffffu, ia)) +
-                    __popc(__ballot_sync(0xffffffffu, ib));
-  float dmin = fminf(da, db);
-  for (int off = 16; off > 0; off >>= 1)
-    dmin = fminf(dmin, __shfl_xor_sync(0xffffffffu, dmin, off));
-  const unsigned lo = __ballot_sync(0xffffffffu, da <= dmin);
-  const unsigned hi = __ballot_sync(0xffffffffu, db <= dmin);
-  const int first = lo ? __ffs(lo) - 1 : 32 + __ffs(hi) - 1;
-  mask[lane] = (ia || (count == 0 && first == lane)) ? 1.f : 0.f;
-  mask[lane + 32] = (ib || (count == 0 && first == lane + 32)) ? 1.f : 0.f;
-}
-
-// A channel's epilogue: Dense bias, the replayed BN where the layer has
-// one, ReLU, then the bf16 rounding in the bf16 mode.
-struct Chan {
-  float b, mu, mul, beta;
-};
-
-__device__ __forceinline__ Chan chan(const Layer& L, const float* __restrict__ wts, int c) {
-  const bool bn = L.mu >= 0;
-  return Chan{__ldg(wts + L.b + c), bn ? __ldg(wts + L.mu + c) : 0.f,
-              bn ? __ldg(wts + L.mul + c) : 0.f, bn ? __ldg(wts + L.beta + c) : 0.f};
-}
-
-// Bias and BN, before the ReLU.
-__device__ __forceinline__ float bn_pre(float acc, const Chan& ch, bool bn) {
-  const float v = acc + ch.b;
-  return bn ? __fadd_rn(__fmul_rn(__fsub_rn(v, ch.mu), ch.mul), ch.beta) : v;
-}
-
-template <bool kBf16>
-__device__ __forceinline__ float bn_relu(float acc, const Chan& ch, bool bn) {
-  const float v = fmaxf(bn_pre(acc, ch, bn), 0.f);
-  return kBf16 ? f3d::round_bf16(v) : v;
-}
 
 // The per-slot convs' epilogue for f3d::slot_layer (the FFMA layer K3
 // shares): bias, BN where the layer has one, ReLU, the bf16 rounding.
@@ -153,254 +106,6 @@ struct SlotEpi {
     return kBf16 ? f3d::round_bf16(v) : v;
   }
 };
-
-// acc[c] += sum_k x[c * kMaxC + k] W[k * stride] (c < kN) over k < cin, one fmaf
-// chain in k order per c; W's column read 32 deep ahead of its products
-// (the chain waits on no load but the first of each slice).
-template <int kN>
-__device__ __forceinline__ void column_chains(const float* x, const float* __restrict__ W,
-                                              int stride, int cin, float (&acc)[kN]) {
-  int k0 = 0;
-  for (; k0 + 32 <= cin; k0 += 32) {
-    float w[32];
-#pragma unroll
-    for (int q = 0; q < 32; ++q) w[q] = __ldg(W + (k0 + q) * stride);
-#pragma unroll
-    for (int q = 0; q < 32; ++q)
-#pragma unroll
-      for (int c = 0; c < kN; ++c) acc[c] = fmaf(x[c * kMaxC + k0 + q], w[q], acc[c]);
-  }
-  for (; k0 < cin; ++k0) {
-    const float wv = __ldg(W + k0 * stride);
-#pragma unroll
-    for (int c = 0; c < kN; ++c) acc[c] = fmaf(x[c * kMaxC + k0], wv, acc[c]);
-  }
-}
-
-// The slack of the top conv's pre-ReLU value of row m and channel c, a
-// bound on |u~ - u| for u~ from the tensor cores and u from an fmaf chain
-// in k order: rel times sum_k |h_mk W_kc| <= |h_m|_2 |W_c|_2 (the row and
-// column norms, rounded up), scaled by BN's mul, plus the bias and BN
-// terms for their own roundings; rel (tower_rel) is twice the sum of the
-// error terms. As a |h_m|_2 + b: slack_coefs gives channel c's (a, b).
-__device__ __forceinline__ float2 slack_coefs(const Chan& ch, bool bn, float rel, float wnorm) {
-  const float mul = bn ? fabsf(ch.mul) : 1.f;
-  return make_float2(rel * mul * wnorm,
-                     rel * (mul * (fabsf(ch.b) + fabsf(ch.mu)) + fabsf(ch.beta)) + 1e-30f);
-}
-
-// rel for a product over K = cin terms, relative to S = sum_k |h_k W_kc|:
-// the chain's K roundings (K 2^-24); the tensor cores' sums: an mma of kk
-// products aligns its kk + 1 addends (the accumulator too) to the largest
-// before it sums them, truncating each by up to 2^-23 of the largest
-// (<= S), then truncates the sum the same way: K / kk mmas of kk + 2
-// truncations; 1xTF32 (kk 8): also each operand rounded to TF32, within
-// 2^-11 of its value (a product within 2^-10 + 2^-22); bf16 (kk 16): exact
-// products. Twice the sum.
-__device__ __forceinline__ float tower_rel(bool bf16, int cin) {
-  const float chain = 5.97e-8f * cin;
-  if (bf16) return 2.f * (chain + 1.1921e-7f * (cin / 16) * 18 + 1e-7f);
-  return 2.f * (chain + 1.1921e-7f * (cin / 8) * 10 + 9.8e-4f);
-}
-
-// The top conv's pool of channel n in every cluster of the block, as the
-// fmaf chain in k order gives it, over the candidate rows that rows[c]
-// marks (bit m: slot m of cluster c; the block's row c * 64 + m of `in`),
-// up to kR rows a pass: W's column n (stride cout) is read once a pass, by
-// the warp's lanes on consecutive channels, coalesced, 32 deep at a time
-// (cin % 32 == 0). pooled[c] = 0 where cluster c has no candidate (all
-// below 0: ReLU).
-template <bool kBf16>
-__device__ __forceinline__ void pool_sum(const Layer& L, const float* __restrict__ wts,
-                                         const float* in, int in_ld, int n,
-                                         unsigned long long (&rows)[kC], float (&pooled)[kC]) {
-  constexpr int kR = 8;
-  const float* W = wts + L.w + n;
-  const int cin = L.cin, cout = L.cout;
-  const Chan ch = chan(L, wts, n);
-  const bool bn = L.mu >= 0;
-#pragma unroll
-  for (int c = 0; c < kC; ++c) pooled[c] = 0.f;
-  for (;;) {
-    int r[kR];
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      r[j] = -1;
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-        if (r[j] < 0 && rows[c]) {
-          r[j] = c * kSlots + __ffsll(rows[c]) - 1;
-          rows[c] &= rows[c] - 1;
-        }
-    }
-    if (r[0] < 0) break;
-    const float* h[kR];
-    float y[kR];
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      h[j] = in + (r[j] < 0 ? r[0] : r[j]) * in_ld;
-      y[j] = 0.f;
-    }
-    for (int k0 = 0; k0 < cin; k0 += 32) {
-      float w[32];   // a 32-deep slice of the column, loaded before its products
-#pragma unroll
-      for (int q = 0; q < 32; ++q) w[q] = __ldg(W + (k0 + q) * cout);
-#pragma unroll
-      for (int k = 0; k < 32; k += 4)
-#pragma unroll
-        for (int j = 0; j < kR; ++j) {
-          // rows past this thread's candidates read nothing (fewer bank conflicts)
-          const float4 a = r[j] >= 0 ? *reinterpret_cast<const float4*>(h[j] + k0 + k)
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
-          y[j] = fmaf(a.x, w[k], y[j]);
-          y[j] = fmaf(a.y, w[k + 1], y[j]);
-          y[j] = fmaf(a.z, w[k + 2], y[j]);
-          y[j] = fmaf(a.w, w[k + 3], y[j]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < kR; ++j)
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-        if (r[j] >= 0 && r[j] / kSlots == c)
-          pooled[c] = fmaxf(pooled[c], bn_relu<kBf16>(y[j], ch, bn));
-  }
-}
-
-// The top per-slot conv L over the block's kC * 64 rows (in, row stride
-// in_ld) on the tensor cores, and its masked max-pool as the fmaf chain in
-// k order gives it, into pooled[cluster * kMaxC + n] (f32 bits, zeroed
-// before; hnorm[row]: the input row's 2-norm, rounded up). The product only
-// picks the candidates: per tile and channel, with s the row's slack
-// and L the tile's largest u~ - s over the masked rows, the masked rows
-// with u~ + s >= max(L, 0) that do not repeat slot 0 of their cluster
-// (dup: a repeat has the same value), marked in rowmask[(cluster * kMaxC +
-// n) * 2 + slot / 32] (zeroed before). After the product a thread per
-// channel sums its candidates as chains (pool_sum). phase (the time
-// split's stages): 0 stops after the products and their bias and BN, 1
-// after the marks (their count added to *count), 2 runs everything. Ends
-// synced.
-template <bool kBf16>
-__device__ __forceinline__ void top_conv_pool(const Layer& L, const float* __restrict__ wts,
-                                              const float* in, int in_ld, const float* mask,
-                                              const int* dup, const float* hnorm, float* pooled,
-                                              unsigned* rowmask, int* count, int phase) {
-  const bool pool_on = phase > 0;
-  constexpr int NT = 8 / kMT;
-  constexpr int kTilesM = kRows / (16 * kMT);
-  constexpr int kK = kBf16 ? 16 : 8;            // k per mma step
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int cin = L.cin, cout = L.cout, nb_n = cout / 8;
-  const bool bn = L.mu >= 0;
-  const float rel = tower_rel(kBf16, cin);
-  const int tiles = kTilesM * (cout / (8 * NT));
-  for (int tile = threadIdx.x >> 5; tile < tiles; tile += kWarps) {
-    const int m0 = tile % kTilesM * 16 * kMT, n0 = tile / kTilesM * 8 * NT;
-    float acc[kMT][NT][4];
-    // B: one 8-byte fragment per lane per mma (kK x 8 block), the blocks k
-    // major; the next k step's loaded while this one's products run
-    const uint2* F = reinterpret_cast<const uint2*>(wts + L.frag) + (n0 / 8) * 32 + lane;
-    uint2 nxt[NT];
-#pragma unroll
-    for (int q = 0; q < NT; ++q) nxt[q] = __ldg(F + q * 32);
-    const auto fb = [&](int k0, uint32_t (&b)[NT][2]) {
-#pragma unroll
-      for (int q = 0; q < NT; ++q) {
-        b[q][0] = nxt[q].x;
-        b[q][1] = nxt[q].y;
-      }
-      if (k0 + kK < cin)
-#pragma unroll
-        for (int q = 0; q < NT; ++q)
-          nxt[q] = __ldg(F + (static_cast<size_t>(k0 / kK + 1) * nb_n + q) * 32);
-    };
-    if constexpr (kBf16)
-      f3d::tc_tile_bf16<false, kMT, NT>(
-          m0, cin,
-          [&](int m, int k) {   // bf16 values stored as f32: the pair converts exactly
-            const float2 v = *reinterpret_cast<const float2*>(in + m * in_ld + k);
-            const __nv_bfloat162 p = __floats2bfloat162_rn(v.x, v.y);
-            return *reinterpret_cast<const uint32_t*>(&p);
-          },
-          fb, acc);
-    else   // + half a TF32 ulp: the tensor cores' truncation then rounds
-      f3d::tc_tile_tf32<kMT, NT>(in, in_ld, m0, cin, [](uint32_t v) { return v + 0x1000u; }, fb,
-                                 acc);
-    // epilogue: column 2 q + e is channel n0 + 8 q + 2 t + e, its rows
-    // m0 + 16 i + 8 r + g, all of one cluster
-    float hn[kMT][2];
-    bool in_ball[kMT][2], fresh[kMT][2];   // masked; masked and no repeat
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = m0 + 16 * i + 8 * r + g;
-        hn[i][r] = hnorm[m];
-        in_ball[i][r] = mask[m] > 0.5f;
-        fresh[i][r] = in_ball[i][r] && !dup[m];
-      }
-    unsigned bits = 0;   // this lane's candidates: bit ((q * 2 + e) * kMT + i) * 2 + r
-#pragma unroll
-    for (int q = 0; q < NT; ++q)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + 8 * q + 2 * t + e;
-        const Chan ch = chan(L, wts, n);
-        const float2 sc = slack_coefs(ch, bn, rel, __ldg(wts + L.wnorm + n));
-        float lo = -INFINITY, hi[kMT][2];
-#pragma unroll
-        for (int i = 0; i < kMT; ++i)
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const float u = bn_pre(acc[i][q][2 * r + e], ch, bn);
-            const float sl = fmaf(sc.x, hn[i][r], sc.y);
-            hi[i][r] = u + sl;
-            if (in_ball[i][r]) lo = fmaxf(lo, u - sl);
-          }
-        if (!pool_on) continue;
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1)
-          lo = fmaxf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-        lo = fmaxf(lo, 0.f);
-#pragma unroll
-        for (int i = 0; i < kMT; ++i)
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            if (fresh[i][r] && hi[i][r] >= lo) bits |= 1u << (((q * 2 + e) * kMT + i) * 2 + r);
-          }
-      }
-    if (!pool_on) continue;
-    for (; bits; bits &= bits - 1) {
-      const int j = __ffs(bits) - 1;
-      const int r = j & 1, i = (j >> 1) % kMT, qe = (j >> 1) / kMT;
-      const int m = m0 + 16 * i + 8 * r + g, n = n0 + 8 * (qe >> 1) + 2 * t + (qe & 1);
-      atomicOr(rowmask + (m / kSlots * kMaxC + n) * 2 + m % kSlots / 32, 1u << (m % 32));
-    }
-  }
-  __syncthreads();
-  if (phase == 1) {
-    int marked = 0;
-    for (int i = threadIdx.x; i < 2 * kC * kMaxC; i += kThreads) marked += __popc(rowmask[i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) marked += __shfl_xor_sync(0xffffffffu, marked, off);
-    if ((threadIdx.x & 31) == 0) atomicAdd(count, marked);
-    __syncthreads();
-    return;
-  }
-  if (phase < 2) return;
-  for (int n = threadIdx.x; n < cout; n += kThreads) {
-    unsigned long long rows[kC];
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-      rows[c] = rowmask[(c * kMaxC + n) * 2] |
-                static_cast<unsigned long long>(rowmask[(c * kMaxC + n) * 2 + 1]) << 32;
-    float best[kC];
-    pool_sum<kBf16>(L, wts, in, in_ld, n, rows, best);
-#pragma unroll
-    for (int c = 0; c < kC; ++c) pooled[c * kMaxC + n] = best[c];
-  }
-  __syncthreads();
-}
 
 // kC clusters per block; `stop` (the time split) leaves after a stage:
 // 1 input and membership, 2 + l per-slot conv l (the top one without its
@@ -513,8 +218,8 @@ fused_detect_kernel(const float* __restrict__ clusters, const float* __restrict_
       if (part == 0) hnorm[row] = sqrtf(ss) * 1.0001f;
     }
     __syncthreads();
-    top_conv_pool<kBf16>(L, wts, buf[src], T.buf_ld[src], mask, dup, hnorm, pooled, rowmask,
-                         count, stop == 2 + l ? 0 : stop == 3 + l ? 1 : 2);
+    pooled_conv<kBf16>(L, wts, buf[src], T.buf_ld[src], mask, dup, hnorm, pooled, rowmask,
+                       count, stop == 2 + l ? 0 : stop == 3 + l ? 1 : 2);
     // the candidates stage leaves the block's count in out[block] (the
     // work the pool re-sums, read by the time split)
     if (stop == 3 + l && tid == 0) out[blockIdx.x] = static_cast<float>(*count);

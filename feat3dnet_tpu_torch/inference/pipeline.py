@@ -75,6 +75,7 @@ class InferencePipeline:
         self.icfg = infer_cfg
         self._weights: Dict[str, list] = {}
         self._detect_packed: Optional[tuple] = None     # K6's weight buffers
+        self._describe_packed: Optional[tuple] = None   # K3's
         self.timings: Dict[str, float] = {}
 
     # -- configuration ------------------------------------------------------
@@ -173,9 +174,11 @@ class InferencePipeline:
         membership and orientation itself), else the model's descriptor
         tower on the rotated, normalised clusters."""
         if self.icfg.use_fused_detector:
+            w = self._kernel_weights("describe")
+            if offs.is_cuda and self._describe_packed is None:
+                self._describe_packed = fd._describe_kernel_weights(w, self.mcfg, offs.device)
             feats, _ = fd.fused_describe_clusters_t(
-                self._kernel_weights("describe"), fd.pack_clusters_lanes_torch(offs),
-                self.mcfg)
+                w, fd.pack_clusters_lanes_torch(offs), self.mcfg, packed=self._describe_packed)
             return feats
         normalized = offs[None] / self.mcfg.base_scale
         if self.mcfg.regress_orientation:

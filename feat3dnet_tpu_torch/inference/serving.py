@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from feat3dnet_tpu_torch.models.feat3dnet import Feat3DNet
-from feat3dnet_tpu_torch.ops.fused_describe import (folded_weights,
+from feat3dnet_tpu_torch.ops.fused_describe import (_describe_kernel_weights, folded_weights,
                                                     fused_describe_clusters_t,
                                                     pack_clusters_lanes,
                                                     pack_clusters_lanes_torch,
@@ -42,6 +42,7 @@ class ClusterDescriptorServer:
         self.cfg = model.cfg
         self.bf16_act = bf16_act
         self._weights_t: Optional[List[torch.Tensor]] = None
+        self._packed: Optional[tuple] = None      # K3's weight buffers, made once
 
     def _kernel_weights_t(self) -> List[torch.Tensor]:
         if self._weights_t is None:
@@ -49,6 +50,13 @@ class ClusterDescriptorServer:
             self._weights_t = [w.to(self.device) for w in transpose_folded_weights(
                 folded_weights(variables, self.cfg))]
         return self._weights_t
+
+    def _kernel_packed(self) -> tuple:
+        if self._packed is None:
+            self._packed = _describe_kernel_weights(self._kernel_weights_t(), self.cfg,
+                                                    self.device,
+                                                    "bf16" if self.bf16_act else "f32")
+        return self._packed
 
     def _fused_ok(self, ns: int) -> bool:
         # the kernel folds eval BN into the weights: no-BN models take the
@@ -70,7 +78,7 @@ class ClusterDescriptorServer:
         if clusters.device.type == "cuda" and self._fused_ok(clusters.shape[1]):
             return fused_describe_clusters_t(
                 self._kernel_weights_t(), pack_clusters_lanes_torch(clusters), self.cfg,
-                bf16_act=self.bf16_act)
+                bf16_act=self.bf16_act, packed=self._kernel_packed())
         return self._model_path(clusters)
 
     @staticmethod
@@ -90,5 +98,7 @@ class ClusterDescriptorServer:
             raise ValueError(
                 f"describe_packed: want (num_samples*8, B) = ({8 * self.cfg.num_samples}, B) "
                 f"and a BN model, got {tuple(packed.shape)}, use_bn={self.cfg.use_bn}")
-        return fused_describe_clusters_t(self._kernel_weights_t(), packed.contiguous(),
-                                         self.cfg, bf16_act=self.bf16_act)
+        clusters_p = packed.contiguous()
+        return fused_describe_clusters_t(
+            self._kernel_weights_t(), clusters_p, self.cfg, bf16_act=self.bf16_act,
+            packed=self._kernel_packed() if clusters_p.is_cuda else None)

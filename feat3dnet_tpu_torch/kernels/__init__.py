@@ -37,7 +37,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("fps.cu", "ball_query.cu", "fused_describe.cu", "sorted_ball_query.cu",
            "ball_max.cu", "fused_detect.cu", "fused_train.cu")
-HEADERS = ("common.cuh", "slot_layer.cuh", "tc_mma.cuh")
+HEADERS = ("common.cuh", "slot_layer.cuh", "tc_mma.cuh", "tower_pool.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libf3d_kernels.so"
@@ -135,11 +135,19 @@ def library() -> ctypes.CDLL:
     # xyz, centers, mask|NULL, b, n, m, r2, ns, idx, cnt, stream
     lib.f3d_ball_query.argtypes = [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]
     lib.f3d_ball_query.restype = _I
-    # packed, ns, batch, weights, layers (host int32 array), n_det, n_det2,
-    # n_desc, mode, r2, inv_r, desc, att, stream
-    lib.f3d_fused_describe.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _F,
+    # packed, ns, batch, weights, layers (host int32 array), extra (host
+    # int32 (n, 2) or NULL), n_det, n_det2, n_desc, mode, r2, inv_r, desc,
+    # att, stream
+    lib.f3d_fused_describe.argtypes = [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                        _P, _P, _P]
     lib.f3d_fused_describe.restype = _I
+    # as f3d_fused_describe, then the stage to stop after, then the stream
+    lib.f3d_fused_describe_split.argtypes = lib.f3d_fused_describe.argtypes[:-1] + [_I, _P]
+    lib.f3d_fused_describe_split.restype = _I
+    # ns, layers, n_det, n_det2, n_desc, mode, out (host int32 (2,): smem
+    # bytes, blocks per SM)
+    lib.f3d_fused_describe_occupancy.argtypes = [_I, _P, _I, _I, _I, _I, _P]
+    lib.f3d_fused_describe_occupancy.restype = _I
     # pts4, blk_bbox, np, hit (tiles x nb u8), nb, block, centers, m, tile,
     # r2, ns, top, cnt, stream
     lib.f3d_sorted_ball_query.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I, _I, _F, _I,
@@ -227,16 +235,42 @@ def launch_ball_query(xyz, centers, mask, r2, ns, idx, cnt) -> None:
 DESCRIBE_MODES = {"f32": 0, "bf16": 1, "stream": 2, "matmul": 3, "matmul_2d": 4}
 
 
-def launch_fused_describe(packed, ns, weights, layers, n_det, n_det2, n_desc, mode,
-                          r2, inv_r, desc, att) -> None:
+# K3's stages as csrc/fused_describe.cu numbers them for a detector of
+# n_det per-slot convs: a split launch returns from each cluster after one;
+# the candidate stages leave the count of a pooled conv's candidates per
+# block in desc
+def describe_stops(n_det: int) -> dict:
+    names = (("input",) + tuple(f"det_conv{i}" for i in range(n_det - 1))
+             + ("top_product", "top_pool", "heads", "rotation", "desc_convs", "mid_product",
+                "mid_pool", "top_candidates", "mid_candidates"))
+    return {name: i + 1 for i, name in enumerate(names)}
+
+
+def launch_fused_describe(packed, ns, weights, layers, extra, n_det, n_det2, n_desc, mode,
+                          r2, inv_r, desc, att, stop: Optional[str] = None) -> None:
     """layers: host int32 tensor of (cin, cout, w_offset, b_offset) rows;
-    mode: a key of DESCRIBE_MODES."""
+    extra: host int32 (n, 2) tensor of the layers' fragment and column-norm
+    offsets (modes 'f32' and 'bf16'), or None; mode: a key of
+    DESCRIBE_MODES; stop: a key of describe_stops(n_det) for the time split
+    of those two modes (desc and att not written)."""
     batch = packed.shape[1]
+    args = [_ptr(packed), ns, batch, _ptr(weights), _ptr(layers), _ptr(extra), n_det, n_det2,
+            n_desc, DESCRIBE_MODES[mode], r2, inv_r, _ptr(desc), _ptr(att)]
     with torch.cuda.device(packed.device):
-        check(library().f3d_fused_describe(
-            _ptr(packed), ns, batch, _ptr(weights), _ptr(layers), n_det, n_det2,
-            n_desc, DESCRIBE_MODES[mode], r2, inv_r, _ptr(desc), _ptr(att),
-            _stream(packed)), "fused_describe")
+        if stop is None:
+            check(library().f3d_fused_describe(*args, _stream(packed)), "fused_describe")
+        else:
+            check(library().f3d_fused_describe_split(*args, describe_stops(n_det)[stop],
+                                                     _stream(packed)), "fused_describe_split")
+
+
+def describe_occupancy(ns: int, layers, n_det: int, n_det2: int, n_desc: int, mode: str):
+    """(dynamic shared-memory bytes, blocks per SM) of K3's launch in `mode`."""
+    out = torch.zeros(2, dtype=torch.int32)
+    check(library().f3d_fused_describe_occupancy(ns, _ptr(layers), n_det, n_det2, n_desc,
+                                                 DESCRIBE_MODES[mode], _ptr(out)),
+          "fused_describe_occupancy")
+    return int(out[0]), int(out[1])
 
 
 def launch_sorted_ball_query(pts4, blk_bbox, hit, block, centers, tile, r2, ns, top,

@@ -292,9 +292,65 @@ def _kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, device,
     return flat, torch.tensor(table, dtype=torch.int32)
 
 
+def _describe_kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, device,
+                             mode: str = "f32") -> tuple:
+    """Kernel K3's weights for `mode` (a key of kernels.DESCRIBE_MODES):
+    `_kernel_weights`' buffer (kernel matrices as bf16 values in 'bf16') and
+    table, and in the forward modes ('f32', 'bf16') per layer the offsets of
+    its W fragments for the tensor cores and of its column norms, (n, 2), -1
+    where it has none (None in the other modes). The buffer then also holds,
+    for the two max-pooled convs (the detector's top conv and the mid conv),
+    their fragments (`_tf32_fragments`, or `_bf16_fragments` in 'bf16') and
+    their column 2-norms rounded up (the slack of their pools' candidates),
+    the mid conv's followed by those of its rows below cin / 2 (the rows
+    that multiply the [h | pool] input's h).
+    A caller that launches K3 often makes this once and passes it to
+    `fused_describe_clusters_t` (the server and the pipeline do)."""
+    bf16 = mode == "bf16"
+    flat, table = _kernel_weights(weights_t, cfg, device, bf16=bf16)
+    if mode not in ("f32", "bf16"):
+        return flat, table, None
+    n_det, n_det2, n_desc = _n_layers(cfg)
+    pooled = (n_det - 1, n_det + n_det2 + 2 + n_desc)
+    extra = torch.full((table.shape[0], 2), -1, dtype=torch.int32)
+    pieces, off = [flat], flat.numel()
+
+    def put(t):
+        nonlocal off
+        start = off
+        pieces.extend([t, t.new_zeros(-t.numel() % 4)])
+        off += t.numel() + pieces[-1].numel()
+        return start
+
+    for li in pooled:
+        cin, cout, w_off = table[li, :3].tolist()
+        if li == 0 or cin % 32 or cout % 16:
+            raise ValueError(f"fused_describe: pooled layer {li} is {cin}->{cout}; the kernel "
+                             "takes Cin % 32 == 0, Cout % 16 == 0 after a per-slot conv")
+        w = flat[w_off:w_off + cin * cout].reshape(cin, cout)
+        extra[li, 0] = put((_bf16_fragments if bf16 else _tf32_fragments)(w))
+        norms = w.norm(dim=0)
+        if li != pooled[0]:                 # the mid conv: also its rows below cin / 2
+            norms = torch.cat([norms, w[:cin // 2].norm(dim=0)])
+        extra[li, 1] = put(norms * 1.0001)
+    return torch.cat(pieces).contiguous(), table, extra
+
+
+def _launch_describe(clusters_p: torch.Tensor, packed: tuple, cfg: ModelConfig, mode: str,
+                     desc: torch.Tensor, att: torch.Tensor, stop: Optional[str] = None) -> None:
+    """K3 on (ns·8, B) CUDA clusters with `_describe_kernel_weights`' buffers
+    into desc (B, D) and att (B,). stop: the time split
+    (kernels.launch_fused_describe)."""
+    n_det, n_det2, n_desc = _n_layers(cfg)
+    r = np.float32(cfg.base_scale)
+    kernels.launch_fused_describe(clusters_p, cfg.num_samples, *packed, n_det, n_det2, n_desc,
+                                  mode, float(r * r), float(np.float32(1.0) / r), desc, att,
+                                  stop=stop)
+
+
 def fused_describe_clusters_t(weights_t: List[torch.Tensor], clusters_p: torch.Tensor,
                               cfg: ModelConfig, bf16_act: bool = False,
-                              ablate: Optional[str] = None
+                              ablate: Optional[str] = None, packed: Optional[tuple] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Serving forward through kernel K3: (ns·8, B) packed clusters
     (pack_clusters_lanes) + transpose_folded_weights(folded_weights(...))
@@ -303,8 +359,11 @@ def fused_describe_clusters_t(weights_t: List[torch.Tensor], clusters_p: torch.T
     bf16_act: the towers' products take bf16 operands and sum in f32, the
     activations are bf16 values (see the plain version). ablate ('stream' |
     'matmul' | 'matmul_2d'): the time-decomposition bodies, whose outputs
-    are not descriptors; not with bf16_act. Each launch counts in `launches`
-    and in `mode_launches[mode]` (mode 'f32', 'bf16' or the ablate value).
+    are not descriptors; not with bf16_act. packed:
+    `_describe_kernel_weights(weights_t, cfg, clusters_p.device, mode)`,
+    made once by a caller that calls often; None packs here, on every call.
+    Each launch counts in `launches` and in `mode_launches[mode]` (mode
+    'f32', 'bf16' or the ablate value).
 
     CPU tensors take `fused_describe_clusters_t_plain`; CUDA tensors launch
     the kernel in the mode asked for, and anything it does not take raises.
@@ -326,13 +385,11 @@ def fused_describe_clusters_t(weights_t: List[torch.Tensor], clusters_p: torch.T
     if rows != 8 * ns or ns != cfg.num_samples or not 1 <= ns <= 64:
         raise ValueError(f"fused_describe_clusters_t: {rows} rows is not 8 x "
                          f"num_samples={cfg.num_samples} (<= 64)")
-    flat, table = _kernel_weights(weights_t, cfg, clusters_p.device, bf16=mode == "bf16")
-    n_det, n_det2, n_desc = _n_layers(cfg)
-    r = np.float32(cfg.base_scale)
+    if packed is None:
+        packed = _describe_kernel_weights(weights_t, cfg, clusters_p.device, mode)
     desc = torch.empty((b, cfg.feature_dim), dtype=torch.float32, device=clusters_p.device)
     att = torch.empty((b,), dtype=torch.float32, device=clusters_p.device)
-    kernels.launch_fused_describe(clusters_p, ns, flat, table, n_det, n_det2, n_desc, mode,
-                                  float(r * r), float(np.float32(1.0) / r), desc, att)
+    _launch_describe(clusters_p, packed, cfg, mode, desc, att)
     fused_describe_clusters_t.launches += 1
     fused_describe_clusters_t.mode_launches[mode] += 1
     return desc, att

@@ -8,8 +8,10 @@ imports no JAX, so it runs on a machine that has none:
 
 FPS, the ball query, the sorted ball query (K4, also on padding, covered
 blocks and a tile that straddles the padding) and the ball max (K5)
-must be index-exact; the fused describe kernel within max |d| 1e-4 and
-attention relative 1e-4, the detector-only kernel (K6) within attention
+must be index-exact; the fused describe kernel (K3) within max |d| 1e-4
+and attention relative 1e-4 (also at batches of 1 and of an odd size, its
+2 clusters a block, and 32 samples, two runs bit-equal), the
+detector-only kernel (K6) within attention
 relative 1e-5 and orientation 1e-5 rad (also at batches that are not a
 multiple of its 2 clusters a block, batch 0 and 16 samples, two runs
 bit-equal); their bf16 modes within one bf16 step,
@@ -195,6 +197,38 @@ def test_fused_describe_bf16_kernel_matches_plain(dev, rs):
     assert (dk - dp).abs().max().item() <= 2.0 ** -8
     assert torch.nn.functional.cosine_similarity(dk, dp, dim=1).min().item() >= 0.9999
     assert ((ak - ap).abs() / ap.abs().clamp(min=1e-6)).max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("batch,ns", [(1, 64), (3, 64), (257, 64), (300, 32)])
+def test_fused_describe_block_shapes(dev, rs, mode, batch, ns):
+    """K3 runs 2 clusters a block: a batch of 1 and odd batches (the last
+    block's second cluster masked), and 32 samples, against the plain
+    version at test_fused_describe_kernel_matches_plain's limits (f32) or
+    test_fused_describe_bf16_kernel_matches_plain's (bf16), two runs
+    bit-equal; with the weights packed once (packed=), as the server
+    calls it, bit-equal to a call that packs them."""
+    cfg = ModelConfig(num_samples=ns)
+    c = (rs.randn(batch, ns, 3) * 1.6).astype(np.float32)
+    c[0, ns // 2:] = c[0, 0]                       # repeats of slot 0 (a ball query's padding)
+    if batch > 5:
+        c[5] += 30.0                               # empty ball -> nearest fallback
+    wt = [w.to(dev) for w in tfd.transpose_folded_weights(
+        tfd.folded_weights(init_variables(cfg, seed=2, bn_perturb=0.1), cfg))]
+    packed = torch.from_numpy(tfd.pack_clusters_lanes(c)).to(dev)
+    kw = {"bf16_act": mode == "bf16"}
+    pk = tfd._describe_kernel_weights(wt, cfg, dev, mode)
+    dk, ak = tfd.fused_describe_clusters_t(wt, packed, cfg, packed=pk, **kw)
+    d2, a2 = tfd.fused_describe_clusters_t(wt, packed, cfg, **kw)
+    dp, ap = tfd.fused_describe_clusters_t_plain(wt, packed, cfg, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, d2) and torch.equal(ak, a2)
+    a_rel = ((ak - ap).abs() / ap.abs().clamp(min=1e-6)).max().item()
+    if mode == "f32":
+        assert (dk - dp).abs().max().item() <= 1e-4 and a_rel <= 1e-4
+    else:
+        assert (dk - dp).abs().max().item() <= 2.0 ** -8 and a_rel <= 1e-2
+        assert torch.nn.functional.cosine_similarity(dk, dp, dim=1).min().item() >= 0.9999
 
 
 @pytest.mark.parametrize("ablate", ["stream", "matmul", "matmul_2d"])

@@ -29,8 +29,10 @@ plain version (cuBLAS f32) and the previous K6 sum in that order and agree
 to 2.4e-7 rad. Inputs: the paper widths, 256 clusters with an empty ball,
 repeat-padded duplicates and a partial ball: Gaussian clusters with seeded
 weights (perturbed BN statistics), and a vendored cloud's ball-query
-clusters with the trained ckpt/4480 weights. The W fragments the wrapper
-lays out for the card are checked against the PTX fragment layout.
+clusters with the trained ckpt/4480 weights. On the trained case the
+orientation is also held to JAX's within the spread of JAX's own sum
+orders. The W fragments the wrapper lays out for the card are checked
+against the PTX fragment layout.
 """
 import functools
 import os
@@ -39,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from feat3dnet_tpu.config import ModelConfig as JaxModelConfig
@@ -48,8 +51,8 @@ from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
 from feat3dnet_tpu_torch.ops import fused_describe as tfd
 from feat3dnet_tpu_torch.ops import hash_grid as thg
 from feat3dnet_tpu_torch.utils import init_variables, load_variables_npz
-from tests.tf32_emulation import (bf16_matmul, round_toward_zero, tf32_rna, tf32x1_matmul,
-                                  tf32x3_matmul)
+from tests.tf32_emulation import (PRODUCTS, bf16_matmul, bias_bn, chain_matmul, pooled_conv,
+                                  round_toward_zero, tf32_rna)
 
 torch.set_num_threads(2)
 
@@ -58,84 +61,7 @@ NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "feat3dnet_tpu_torch", "assets", "ckpt4480_variables.npz")
 
 
-def _fma(a, b, c):
-    """fmaf: one rounding of a * b + c (the product is exact in float64)."""
-    return (a * b + c.double()).float()
-
-
-def chain_matmul(a, b):
-    """a (R, K) @ b (K, N) as one fmaf chain in k order per output."""
-    a, b = a.double(), b.double()
-    acc = torch.zeros((a.shape[0], b.shape[1]))
-    for k in range(a.shape[1]):
-        acc = _fma(a[:, k:k + 1], b[k], acc)
-    return acc
-
-
-def _bn(acc, b, mu, mul, beta):
-    v = acc + b[:, 0]
-    return v if mu is None else (v - mu[:, 0]) * mul[:, 0] + beta[:, 0]
-
-
-# the top conv's product on the tensor cores, as tc_mma.cuh sums it (and
-# *_aligned: each addend truncated at alignment, the worst case the slack
-# must hold); tf32x3 only for the convs below it (tc_below_top)
-PRODUCTS = {"tf32x1": tf32x1_matmul,
-            "tf32x1_aligned": functools.partial(tf32x1_matmul, aligned=True),
-            "tf32x3": lambda a, b: tf32x3_matmul(a, b, block_sums=False),
-            "bf16": lambda a, b: bf16_matmul(a, b, block_sums=False),
-            "bf16_aligned": lambda a, b: bf16_matmul(a, b, block_sums=False, aligned=True)}
 F32_PRODUCT = "tf32x1"      # K6's product in the f32 modes
-
-
-def tower_rel(product, cin):
-    """csrc/fused_detect.cu:tower_rel."""
-    chain = 5.97e-8 * cin
-    if product.startswith("bf16"):
-        return 2.0 * (chain + 1.1921e-7 * (cin // 16) * 18 + 1e-7)
-    return 2.0 * (chain + 1.1921e-7 * (cin // 8) * 10 + 9.8e-4)
-
-
-def pool_slack(b, mu, mul, beta, rel, hnorm, wnorm):
-    """csrc/fused_detect.cu's slack (slack_coefs), (rows, C) for row norms
-    hnorm."""
-    s = hnorm[:, None] * wnorm + b[:, 0].abs()
-    if mu is None:
-        return rel * s + 1e-30
-    return rel * (mul[:, 0].abs() * (s + mu[:, 0].abs()) + beta[:, 0].abs()) + 1e-30
-
-
-def top_pool(h, w, layer, mask, dup, product):
-    """The top conv's pool as the kernel takes it, from its input h (nb *
-    64, cin) and kernel w (cin, C): u~ the pre-ReLU values of the
-    tensor-core product, s the slack; the candidates, the masked rows with
-    u~ + s >= max(L, 0), L the cluster's largest u~ - s over its masked
-    rows, that do not repeat slot 0 (dup); the pool, the largest of the
-    candidates' values summed as k-order chains. Returns (pool (nb, C), u~,
-    candidates, s), (nb, 64, C)."""
-    _, b, mu, mul, beta = layer
-    nb = mask.shape[0]
-    u_t = _bn(PRODUCTS[product](h, w), b, mu, mul, beta).reshape(nb, 64, -1)
-    slack = pool_slack(b, mu, mul, beta, tower_rel(product, w.shape[0]), h.norm(dim=1) * 1.0001,
-                       w.norm(dim=0) * 1.0001).reshape(nb, 64, -1)
-    m = mask[..., None]
-    lo = torch.where(m, u_t - slack, torch.tensor(-np.inf)).amax(dim=1, keepdim=True)
-    cand = m & ~dup[..., None] & (u_t + slack >= torch.clamp(lo, min=0.0))
-    ci, si, ni = cand.nonzero(as_tuple=True)
-    hr, wc = h.reshape(nb, 64, -1)[ci, si].double(), w.t()[ni].double()
-    y = torch.zeros(ci.shape[0])
-    for k in range(h.shape[1]):
-        y = (hr[:, k] * wc[:, k] + y.double()).float()
-    u_c = y + b[ni, 0]
-    if mu is not None:
-        u_c = (u_c - mu[ni, 0]) * mul[ni, 0] + beta[ni, 0]
-    v = tfd._round_bf16(torch.relu(u_c)) if product.startswith("bf16") else torch.relu(u_c)
-    return _scatter_max(nb, w.shape[1], ci, ni, v), u_t, cand, slack
-
-
-def _scatter_max(nb, c, ci, ni, v):
-    out = torch.zeros(nb * c)
-    return out.scatter_reduce(0, ci * c + ni, v, "amax", include_self=True).reshape(nb, c)
 
 
 def emulate_k6(weights_t, clusters, cfg, unfolded, bf16=False, tc_below_top=False,
@@ -169,15 +95,15 @@ def emulate_k6(weights_t, clusters, cfg, unfolded, bf16=False, tc_below_top=Fals
         w = rnd(k.t())[:h.shape[1]]
         if li == n_det - 1:
             top = (h, w, layer, mask, dup)
-            g = top_pool(h, w, layer, mask, dup, product)[0]
+            g = pooled_conv(h, w, layer, mask, dup, product)[0]
             break
         if li > 0 and tc_below_top:
             acc = PRODUCTS["bf16" if bf16 else "tf32x3"](h, w)
         else:
             acc = chain_matmul(h, w)
-        h = rnd(torch.relu(_bn(acc, b, mu, mul, beta)))
+        h = rnd(torch.relu(bias_bn(acc, b, mu, mul, beta)))
     for k, b, mu, mul, beta in convs[n_det:]:
-        g = rnd(torch.relu(_bn(chain_matmul(g, rnd(k.t())), b, mu, mul, beta)))
+        g = rnd(torch.relu(bias_bn(chain_matmul(g, rnd(k.t())), b, mu, mul, beta)))
     a, o = (chain_matmul(g, rnd(k.t())) + b[:, 0] for k, b in heads)
     a = a[:, 0]
     att = torch.clamp(a, min=0.0) + torch.log1p(torch.exp(-a.abs()))
@@ -257,10 +183,14 @@ def _chain_orientation(kind, mode):
         _plain.cache_clear()
 
 
+def _angle(d):
+    """|d| as an angle, wrapped to [0, pi]."""
+    return ((d + np.pi) % (2 * np.pi) - np.pi).abs()
+
+
 def _errors(att, ori, att_ref, ori_ref):
     rel = (att - att_ref).abs() / att_ref.abs().clamp(min=1e-6)
-    d = ori - ori_ref
-    return rel, ((d + np.pi) % (2 * np.pi) - np.pi).abs()
+    return rel, _angle(ori - ori_ref)
 
 
 def _hold(kind, mode, att_ref, ori_ref):
@@ -295,6 +225,61 @@ def test_emulated_k6_matches_jax(kind, mode):
     _hold(kind, mode, torch.from_numpy(np.array(ja)), torch.from_numpy(np.array(jo)))
 
 
+def _jax_orientation_chunked(v, c, unfolded, kc):
+    """JAX's detector tower (`_detector_heads_2d`, the algebra of its
+    detector kernel) on clusters c, outside Pallas, with every product
+    summed over K in chunks of kc (None: one dot), in f32: one of JAX's own
+    sum orders. Returns the orientation angle."""
+    jcfg = JaxModelConfig()
+    w = jfd.detector_weights_unfolded(v, jcfg) if unfolded else jfd.folded_weights(v, jcfg)
+    n_layers = len(jcfg.detector_mlp) + len(jcfg.detector_mlp2)
+    it = iter([jnp.asarray(x) for x in w[:(5 * n_layers + 4) if unfolded else 2 * (n_layers + 2)]])
+
+    def mm(a, k):
+        step = a.shape[1] if kc is None else kc
+        acc = jnp.dot(a[:, :step], k[:step], precision=jax.lax.Precision.HIGHEST)
+        for c0 in range(step, a.shape[1], step):
+            acc = acc + jnp.dot(a[:, c0:c0 + step], k[c0:c0 + step],
+                                precision=jax.lax.Precision.HIGHEST)
+        return acc
+
+    b, ns = c.shape[:2]
+    pts = jnp.transpose(jnp.asarray(c), (1, 0, 2)).reshape(-1, 3)       # slot-major rows
+    r = jnp.float32(jcfg.base_scale)
+    mask = jfd._membership_mask_2d(pts, b, ns, r * r)
+    _, ori = jfd._detector_heads_2d(pts / r if unfolded else pts * (1.0 / r), mask,
+                                    lambda: (next(it), next(it)), mm, jcfg, b, jnp.float32,
+                                    next_bn=(lambda: (next(it), next(it), next(it)))
+                                    if unfolded else None)
+    return torch.from_numpy(np.arctan2(np.array(ori[:, 1]), np.array(ori[:, 0])))
+
+
+@pytest.mark.parametrize("mode", ["unfolded", "folded"])
+def test_trained_orientation_within_jax_sum_orders(mode):
+    """The emulated K6's orientation on the trained case against JAX's, at
+    a tolerance taken from JAX itself: JAX's detector summed in eight
+    orders (each product over K whole or in chunks of 64 ... 1) spreads by
+    up to 8.9e-5 rad on these clusters, and its tiles do not change its
+    sums. The port's orientation must lie within that spread (margin 1x)
+    of JAX's kernel (`fused_detect_clusters_2d` in Pallas interpret mode)
+    and of every one of those orders, and the spread must stay under 1e-4
+    rad. (The 1e-5 limit holds against the port's plain version summed in
+    k order, test_emulated_k6_matches_plain.)"""
+    _, v, c = _case("trained")
+    unfolded = MODES[mode]["unfolded"]
+    orders = [_jax_orientation_chunked(v, c, unfolded, kc) for kc in (None, 64, 32, 16, 8, 4, 2, 1)]
+    spread = max(_angle(a - b).max().item() for a in orders for b in orders)
+    jcfg = JaxModelConfig()
+    jw = jfd.detector_weights_unfolded(v, jcfg) if unfolded else jfd.folded_weights(v, jcfg)
+    _, jo = jfd.fused_detect_clusters_2d(jw, jnp.asarray(c), jcfg, tile=B, unfolded=unfolded)
+    ori = _emulated("trained", mode)[1]
+    far = [_angle(ori - ref).max().item() for ref in [torch.from_numpy(np.array(jo))] + orders]
+    print(f"{mode}: JAX's spread {spread:.3e} rad, the port to JAX's kernel {far[0]:.3e}, "
+          f"to each order up to {max(far[1:]):.3e}")
+    assert 0.0 < spread <= 1e-4
+    assert max(far) <= 1.0 * spread
+
+
 @pytest.mark.parametrize("kind", ["seeded", "trained"])
 @pytest.mark.parametrize("mode,product", [("unfolded", "tf32x1"), ("folded", "tf32x1"),
                                           ("unfolded", "tf32x1_aligned"),
@@ -309,10 +294,10 @@ def test_top_pool_candidates_give_the_chain_pool(kind, mode, product):
     cluster and channel are summed again (1xTF32 reads fewer bits, so its
     slack admits more)."""
     h, w, layer, mask, dup = _emulated(kind, mode)[2]
-    pool, u_t, cand, slack = top_pool(h, w, layer, mask, dup, product)
+    pool, u_t, cand, slack = pooled_conv(h, w, layer, mask, dup, product)
     _, b, mu, mul, beta = layer
     few = slice(0, 16 * 64)
-    u_c = _bn(chain_matmul(h[few], w), b, mu, mul, beta).reshape(16, 64, -1)
+    u_c = bias_bn(chain_matmul(h[few], w), b, mu, mul, beta).reshape(16, 64, -1)
     assert ((u_t[:16] - u_c).abs() <= slack[:16] / 2).all()
     v = torch.relu(u_c)
     if mode == "bf16_operands":

@@ -20,7 +20,15 @@ aligned=True (K6's products, whose slack must hold the worst case): each
 mma aligns its addends, the accumulator and its products, to the largest
 of them and truncates each toward zero at 2^-23 of that one before it sums
 them, then truncates the sum toward zero to f32.
+
+The pooled convs of K6 and K3 (csrc/tower_pool.cuh): `chain_matmul` sums
+each output as one fmaf chain in k order; `pooled_conv` picks a pool's
+candidate rows from a tensor-core product and the slack (`tower_rel`,
+`pool_slack`) and re-sums them as chains.
 """
+import functools
+
+import numpy as np
 import torch
 
 
@@ -97,3 +105,119 @@ def bf16_matmul(a: torch.Tensor, b: torch.Tensor, block_sums: bool = True,
         acc = (acc + round_toward_zero(prod) if block_sums
                else round_toward_zero(acc.double() + prod))
     return acc
+
+
+def _fma(a, b, c):
+    """fmaf: one rounding of a * b + c (the product is exact in float64)."""
+    return (a * b + c.double()).float()
+
+
+def chain_matmul(a, b):
+    """a (R, K) @ b (K, N) as one fmaf chain in k order per output."""
+    a, b = a.double(), b.double()
+    acc = torch.zeros((a.shape[0], b.shape[1]))
+    for k in range(a.shape[1]):
+        acc = _fma(a[:, k:k + 1], b[k], acc)
+    return acc
+
+
+def round_bf16(t):
+    """To the nearest bf16 (ties to even), as f32."""
+    return t.to(torch.bfloat16).float()
+
+
+# a pooled conv's product on the tensor cores, as tc_mma.cuh sums it (and
+# *_aligned: each addend truncated at alignment, the worst case the slack
+# must hold); tf32x3 for products below the pooled ones (K6's test)
+PRODUCTS = {"tf32x1": tf32x1_matmul,
+            "tf32x1_aligned": functools.partial(tf32x1_matmul, aligned=True),
+            "tf32x3": lambda a, b: tf32x3_matmul(a, b, block_sums=False),
+            "bf16": lambda a, b: bf16_matmul(a, b, block_sums=False),
+            "bf16_aligned": lambda a, b: bf16_matmul(a, b, block_sums=False, aligned=True)}
+
+
+def bias_bn(acc, b, mu, mul, beta):
+    """Dense bias, then the replayed BN where mu is given; vectors (C, 1)."""
+    v = acc + b[:, 0]
+    return v if mu is None else (v - mu[:, 0]) * mul[:, 0] + beta[:, 0]
+
+
+def tower_rel(product, cin):
+    """csrc/tower_pool.cuh:tower_rel."""
+    chain = 5.97e-8 * cin
+    if product.startswith("bf16"):
+        return 2.0 * (chain + 1.1921e-7 * (cin // 16) * 18 + 1e-7)
+    return 2.0 * (chain + 1.1921e-7 * (cin // 8) * 10 + 9.8e-4)
+
+
+def tower_rel_sums(product, cin):
+    """csrc/tower_pool.cuh:tower_rel_sums (tower_rel without the operands'
+    term)."""
+    chain = 5.97e-8 * cin
+    if product.startswith("bf16"):
+        return 2.0 * (chain + 1.1921e-7 * (cin // 16) * 18)
+    return 2.0 * (chain + 1.1921e-7 * (cin // 8) * 10)
+
+
+def tower_rel_operands(product):
+    """csrc/tower_pool.cuh:tower_rel_operands."""
+    return 2e-7 if product.startswith("bf16") else 1.96e-3
+
+
+def pool_slack(b, mu, mul, beta, rel, hnorm, wnorm):
+    """csrc/tower_pool.cuh's slack (slack_coefs), (rows, C) for row norms
+    hnorm."""
+    s = hnorm[:, None] * wnorm + b[:, 0].abs()
+    if mu is None:
+        return rel * s + 1e-30
+    return rel * (mul[:, 0].abs() * (s + mu[:, 0].abs()) + beta[:, 0].abs()) + 1e-30
+
+
+def pooled_conv(h, w, layer, mask, dup, product, relu=True, shared_from=None):
+    """A pooled conv's max pool as csrc/tower_pool.cuh:pooled_conv takes it,
+    from its input h (nb * ns, cin) and kernel w (cin, C), with layer (k,
+    b, mu, mul, beta) giving the bias and BN (mu None: none) and mask, dup
+    (nb, ns): u~ the values of the tensor-core product (before the ReLU),
+    s the slack; the candidates, the masked rows with u~ + s >= L, L the
+    cluster's largest u~ - s over its masked rows (relu: at least 0), that
+    do not repeat slot 0 (dup); the pool, the largest of the candidates'
+    values summed as k-order chains (relu: ReLU, then bf16 in the bf16
+    products; else bf16 in the bf16 products, and -1e30 where a cluster has
+    no candidate). shared_from (no ReLU; K3's mid conv): the input columns
+    from there on are the same in every row of a cluster, and the slack
+    leaves their operands' rounding out (kShared). Returns (pool (nb, C),
+    u~, candidates, s), (nb, ns, C)."""
+    _, b, mu, mul, beta = layer
+    nb, ns = mask.shape
+    bf16 = product.startswith("bf16")
+    cin = w.shape[0]
+    u_t = bias_bn(PRODUCTS[product](h, w), b, mu, mul, beta).reshape(nb, ns, -1)
+    hnorm, wnorm = h.norm(dim=1) * 1.0001, w.norm(dim=0) * 1.0001
+    if shared_from is None:
+        slack = pool_slack(b, mu, mul, beta, tower_rel(product, cin), hnorm, wnorm)
+    else:
+        assert not relu and mu is None
+        k = shared_from
+        slack = (pool_slack(b, mu, mul, beta, tower_rel_sums(product, cin), hnorm, wnorm)
+                 + tower_rel_operands(product) * (h[:, :k].norm(dim=1)[:, None] * 1.0001)
+                 * (w[:k].norm(dim=0) * 1.0001))
+    slack = slack.reshape(nb, ns, -1)
+    m = mask[..., None]
+    lo = torch.where(m, u_t - slack, torch.tensor(-np.inf)).amax(dim=1, keepdim=True)
+    if relu:
+        lo = torch.clamp(lo, min=0.0)
+    cand = m & ~dup[..., None] & (u_t + slack >= lo)
+    ci, si, ni = cand.nonzero(as_tuple=True)
+    hr, wc = h.reshape(nb, ns, -1)[ci, si].double(), w.t()[ni].double()
+    y = torch.zeros(ci.shape[0])
+    for k in range(h.shape[1]):
+        y = (hr[:, k] * wc[:, k] + y.double()).float()
+    u_c = y + b[ni, 0]
+    if mu is not None:
+        u_c = (u_c - mu[ni, 0]) * mul[ni, 0] + beta[ni, 0]
+    v = torch.relu(u_c) if relu else u_c
+    if bf16:
+        v = round_bf16(v)
+    out = torch.full((nb * w.shape[1],), 0.0 if relu else -1.0e30)
+    pool = out.scatter_reduce(0, ci * w.shape[1] + ni, v, "amax", include_self=True)
+    return pool.reshape(nb, -1), u_t, cand, slack
