@@ -7,7 +7,9 @@ Run from the root of a checkout. It builds the CUDA kernels from
 feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
   1. holds K1-K3 against their plain PyTorch versions at the forward's
      shapes (FPS and ball query index-exact on the four vendored clouds
-     and a synthetic masked case; the fused describe kernel on 7 680
+     and a synthetic masked case, FPS also at the training shape, masked,
+     on duplicated points, an all-masked cloud and 70 000 points
+     (k1_cases); the fused describe kernel on 7 680
      clusters within stated tolerances, with seeded weights and, in f32
      and bf16_act, with the trained weights at phase 1's and phase 13's
      limits);
@@ -18,7 +20,10 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
   3. checks those outputs (shapes, unit norms, agreement with the model
      on the CPU and with the model path on the card);
   4. times K1-K3 against their plain versions (CUDA events, in turns)
-     and the server's descriptors/s; per K3 forward mode and weights
+     and the server's descriptors/s; per vendored cloud and at the
+     training shape (k1_step) K1's time at npoint 2, 64 and 512, its time
+     per step and its set-up (fps_step_split), at every cluster size, with
+     its shared memory and resident clusters; per K3 forward mode and weights
      (seeded, trained; k3_step) K3's shared memory and blocks per SM, its
      time split (fused_describe_time_split: the weight packing, the kernel
      leaving each cluster after each stage, the kernel alone, the whole
@@ -33,7 +38,12 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      tile, tests per centre under the tile's and the per-centre cull),
      its shared memory and blocks per SM, and its time split
      (sorted_ball_query_time_split: the hit mask, the kernel alone on it,
-     the whole wrapper, in turns); per cloud and K6 mode, K6's shared
+     the whole wrapper, in turns); per cloud, K5's work counted in torch
+     (k5_counts: tests per centre under the tile's and the per-centre
+     cull, covered blocks, blocks the value skip drops, the padding share),
+     its shared memory and blocks per SM and its time split
+     (ball_max_time_split: the torch hit mask, the pre-pass, the walk, the
+     kernel, the whole wrapper, in turns); per cloud and K6 mode, K6's shared
      memory and blocks per SM, its time split (fused_detect_time_split:
      the weight packing, the kernel leaving each cluster after each stage,
      the kernel alone, the whole wrapper on weights packed once, in turns)
@@ -102,16 +112,19 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      to f32 of at least 1e-4 (the bf16 rounding shows), then one training
      step, which takes the autograd route: a finite loss, no fused-tower
      launch.
-Option: --parent DIR also builds another tree's training kernels, K3, K4
-and K6 (its csrc/fused_train.cu, csrc/fused_describe.cu,
-csrc/sorted_ball_query.cu, csrc/fused_detect.cu and the headers it has; DIR
-a checkout, e.g. a parent commit unpacked with git archive, or its csrc/).
-It prints the parent's ptxas lines for K3, K4 and K6 and K3's and K6's
-SASS counts; in phase 4 it holds the parent's K3 bit-equal to this one in
+Option: --parent DIR also builds another tree's training kernels, K1, K3,
+K4, K5 and K6 (its csrc/fused_train.cu, csrc/fps.cu,
+csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
+csrc/fused_detect.cu and the headers it has; DIR a checkout, e.g. a parent
+commit unpacked with git archive, or its csrc/). It prints the parent's
+ptxas lines and SASS counts for K1 and K3-K6 and whether K4's SASS equals
+this tree's; in phase 1 it holds the parent's K1 index-exact to this one
+on k1_cases, in phase 4 on every vendored cloud and the training batch,
+timed in turns (k1_step); in phase 4 it holds the parent's K3 bit-equal to this one in
 f32 and bf16_act under the seeded and the trained weights, each tree on
 the weights it packs itself, timed in turns with the split of each tree
 that has it, and in phase 15 its decomposition bodies equal to this
-one's; in phase 5 it holds the parent's K4 bit-equal to
+one's; in phase 5 it holds the parent's K4 and K5 bit-equal to
 this one on every centre of every cloud, padding centres included, and
 times both in turns (the split of each), and holds the parent's K6 to
 this one in each mode (within 1e-5; bf16_operands >= 99.9 % within 1e-4),
@@ -669,6 +682,359 @@ def k4_step(card, name, nb, sc, ctr, cnt_k, top_k, parent_lib):
               f"bit-equal to the parent on all {ctr.shape[0]} centres")
 
 
+def k5_counts(sc, ctr, values, ballmax, tile=512, chunk=2048):
+    """What K5 must do on this layout at the pipeline's tile (512), counted
+    in torch: hit blocks per tile of the hit mask (mean, max); distance
+    tests per real centre under the tile's cull (every point of every hit
+    block) and under a per-centre cull (the hit blocks whose box comes
+    within r of the centre itself, K4's gap expression); of those blocks,
+    the ones wholly inside the 0.5 m ball (their block maximum serves, no
+    test); the ones a per-centre value skip drops (block maximum <= the
+    running maximum) once the centre's own block and its covered blocks
+    are taken, and at best (block maximum <= the centre's ball maximum,
+    `ballmax`); the tests left after that skip; and the share of the tile
+    cull's tests that go to padding centres (x >= 5e8, and a partial last
+    tile's empty slots, which today's kernel runs too)."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+
+    r2 = hg._r2(NMS_RADIUS)
+    nb = sc.blk_bbox.shape[0]
+    L = sc.pts4.shape[0] // nb
+    m = ctr.shape[0]
+    dev = ctr.device
+    hit = hg._padded_hitmask(ctr, sc.blk_bbox, r2, tile).bool()
+    per_tile = hit.sum(1).double()
+    tile_of = torch.arange(m, device=dev) // tile
+    real = ctr[:, 0] < 5e8
+    blkmax = values.view(nb, L).amax(1)
+    bmin, bmax = sc.blk_bbox[:, :3], sc.blk_bbox[:, 3:6]
+    init = hg._init_ballmax(ctr)
+    stats = {k: torch.empty(m, dtype=torch.float64, device=dev)
+             for k in ("near", "covered", "drop", "drop_best", "left")}
+    for c0 in range(0, m, chunk):
+        c = ctr[c0:c0 + chunk, None, :]
+        n_c = c.shape[0]
+        g = torch.clamp(torch.maximum(bmin - c, c - bmax), min=0.0)
+        g = g * g
+        near = ((g[..., 0] + g[..., 1]) + g[..., 2] < r2) & hit[tile_of[c0:c0 + chunk]]
+        f = torch.maximum((c - bmin).abs(), (c - bmax).abs())
+        f = f * f
+        inside = near & ((f[..., 0] + f[..., 1]) + f[..., 2] < r2)
+        # the centre's own block (the sorted rows are the centres), scanned first
+        rows = torch.arange(c0, c0 + n_c, device=dev)
+        own = (rows // L)[:, None] == torch.arange(nb, device=dev)[None, :]
+        pts = sc.pts4[:, :3].view(nb, L, 3)[rows // L]                    # (n_c, L, 3)
+        d = c - pts
+        d = d * d
+        in_own = (d[..., 0] + d[..., 1]) + d[..., 2] < r2
+        own_max = torch.where(in_own, values.view(nb, L)[rows // L],
+                              torch.full_like(pts[..., 0], -1e30)).amax(1)
+        cov_max = torch.where(inside, blkmax[None, :], torch.full_like(g[..., 0], -1e30)).amax(1)
+        best0 = torch.maximum(torch.maximum(init[c0:c0 + chunk], own_max), cov_max)
+        rest = near & ~inside & ~own
+        drop = rest & (blkmax[None, :] <= best0[:, None])
+        drop_best = rest & (blkmax[None, :] <= ballmax[c0:c0 + chunk, None])
+        stats["near"][c0:c0 + n_c] = near.sum(1).double()
+        stats["covered"][c0:c0 + n_c] = inside.sum(1).double()
+        stats["drop"][c0:c0 + n_c] = drop.sum(1).double()
+        stats["drop_best"][c0:c0 + n_c] = drop_best.sum(1).double()
+        stats["left"][c0:c0 + n_c] = ((rest & ~drop).sum(1)
+                                      + (own & near & ~inside).sum(1)).double() * L
+    tests_tile = per_tile[tile_of] * L
+    pad = -m % tile
+    pad_tests = (tests_tile[~real].sum() + pad * per_tile[-1] * L).item()
+    all_tests = (tests_tile.sum() + pad * per_tile[-1] * L).item()
+    return {"hit blocks per tile mean": per_tile.mean().item(),
+            "hit blocks per tile max": int(per_tile.max().item()),
+            "tests per real centre, tile cull": tests_tile[real].mean().item(),
+            "tests per real centre, per-centre cull": (stats["near"][real] * L).mean().item(),
+            "blocks per real centre, per-centre cull": stats["near"][real].mean().item(),
+            "of them wholly inside the ball": stats["covered"][real].mean().item(),
+            "dropped by the value skip after own and covered blocks":
+                stats["drop"][real].mean().item(),
+            "dropped at best": stats["drop_best"][real].mean().item(),
+            "tests per real centre after the skip": stats["left"][real].mean().item(),
+            "share of tile-cull tests on padding centres": pad_tests / max(all_tests, 1.0)}
+
+
+def k5_runs(lib, tag, sc, values, tile, r2):
+    """The calls of one library's K5 at the pipeline's call (every sorted row
+    a centre) for ball_max_time_split, and the output the kernel-alone run
+    writes. A library without f3d_ball_max_occupancy has K5's first design,
+    which takes the torch hit mask: its 'kernel' runs on a mask made once,
+    its 'whole' makes the mask and the output, as its wrapper did. Else the
+    kernel makes its own hit rows: 'prep' is its pre-pass, 'walk' the walk
+    on that pre-pass's output and 'kernel' both, on scratch made once; this
+    tree's 'whole' is the wrapper itself."""
+    import ctypes
+
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.f3d_ball_max
+    pts4, bbox, values = sc.pts4, sc.blk_bbox, values.contiguous()
+    np_, nb = pts4.shape[0], bbox.shape[0]
+    L = np_ // nb
+    out = torch.empty((np_,), dtype=torch.float32, device=pts4.device)
+
+    def ptr(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+    def stream():
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def call(*args):
+        require(fn(*args) == 0, f"K5 ({tag}) launch returned a CUDA error")
+
+    ctr = pts4[:, :3].contiguous()
+    runs = {}
+    if not hasattr(lib, "f3d_ball_max_occupancy"):
+        fn.argtypes = [P, P, I, P, I, I, P, I, I, F, P, P]
+        fn.restype = I
+        hit = hg._padded_hitmask(ctr, bbox, r2, tile)
+
+        def old(h, o):
+            call(ptr(pts4), ptr(values), np_, ptr(h), nb, L, ptr(ctr), np_, tile, r2, ptr(o),
+                 stream())
+        runs[f"{tag} kernel"] = functools.partial(old, hit, out)
+        runs[f"{tag} whole"] = lambda: old(hg._padded_hitmask(ctr, bbox, r2, tile),
+                                           torch.empty_like(out))
+    else:
+        fn.argtypes = [P, P, I, P, I, P, I, I, F, P, P, P, I, P]
+        fn.restype = I
+        tiles = -(-np_ // tile)
+        hit = torch.empty((tiles, nb), dtype=torch.uint8, device=pts4.device)
+        blkmax = torch.empty((nb,), dtype=torch.float32, device=pts4.device)
+
+        def new(stage, h, bm, o):
+            call(ptr(pts4), ptr(values), np_, ptr(bbox), nb, None, np_, tile, r2, ptr(h),
+                 ptr(bm), ptr(o), stage, stream())
+        for stage in ("prep", "walk"):
+            runs[f"{tag} {stage}"] = functools.partial(new, kernels.BALL_MAX_STAGES[stage], hit,
+                                                       blkmax, out)
+        runs[f"{tag} kernel"] = functools.partial(new, 0, hit, blkmax, out)
+        runs[f"{tag} whole"] = lambda: new(0, torch.empty_like(hit), torch.empty_like(blkmax),
+                                           torch.empty_like(out))
+    if tag == "this":
+        runs[f"{tag} whole"] = functools.partial(hg.ball_max_sorted, pts4, bbox, values,
+                                                 NMS_RADIUS, tile)
+    return runs, out
+
+
+def ball_max_time_split(sc, values, libs, reps, tile=512):
+    """K5's time split at the pipeline's call (tile 512, every sorted row a
+    centre): ms per call (CUDA events, `reps` back-to-back calls, in turns)
+    of the torch hit mask alone (`_padded_hitmask`), and per library of
+    k5_runs' calls (the kernel alone, its pre-pass and walk where it has
+    them, the whole call). Returns (ms by key, {tag: the kernel-alone
+    output})."""
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+
+    r2 = hg._r2(NMS_RADIUS)
+    ctr = sc.pts4[:, :3].contiguous()
+    runs = {"mask": lambda: hg._padded_hitmask(ctr, sc.blk_bbox, r2, tile)}
+    outs = {}
+    for tag, lib in libs.items():
+        more, outs[tag] = k5_runs(lib, tag, sc, values, tile, r2)
+        runs.update(more)
+    return ms_in_turns(runs, reps), outs
+
+
+def k5_step(card, name, nb, sc, ctr, values, bm_k, parent_lib):
+    """Step 0 of K5's redesign and, with a parent library, K5 against it:
+    the counts (`k5_counts`), this tree's occupancy where it has the entry
+    point, the time split of each tree in turns (ball_max_time_split), each
+    tree's kernel-alone output bit-equal to this tree's wrapper on every
+    centre, padding centres included."""
+    import ctypes
+
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+
+    counts = k5_counts(sc, ctr, values, bm_k)
+    print(f"K5 counts {name} bucket {nb} (tile 512, r {NMS_RADIUS}): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in counts.items()))
+    libs = {"this": kernels.library()}
+    if parent_lib is not None:
+        libs = {"parent": parent_lib, **libs}
+    n_blocks = sc.blk_bbox.shape[0]
+    for tag, lib in libs.items():
+        if hasattr(lib, "f3d_ball_max_occupancy"):
+            out = torch.zeros(2, dtype=torch.int32)
+            lib.f3d_ball_max_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            require(lib.f3d_ball_max_occupancy(n_blocks, ctypes.c_void_p(out.data_ptr())) == 0,
+                    "K5 occupancy query")
+            print(f"  occupancy ({tag}): ball_max {name} ({n_blocks} blocks): "
+                  f"{int(out[0])} B, {int(out[1])} blocks/SM")
+    sp, outs = ball_max_time_split(sc, values, libs, reps=5 if nb <= FULL_CHECK else 3)
+    print_split(card, f"ball_max {name} bucket {nb}", sp)
+    for tag, out in outs.items():
+        require(torch.equal(out, bm_k), f"K5 of {tag} (kernel alone) != this tree's wrapper "
+                                        f"on {name}")
+    if parent_lib is not None:
+        print(f"[{card}] ball_max {name} bucket {nb}: parent {sp['parent kernel']:.4f} ms, this "
+              f"{sp['this kernel']:.4f} ms (kernels alone, in turns); wrapper parent "
+              f"{sp['parent whole']:.4f}, this {sp['this whole']:.4f} ms; bit-equal to the "
+              f"parent on all {ctr.shape[0]} centres")
+    return sp
+
+
+def fps_launcher(lib):
+    """K1 of the ctypes library `lib` as f(xyz, npoint, mask=None,
+    cluster=None) -> (B, npoint) int32, on the current stream. A library
+    without f3d_fps_occupancy has K1's first design (one block a cloud, no
+    cluster size); this tree's takes the cluster size, by default the
+    wrapper's choice (ops.fps.fps_cluster_size)."""
+    import ctypes
+
+    import torch
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.f3d_fps
+    clustered = hasattr(lib, "f3d_fps_occupancy")
+    fn.argtypes = [P, P, P, I, I, I] + ([I] if clustered else []) + [P, P]
+    fn.restype = I
+    lib.f3d_fps_max_smem_points.argtypes = [I] if clustered else []
+    lib.f3d_fps_max_smem_points.restype = I
+
+    def launch(xyz, npoint, mask=None, cluster=None):
+        from feat3dnet_tpu_torch.ops import fps
+
+        b, n, _ = xyz.shape
+        if clustered:
+            c = fps.fps_cluster_size(n) if cluster is None else cluster
+            cap = lib.f3d_fps_max_smem_points(c)
+        else:
+            cap = lib.f3d_fps_max_smem_points()
+        scratch = torch.empty((b, n), device=xyz.device) if n > cap else None
+        out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+
+        def ptr(t):
+            return ctypes.c_void_p(None if t is None else t.data_ptr())
+        args = [ptr(xyz), ptr(mask), ptr(scratch), b, n, npoint] + ([c] if clustered else [])
+        err = fn(*args, ptr(out), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        require(err == 0, f"K1 launch returned CUDA error {err}")
+        return out
+    launch.clustered = clustered
+    return launch
+
+
+# K1's step split: the kernel at these npoint, so (t[512] - t[64]) / 448 is
+# the time of one of the sequential steps and t[2] - that step the set-up
+FPS_SPLIT_NPOINTS = (2, 64, 512)
+FPS_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def k1_cases(dev, parent_lib):
+    """K1 index-exact against its plain version (and, with a parent library,
+    the parent's K1) at the training shape (18 x 4 096, npoint 512), on a
+    masked batch, duplicated points, an all-masked cloud and 70 000 points
+    (past the shared-memory path of one block)."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import fps
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    pts = torch.randn(3, 3000, 3, generator=g)
+    mask = torch.rand(3, 3000, generator=g) > 0.5
+    mask[2] = False                                              # all masked
+    cases = {"training batch": (training_batch(dev, SEED), None, NPOINT),
+             "masked (3, 3000)": (pts.to(dev), mask.to(dev), 100),
+             "duplicated points": (torch.cat([pts[:1, :500]] * 3, 1).contiguous().to(dev),
+                                   None, 64),
+             "70 000 points": (torch.randn(1, 70000, 3, generator=g).to(dev), None, 32)}
+    parent = None if parent_lib is None else fps_launcher(parent_lib)
+    for name, (xyz, m, k) in cases.items():
+        got = fps.farthest_point_sample(xyz, k, m)
+        require(torch.equal(got, fps.farthest_point_sample_scan(xyz, k, m)),
+                f"fps kernel != plain on {name}")
+        if parent is not None:
+            require(torch.equal(parent(xyz, k, m), got), f"K1: parent != this on {name}")
+        print(f"K1 fps {name} {tuple(xyz.shape)} npoint {k} (cluster "
+              f"{fps.fps_cluster_size(xyz.shape[1])}): index-exact vs plain"
+              + ("" if parent is None else " and the parent"))
+
+
+def fps_step_split(xyz, launchers, reps):
+    """K1's time per call (CUDA events, `reps` back-to-back calls, in turns)
+    at each of FPS_SPLIT_NPOINTS, per library in `launchers` ({tag:
+    fps_launcher}) and, for a clustered library, at each cluster size of
+    FPS_CLUSTERS too ('this c4'), and this tree's wrapper at NPOINT; then
+    per run its time per step and its set-up. Returns {run: {npoint: ms,
+    'step': ms, 'setup': ms}}."""
+    from feat3dnet_tpu_torch.ops import fps
+
+    runs = {}
+    for tag, launch in launchers.items():
+        variants = {tag: None}
+        if launch.clustered:
+            variants.update({f"{tag} c{c}": c for c in FPS_CLUSTERS})
+        for label, c in variants.items():
+            for k in FPS_SPLIT_NPOINTS:
+                runs[(label, k)] = functools.partial(launch, xyz, k, None, c)
+    runs[("this wrapper", NPOINT)] = functools.partial(fps.farthest_point_sample, xyz, NPOINT)
+    ms = ms_in_turns(runs, reps)
+    out = {}
+    for (label, k), t in ms.items():
+        out.setdefault(label, {})[k] = t
+    lo, hi = FPS_SPLIT_NPOINTS[1], FPS_SPLIT_NPOINTS[2]
+    for d in out.values():
+        if all(k in d for k in FPS_SPLIT_NPOINTS):
+            d["step"] = (d[hi] - d[lo]) / (hi - lo)
+            d["setup"] = d[FPS_SPLIT_NPOINTS[0]] - d["step"]
+    return out
+
+
+def k1_step(card, name, xyz, parent_lib):
+    """Step 0 of K1's redesign and, with a parent library, K1 against it on
+    one batch of clouds: each tree's step split (fps_step_split, in turns;
+    this tree also at every cluster size) beside the bound per step, this
+    tree's shared memory and active clusters per cluster size, and the
+    parent's indices equal to this tree's at npoint 512."""
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+    from feat3dnet_tpu_torch.ops import fps
+
+    libs = {"this": kernels.library()}
+    if parent_lib is not None:
+        libs = {"parent": parent_lib, **libs}
+    launchers = {tag: fps_launcher(lib) for tag, lib in libs.items()}
+    b, n, _ = xyz.shape
+    occ = ["c{} {} B, {} active clusters".format(c, *kernels.fps_occupancy(n, c))
+           for c in FPS_CLUSTERS]
+    print(f"  occupancy (this): fps {name} N={n} (wrapper's cluster "
+          f"{fps.fps_cluster_size(n)}): " + "; ".join(occ))
+    sp = fps_step_split(xyz, launchers, reps=5)
+    # the bound of the table (row 1): it prices the work, not the chain of steps
+    bnd = bound_ms(9.0 * (NPOINT - 1) * n * b, (n * 12 + NPOINT * 4) * b)
+    print(f"  fps {name}: bound {bnd[0]:.4f} ms ({bnd[1]}) for npoint {NPOINT}, "
+          f"{1e3 * bnd[0] / (NPOINT - 1):.4f} us a step; this tree's step "
+          f"{1e3 * sp['this']['step']:.3f} us")
+    for label, d in sp.items():
+        if "step" not in d:
+            print(f"[{card}] fps {name} {tuple(xyz.shape)} {label}: npoint {NPOINT} "
+                  f"{d[NPOINT]:.4f} ms")
+            continue
+        print(f"[{card}] fps {name} {tuple(xyz.shape)} {label}: " + ", ".join(
+            f"npoint {k} {d[k]:.4f} ms" for k in FPS_SPLIT_NPOINTS)
+              + f"; per step {1e3 * d['step']:.3f} us, set-up {d['setup']:.4f} ms")
+    if parent_lib is not None:
+        want = fps.farthest_point_sample(xyz, NPOINT)
+        require(torch.equal(launchers["parent"](xyz, NPOINT), want),
+                f"K1: the parent's indices != this tree's on {name}")
+        print(f"[{card}] fps {name}: parent {sp['parent'][NPOINT]:.4f} ms, this "
+              f"{sp['this'][NPOINT]:.4f} ms at npoint {NPOINT} (kernels alone, in turns); "
+              "indices equal to the parent's")
+    return sp
+
+
 # K6's modes as the wrapper takes them (the weights: unfolded, or folded)
 K6_MODES = {"unfolded": {"unfolded": True}, "folded": {},
             "bf16_operands": {"unfolded": True, "bf16_operands": True}}
@@ -823,6 +1189,7 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
             bm_k = hg.ball_max_sorted(sc.pts4, sc.blk_bbox, att_k, NMS_RADIUS)
             bm_p = hg.ball_max_plain(sc.pts4, att_k, NMS_RADIUS, centers=ctr_sl)
             require(torch.equal(bm_k[sl], bm_p), f"ball max kernel != plain on {name}")
+            k5_step(card, name, nb, sc, ctr, att_k, bm_k, parent_lib)
             real = ctr[:, 0] < 5e8
             sat = (cnt_k[real] > NS).float().mean().item()
             print(f"K4/K5/K6 {name} N={n} bucket {nb} (plain on {sl.stop - sl.start} centres): "
@@ -992,9 +1359,9 @@ EXACT_TO_PARENT = ("train_final", "train_bwd_top")
 # --parent: the sources and headers of the other tree that are built (and
 # its tensor-core header where it has one)
 PARENT_BUILD = (("fused_train.cu", "sorted_ball_query.cu", "fused_detect.cu",
-                 "fused_describe.cu"),
+                 "fused_describe.cu", "ball_max.cu", "fps.cu"),
                 ("common.cuh", "slot_layer.cuh"))
-PARENT_OPTIONAL_HEADERS = ("tc_mma.cuh", "tower_pool.cuh")
+PARENT_OPTIONAL_HEADERS = ("tc_mma.cuh", "tower_pool.cuh", "block_cull.cuh")
 
 
 def compare(name, got, want, rtol, atol, max_share=0.0):
@@ -1564,28 +1931,44 @@ def ptxas_lines(tag, info, marker):
             print(f"  ptxas ({tag}): {line.strip()}")
 
 
-def sass_counts(info, pattern, ops):
-    """{kernel: {op: count}} from `cuobjdump -sass` of a build's library, for
-    the kernels whose mangled name `pattern` (a regex) matches; each op
-    counted on the lines that hold it."""
-    import re
-
+@functools.lru_cache(maxsize=None)
+def _sass(lib_path):
+    """`cuobjdump -sass` of a built library."""
     from feat3dnet_tpu_torch import kernels
 
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", info.path], capture_output=True, text=True,
+    return subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
+
+
+def sass_bodies(info, pattern):
+    """{kernel: its SASS instructions} of a build's library for the kernels
+    whose mangled name `pattern` (a regex) matches, without addresses,
+    encodings, (per-file hashed) symbol names or the NOPs that pad a
+    function to its alignment, so two builds of the same code compare
+    equal."""
+    import re
+
+    bodies, name = {}, None
+    for line in _sass(info.path).splitlines():
         if "Function :" in line:
             m = re.search(pattern, line)
             name = m.group(0) if m else None
             if name:
-                counts[name] = dict.fromkeys(ops, 0)
+                bodies[name] = []
         elif name:
-            for op in ops:
-                counts[name][op] += op in line
-    return counts
+            ins = re.sub(r"/\*[^*]*\*/", "", line)
+            ins = re.sub(r"\S*_GLOBAL__N__\S*", "SYM", ins).strip()
+            if ins and not ins.startswith(".") and ins != "NOP ;":
+                bodies[name].append(ins)
+    return bodies
+
+
+def sass_counts(info, pattern, ops):
+    """{kernel: {op: count}} for sass_bodies' kernels: each op counted on
+    the instructions that hold it."""
+    return {name: {op: sum(op in ins for ins in body) for op in ops}
+            for name, body in sass_bodies(info, pattern).items()}
 
 
 def train_build_report(tag, info):
@@ -1599,15 +1982,40 @@ def train_build_report(tag, info):
         print(f"  sass ({tag}): {name}: {c['HMMA']} HMMA, {c['FFMA']} FFMA")
 
 
-def tower_build_report(tag, info, marker):
+TOWER_SASS_OPS = ("HMMA", "FFMA", "LDS", "LDG", "LDL", "STL")
+# K1, K4 and K5: shared, global, generic (a peer's shared memory) and local
+# memory, shuffles, block and cluster barriers, min / max
+WALK_SASS_OPS = ("LDG", "LDS", "STS", "LD.", "LDL", "STL", "SHFL", "VOTE", "BAR", "CGABAR",
+                 "FMNMX", "FFMA")
+# the kernels whose ptxas lines and SASS counts the build reports print
+WALK_MARKERS = ("fps", "sorted_ball_query", "ball_max")
+
+
+def tower_build_report(tag, info, marker, ops=TOWER_SASS_OPS):
     """The lines of a build's ptxas report and its SASS counts for the
     kernels whose name holds `marker` (K3: "describe", K6: "fused_detect"):
-    tensor-core (HMMA), f32 CUDA-core (FFMA), shared (LDS), global (LDG) and
-    local (LDL, STL) memory instructions, per instantiation."""
+    by default tensor-core (HMMA), f32 CUDA-core (FFMA), shared (LDS),
+    global (LDG) and local (LDL, STL) memory instructions, per
+    instantiation."""
     ptxas_lines(tag, info, marker)
-    ops = ("HMMA", "FFMA", "LDS", "LDG", "LDL", "STL")
     for name, c in sass_counts(info, rf"\w*{marker}\w*", ops).items():
         print(f"  sass ({tag}): {name}: " + ", ".join(f"{c[op]} {op}" for op in ops))
+
+
+def sass_equal(tag, this_info, other_info, marker):
+    """Print whether the kernels whose name holds `marker` compile to the
+    same SASS in both builds (sass_bodies), and the first differing
+    instructions where they do not."""
+    a, b = (list(sass_bodies(i, rf"\w*{marker}\w*").values())
+            for i in (this_info, other_info))
+    same = a == b
+    print(f"{marker}: SASS equal to the {tag}'s, instruction for instruction: {same} "
+          f"({sum(map(len, a))} instructions; the {tag} {sum(map(len, b))})")
+    if not same:
+        for x, y in zip(a, b):
+            diff = [(i, s, t) for i, (s, t) in enumerate(zip(x, y)) if s != t]
+            for i, s, t in diff[:4]:
+                print(f"  #{i}: this {s!r}, {tag} {t!r}")
 
 
 def occupancy_report(tag, timed):
@@ -2231,9 +2639,9 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="another tree (a checkout or its csrc/): build its K3, K4, K6 and "
-                         "training kernels too and hold this tree's against them (phases 4, "
-                         "5, 15, parent_ab)")
+                    help="another tree (a checkout or its csrc/): build its K1, K3-K6 and "
+                         "training kernels too and hold this tree's against them (phases 1, "
+                         "4, 5, 15, parent_ab)")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2272,12 +2680,16 @@ def main():
     ptxas_lines("this", info, "")
     for marker in ("fused_detect", "describe"):
         tower_build_report("this", info, marker)
+    for marker in WALK_MARKERS:
+        tower_build_report("this", info, marker, WALK_SASS_OPS)
     parent_lib = parent = None
     if opts.parent:
         parent = parent_csrc(opts.parent)
-        ptxas_lines("parent", parent_build(parent), "sorted_ball_query")
         for marker in ("fused_detect", "describe"):
             tower_build_report("parent", parent_build(parent), marker)
+        for marker in WALK_MARKERS:
+            tower_build_report("parent", parent_build(parent), marker, WALK_SASS_OPS)
+        sass_equal("parent", info, parent_build(parent), "sorted_ball_query")
         parent_lib = parent_cdll(parent)
     clouds = {n: torch.from_numpy(
         np.ascontiguousarray(load_point_cloud(example_cloud_path(n))[:, :3]))[None]
@@ -2297,6 +2709,7 @@ def main():
         require(torch.equal(k, p), f"fps kernel != plain on {name}")
         centers[name] = gather_points(xyz, k).contiguous()
         print(f"K1 fps {name} {tuple(xyz.shape)}: index-exact vs plain")
+    k1_cases(dev, parent_lib)
     report["fps"]["max_abs_err"] = 0
 
     bq_k, bq_p = wrappers["ball_query"], wrappers["ball_query"].plain
@@ -2457,6 +2870,10 @@ def main():
             report[key]["ms"] = float(np.mean([p[0] for p in per]))
             report[key]["plain_ms"] = float(np.mean([p[1] for p in per]))
             report[key]["bound_ms"], report[key]["bound_by"] = mean_bound(bounds)
+        # K1's time per step and set-up, per cluster size (and the parent's)
+        for name in CLOUDS:
+            k1_step(card, name, gpu[name], parent_lib)
+        k1_step(card, "training batch", training_batch(dev, SEED), parent_lib)
         pk3 = fused_describe._describe_kernel_weights(weights_t, cfg, dev)   # packed once
         ms_k, ms_p = in_turns(lambda: k3(weights_t, packed, cfg, packed=pk3),
                               lambda: k3_plain(weights_t, packed, cfg), 10, 3)

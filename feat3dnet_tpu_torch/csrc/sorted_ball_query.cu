@@ -34,17 +34,11 @@
 //    memory and sorts it by each block's smallest key (its first row, as
 //    keys ascend within a block). A warp then tests its centre against 32
 //    listed blocks at a time (one per lane, __ballot_sync) with the gap
-//    expression of block_hitmask, the centre a box of zero size:
-//    g = max(bmin - c, c - bmax, 0) per axis, ((gx*gx) + gy*gy) + gz*gz < r2,
-//    every operation rounded on its own (no FMA). It is never stricter than
-//    the point test: fl(c - p) is monotone in p, so |fl(c - p)| >= g for
-//    every point p of the box (rounding is odd-symmetric, fl(-x) = -fl(x)),
-//    and the rounded squares and sums are monotone too, so d2(p) >= g2. A
-//    contracted FMA would round differently and break this.
-//  * Covered blocks. A block whose box lies wholly inside the ball,
-//    f = max(|fl(c - bmin)|, |fl(c - bmax)|) per axis and
-//    ((fx*fx) + fy*fy) + fz*fz < r2 rounded the same way, holds only
-//    in-ball points (by the same monotonicity |fl(c - p)| <= f), so it
+//    expression of block_hitmask, the centre a box of zero size
+//    (F3D_CULL_BLOCK, block_cull.cuh, which has the argument that it is
+//    never stricter than the point test).
+//  * Covered blocks. A block whose box lies wholly inside the ball (the
+//    covered test of F3D_CULL_BLOCK) holds only in-ball points, so it
 //    counts as `block` with no test and its first rows are its smallest
 //    keys. Every padding block is covered for a padding centre, and once
 //    its list is full the covered blocks of 32 listed ones count at once.
@@ -61,7 +55,7 @@
 //    other half of a ping-pong buffer. Once the list is full and a block's
 //    smallest key exceeds its largest, that block and every later one only
 //    count. The coordinates are gathered from the sorted rows at the end.
-#include "common.cuh"
+#include "block_cull.cuh"
 
 namespace {
 
@@ -174,14 +168,7 @@ sorted_ball_query_kernel(const float4* __restrict__ pts4, const float4* __restri
         const int b = hits[h0 + lane];
         const float4 lo = bbox[2 * static_cast<size_t>(b)];       // minx miny minz maxx
         const float4 hi = bbox[2 * static_cast<size_t>(b) + 1];   // maxy maxz 0 0
-        const float gx = fmaxf(fmaxf(lo.x - cx, cx - lo.w), 0.f);
-        const float gy = fmaxf(fmaxf(lo.y - cy, cy - hi.x), 0.f);
-        const float gz = fmaxf(fmaxf(lo.z - cz, cz - hi.y), 0.f);
-        pass = f3d::sqdist3(gx, gy, gz) < r2;
-        const float fx = fmaxf(fabsf(cx - lo.x), fabsf(cx - lo.w));
-        const float fy = fmaxf(fabsf(cy - lo.y), fabsf(cy - hi.x));
-        const float fz = fmaxf(fabsf(cz - lo.z), fabsf(cz - hi.y));
-        cov = pass && f3d::sqdist3(fx, fy, fz) < r2;
+        F3D_CULL_BLOCK(cx, cy, cz, lo, hi, r2, pass, cov);
       }
       unsigned todo = __ballot_sync(full, pass);
       const unsigned covered = __ballot_sync(full, cov);

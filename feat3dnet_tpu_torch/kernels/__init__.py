@@ -37,7 +37,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("fps.cu", "ball_query.cu", "fused_describe.cu", "sorted_ball_query.cu",
            "ball_max.cu", "fused_detect.cu", "fused_train.cu")
-HEADERS = ("common.cuh", "slot_layer.cuh", "tc_mma.cuh", "tower_pool.cuh")
+HEADERS = ("common.cuh", "slot_layer.cuh", "tc_mma.cuh", "tower_pool.cuh",
+           "block_cull.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libf3d_kernels.so"
@@ -127,11 +128,15 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build().path)
     lib.f3d_error_string.argtypes = [_I]
     lib.f3d_error_string.restype = ctypes.c_char_p
-    # xyz, mask|NULL, scratch|NULL, b, n, npoint, out, stream
-    lib.f3d_fps.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P]
+    # xyz, mask|NULL, scratch|NULL, b, n, npoint, cluster, out, stream
+    lib.f3d_fps.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P]
     lib.f3d_fps.restype = _I
-    lib.f3d_fps_max_smem_points.argtypes = []
+    # cluster
+    lib.f3d_fps_max_smem_points.argtypes = [_I]
     lib.f3d_fps_max_smem_points.restype = _I
+    # n, cluster, out (host int32 (2,): smem bytes, active clusters)
+    lib.f3d_fps_occupancy.argtypes = [_I, _I, _P]
+    lib.f3d_fps_occupancy.restype = _I
     # xyz, centers, mask|NULL, b, n, m, r2, ns, idx, cnt, stream
     lib.f3d_ball_query.argtypes = [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]
     lib.f3d_ball_query.restype = _I
@@ -153,8 +158,9 @@ def library() -> ctypes.CDLL:
     lib.f3d_sorted_ball_query.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I, _I, _F, _I,
                                           _P, _P, _P]
     lib.f3d_sorted_ball_query.restype = _I
-    # pts4, values, np, hit, nb, block, centers, m, tile, r2, out, stream
-    lib.f3d_ball_max.argtypes = [_P, _P, _I, _P, _I, _I, _P, _I, _I, _F, _P, _P]
+    # pts4, values, np, blk_bbox, nb, centers|NULL, m, tile, r2, hit, blkmax,
+    # out, stage, stream
+    lib.f3d_ball_max.argtypes = [_P, _P, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P, _I, _P]
     lib.f3d_ball_max.restype = _I
     # clusters, ns, batch, weights, layers (host int32 array), extra (host
     # int32 (n, 2)), n_det, n_det2, folded, bf16, r, inv_r, r2, out, stream
@@ -210,16 +216,26 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def fps_max_smem_points() -> int:
-    """Largest cloud whose running-min array fits in one block's shared memory."""
-    return library().f3d_fps_max_smem_points()
+def fps_max_smem_points(cluster: int) -> int:
+    """Largest cloud whose slices fit in the shared memory of a cluster of
+    `cluster` blocks (larger ones need the scratch array)."""
+    return library().f3d_fps_max_smem_points(cluster)
 
 
-def launch_fps(xyz, mask, scratch, npoint, out) -> None:
+def launch_fps(xyz, mask, scratch, npoint, cluster, out) -> None:
+    """cluster: blocks per cloud (1, 2, 4, 8 or 16)."""
     b, n, _ = xyz.shape
     with torch.cuda.device(xyz.device):
         check(library().f3d_fps(_ptr(xyz), _ptr(mask), _ptr(scratch), b, n,
-                                npoint, _ptr(out), _stream(xyz)), "fps")
+                                npoint, cluster, _ptr(out), _stream(xyz)), "fps")
+
+
+def fps_occupancy(n: int, cluster: int):
+    """(dynamic shared-memory bytes a block, clusters resident at once) of
+    K1's launch for clouds of n points."""
+    out = torch.zeros(2, dtype=torch.int32)
+    check(library().f3d_fps_occupancy(n, cluster, _ptr(out)), "fps_occupancy")
+    return int(out[0]), int(out[1])
 
 
 def launch_ball_query(xyz, centers, mask, r2, ns, idx, cnt) -> None:
@@ -284,12 +300,19 @@ def launch_sorted_ball_query(pts4, blk_bbox, hit, block, centers, tile, r2, ns, 
             _stream(pts4)), "sorted_ball_query")
 
 
-def launch_ball_max(pts4, values, hit, block, centers, tile, r2, out) -> None:
+# K5's stages as csrc/ball_max.cu numbers them (0 runs both): the pre-pass
+# alone, the walk alone on an earlier pre-pass's scratch (the time split)
+BALL_MAX_STAGES = {"prep": 1, "walk": 2}
+
+
+def launch_ball_max(pts4, values, blk_bbox, centers, m, tile, r2, hit, blkmax, out) -> None:
+    """centers: (m, 3) float32, or None for every sorted row (m == Np);
+    hit: (ceil(m / tile), nb) uint8 and blkmax (nb,) float32 scratch."""
     with torch.cuda.device(pts4.device):
         check(library().f3d_ball_max(
-            _ptr(pts4), _ptr(values), pts4.shape[0], _ptr(hit), hit.shape[1], block,
-            _ptr(centers), centers.shape[0], tile, r2, _ptr(out), _stream(pts4)),
-            "ball_max")
+            _ptr(pts4), _ptr(values), pts4.shape[0], _ptr(blk_bbox), blk_bbox.shape[0],
+            _ptr(centers), m, tile, r2, _ptr(hit), _ptr(blkmax), _ptr(out), 0,
+            _stream(pts4)), "ball_max")
 
 
 # K6's stages as csrc/fused_detect.cu numbers them for a detector of

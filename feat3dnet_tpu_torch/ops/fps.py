@@ -8,7 +8,8 @@ ties to the lowest index; masked points are never chosen.
 * `farthest_point_sample_scan` — the plain version: a Python loop over the
   npoint steps, each a few tensor ops on (B, N). The CPU path and the
   oracle for the kernel.
-* `farthest_point_sample` — the wrapper of kernel K1 (csrc/fps.cu). CPU
+* `farthest_point_sample` — the wrapper of kernel K1 (csrc/fps.cu): one
+  thread-block cluster per cloud, of `fps_cluster_size(N)` blocks. CPU
   tensors take the plain version; CUDA tensors launch the kernel.
 """
 from __future__ import annotations
@@ -20,6 +21,20 @@ import torch
 from feat3dnet_tpu_torch import kernels
 
 _INIT_DIST = 1e38
+# points a block of K1's cluster takes before the cluster doubles (at most
+# 16 blocks a cloud)
+_FPS_SLICE = 1024
+_FPS_MAX_CLUSTER = 16
+
+
+def fps_cluster_size(n: int) -> int:
+    """K1's blocks per cloud for clouds of n points: the smallest power of
+    two, at most 16, whose slices of the cloud hold at most _FPS_SLICE
+    points each."""
+    c = 1
+    while c < _FPS_MAX_CLUSTER and -(-n // c) > _FPS_SLICE:
+        c *= 2
+    return c
 
 
 def farthest_point_sample_scan(xyz: torch.Tensor, npoint: int,
@@ -53,7 +68,8 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
     """FPS through kernel K1: (B, N, 3) f32 -> (B, npoint) int32.
 
     CPU tensors take `farthest_point_sample_scan`; CUDA tensors launch the
-    kernel, and anything it does not take raises.
+    kernel (a cluster of `fps_cluster_size(N)` blocks per cloud), and
+    anything it does not take raises.
     """
     if xyz.device.type == "cpu":
         return farthest_point_sample_scan(xyz, npoint, valid_mask)
@@ -74,11 +90,12 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
             raise ValueError("farthest_point_sample: valid_mask must be a contiguous "
                              f"(B, N) bool tensor on {xyz.device}")
         mask = valid_mask
+    cluster = fps_cluster_size(n)
     scratch = None
-    if n > kernels.fps_max_smem_points():
+    if n > kernels.fps_max_smem_points(cluster):
         scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    kernels.launch_fps(xyz, mask, scratch, npoint, out)
+    kernels.launch_fps(xyz, mask, scratch, npoint, cluster, out)
     farthest_point_sample.launches += 1
     return out
 

@@ -16,7 +16,10 @@ cuts the work by locality and stays index-exact against the dense op:
      among the in-ball points, and the true in-ball count; `_finish_grouped`
      applies the reference's repeat-pad and empty-ball rule;
   4. kernel K5 (`ball_max_sorted`, csrc/ball_max.cu) is the NMS primitive:
-     per centre, the maximum of a per-point value over its radius ball.
+     per centre, the maximum of a per-point value over its radius ball; it
+     makes its own per-tile hit rows and per-block value maxima, culls per
+     centre as K4 does, and skips a block whose maximum cannot raise the
+     centre's running maximum.
 
 K4 and K5 launch on CUDA tensors; CPU tensors take their plain versions,
 which scan the cloud in (centre chunk x point chunk) tiles without the cull
@@ -362,15 +365,16 @@ def ball_max_sorted(pts4: torch.Tensor, blk_bbox: torch.Tensor, values: torch.Te
     over its radius ball, through kernel K5: the NMS primitive, a point
     survives iff its own value ties its ball max. +1e30 for invalid
     centres. CPU tensors take `ball_max_plain`; CUDA tensors launch the
-    kernel (one block of `tile` threads per tile of centres, walking its
-    hit list), and anything it does not take raises."""
+    kernel (a pre-pass of block maxima and per-tile hit rows, `tile`
+    centres a row, then blocks of a few centres each walking their tile's
+    hit list with a per-centre cull and value skip), and anything it does
+    not take raises."""
     if pts4.device.type == "cpu":
         return ball_max_plain(pts4, values, radius, centers)
     if pts4.device.type != "cuda":
         raise ValueError(f"ball_max_sorted: unsupported device {pts4.device}")
-    if centers is None:
-        centers = pts4[:, :3]
-    L = _check_sorted_inputs("ball_max_sorted", pts4, blk_bbox, centers)
+    L = _check_sorted_inputs("ball_max_sorted", pts4, blk_bbox,
+                             pts4[:, :3] if centers is None else centers)
     if (values.dtype != torch.float32 or values.shape != (pts4.shape[0],)
             or values.device != pts4.device):
         raise ValueError(f"ball_max_sorted: want values ({pts4.shape[0]},) float32 on "
@@ -378,11 +382,17 @@ def ball_max_sorted(pts4: torch.Tensor, blk_bbox: torch.Tensor, values: torch.Te
     if tile % 32 or not 32 <= tile <= 512:
         raise ValueError(f"ball_max_sorted: tile={tile} must be a multiple of 32 in "
                          "[32, 512]")
-    pts4, values, centers = pts4.contiguous(), values.contiguous(), centers.contiguous()
-    r2 = _r2(radius)
-    hit = _padded_hitmask(centers, blk_bbox.contiguous(), r2, tile)
-    out = torch.empty((centers.shape[0],), dtype=torch.float32, device=pts4.device)
-    kernels.launch_ball_max(pts4, values, hit, L, centers, tile, r2, out)
+    pts4, values, blk_bbox = pts4.contiguous(), values.contiguous(), blk_bbox.contiguous()
+    if centers is not None:
+        centers = centers.contiguous()
+    m = pts4.shape[0] if centers is None else centers.shape[0]
+    nb = blk_bbox.shape[0]
+    dev = pts4.device
+    hit = torch.empty((-(-m // tile), nb), dtype=torch.uint8, device=dev)
+    blkmax = torch.empty((nb,), dtype=torch.float32, device=dev)
+    out = torch.empty((m,), dtype=torch.float32, device=dev)
+    kernels.launch_ball_max(pts4, values, blk_bbox, centers, m, tile, _r2(radius), hit,
+                            blkmax, out)
     ball_max_sorted.launches += 1
     return out
 

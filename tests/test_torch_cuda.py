@@ -6,9 +6,11 @@ imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-FPS, the ball query, the sorted ball query (K4, also on padding, covered
-blocks and a tile that straddles the padding) and the ball max (K5)
-must be index-exact; the fused describe kernel (K3) within max |d| 1e-4
+FPS (K1, at every cluster size, with masks and ties across its slices),
+the ball query, the sorted ball query (K4, also on padding, covered
+blocks and a tile that straddles the padding) and the ball max (K5, also
+on padding, covered blocks, a constant field and values past its start
+values) must be index-exact; the fused describe kernel (K3) within max |d| 1e-4
 and attention relative 1e-4 (also at batches of 1 and of an odd size, its
 2 clusters a block, and 32 samples, two runs bit-equal), the
 detector-only kernel (K6) within attention
@@ -143,7 +145,7 @@ def test_sorted_ball_query_kernel_walk_cases(dev, rs, case):
         assert (ck > 1000).any()                               # whole blocks inside a ball
 
 
-@pytest.mark.parametrize("tile", [32, 512])
+@pytest.mark.parametrize("tile", [32, 256, 512])
 def test_ball_max_kernel_matches_plain(dev, rs, tile):
     sc = _sorted_cloud(rs, 4000, dev)
     vals = torch.from_numpy(rs.rand(sc.pts4.shape[0]).astype(np.float32)).to(dev)
@@ -155,6 +157,79 @@ def test_ball_max_kernel_matches_plain(dev, rs, tile):
     sub = sc.pts4[1000:1333, :3].contiguous()
     assert torch.equal(thg.ball_max_sorted(sc.pts4, sc.blk_bbox, vals, 0.5, centers=sub),
                        want[1000:1333])
+
+
+@pytest.mark.parametrize("tile", [32, 256, 512])
+@pytest.mark.parametrize("case", ["padding", "covered", "constant", "huge_values"])
+def test_ball_max_kernel_cases(dev, rs, case, tile):
+    """K5's pre-pass and walk on their edge cases, every sorted row a centre
+    (the own block first) and given centres (padding, NaN and +2e9 rows
+    among them): a bucket a quarter padding (padding tiles list nothing),
+    blocks wholly inside the ball (their maximum serves untested), a
+    constant field (every block after the own one skipped by value) and
+    values past 1e30 on padding rows (a padding centre's ball max rises past
+    its start, so its tile may not drop those blocks)."""
+    n, bucket, block = {"padding": (3000, 4096, 64), "covered": (3000, 3072, 32),
+                        "constant": (3000, 4096, 64), "huge_values": (3000, 4096, 32)}[case]
+    xyz = ((rs.rand(n, 3) - 0.5) * 20.0).astype(np.float32)
+    if case == "covered":
+        xyz[:2000] = rs.randn(2000, 3).astype(np.float32) * 0.03
+    padded = np.zeros((bucket, 3), np.float32)
+    padded[:n] = xyz
+    sc = thg.build_sorted_cloud_host(padded, np.arange(bucket) < n, cell_size=2.0,
+                                     block_size=block).to(dev)
+    vals = torch.from_numpy(rs.rand(bucket).astype(np.float32)).to(dev)
+    if case == "constant":
+        vals.fill_(0.5)
+    if case == "huge_values":
+        vals[sc.pts4[:, 0] > 5e8] = 2e30
+    n0 = thg.ball_max_sorted.launches
+    got = thg.ball_max_sorted(sc.pts4, sc.blk_bbox, vals, 0.5, tile=tile)
+    want = thg.ball_max_plain(sc.pts4, vals, 0.5)
+    torch.cuda.synchronize()
+    assert thg.ball_max_sorted.launches == n0 + 1
+    assert torch.equal(got, want)
+    pad = sc.pts4[:, 0] > 5e8
+    assert bool((want[pad] == (2e30 if case == "huge_values" else 1e30)).all())
+    ctr = torch.cat([sc.pts4[::7, :3], torch.full((5, 3), float("nan"), device=dev),
+                     torch.full((5, 3), 2e9, device=dev), sc.pts4[-9:, :3]]).contiguous()
+    assert torch.equal(thg.ball_max_sorted(sc.pts4, sc.blk_bbox, vals, 0.5, tile=tile,
+                                           centers=ctr),
+                       thg.ball_max_plain(sc.pts4, vals, 0.5, centers=ctr))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [4096, 16384, 30609, 70000])
+@pytest.mark.parametrize("b", [1, 3, 18])
+def test_fps_kernel_cluster_sizes(dev, rs, b, n, masked):
+    """K1 at every cluster size it takes (1-16 blocks a cloud; a slice past
+    shared memory on the scratch path) and through the wrapper (its own
+    choice): index-exact against the plain version, with duplicated points
+    and, masked, a wholly masked slice and an all-masked cloud."""
+    from feat3dnet_tpu_torch import kernels
+    from feat3dnet_tpu_torch.ops import fps as tfps
+
+    xyz = rs.randn(b, n, 3).astype(np.float32) * 10.0
+    xyz[:, n // 2:n // 2 + 64] = xyz[:, :64]                  # ties across slices
+    mask = None
+    if masked:
+        m = rs.rand(b, n) > 0.3
+        m[0, : n // 4] = False                                 # whole slices masked
+        if b > 1:
+            m[1] = False                                       # an all-masked cloud
+        mask = torch.from_numpy(m).to(dev)
+    x = torch.from_numpy(xyz).to(dev)
+    npoint = 128
+    want = farthest_point_sample_scan(x, npoint, mask)
+    assert torch.equal(farthest_point_sample(x, npoint, mask), want)
+    for cluster in (1, 2, 4, 8, 16):
+        scratch = (torch.empty((b, n), device=dev)
+                   if n > kernels.fps_max_smem_points(cluster) else None)
+        out = torch.empty((b, npoint), dtype=torch.int32, device=dev)
+        kernels.launch_fps(x, mask, scratch, npoint, cluster, out)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), f"cluster {cluster}"
+    assert tfps.fps_cluster_size(n) in (1, 2, 4, 8, 16)
 
 
 def test_fused_detect_kernel_matches_plain(dev, rs):

@@ -256,3 +256,31 @@ def test_box_predicates_against_points(where):
             assert g == f == bool(inb[0])
     if where != "1e9":                # 1e9 spacing is 64: most boxes collapse
         assert n_cov > 5 and n_cull > 5
+
+
+def test_plain_equals_xla_ball_query_on_sphere_ties():
+    """The port's plain sorted ball query, finished as the pipeline finishes
+    it, equals the JAX package's XLA ball query (neighborhoods.ball_query,
+    the reference the Pallas kernels stand in for) on sphere_ties, whose
+    points sit at d2 == r2 exactly: in idx, cnt and the grouped points."""
+    from feat3dnet_tpu.ops import neighborhoods as jnb
+
+    rs = np.random.RandomState(CASES.index("sphere_ties"))
+    sc, ctr, radius, _ = _case("sphere_ties", rs)
+    keys = sc.pts4[:, 3].astype(np.int64)
+    real = sc.pts4[:, 0] < 5e8
+    n = int(real.sum())
+    xyz = np.zeros((n, 3), F32)                      # the cloud in its original order
+    xyz[keys[real]] = sc.pts4[real, :3]
+    c = ctr[real]
+    ns = 33
+    top, cnt = thg.sorted_ball_query_plain(torch.from_numpy(sc.pts4), torch.from_numpy(c),
+                                           radius, ns)
+    grouped, idx, cnt = thg._finish_grouped(top, cnt, torch.from_numpy(c), ns)
+    idx_j, cnt_j = jnb.ball_query(jnp.asarray(xyz)[None], jnp.asarray(c)[None], radius, ns)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j)[0])
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j)[0])
+    np.testing.assert_array_equal(grouped.numpy(),
+                                  np.asarray(jnb.group_points(jnp.asarray(xyz)[None], idx_j))[0])
+    d2 = ((c[:, None] - xyz[None]) ** 2).sum(-1)
+    assert (d2 == F32(9.0)).any()                    # the boundary is exercised
