@@ -9,7 +9,9 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      shapes (FPS and ball query index-exact on the four vendored clouds
      and a synthetic masked case, FPS also at the training shape, masked,
      on duplicated points, an all-masked cloud and 70 000 points
-     (k1_cases); the fused describe kernel on 7 680
+     (k1_cases), the ball query also at the training shape, on an
+     all-masked cloud, 70 000 points and N and M off every boundary
+     (k2_cases); the fused describe kernel on 7 680
      clusters within stated tolerances, with seeded weights and, in f32
      and bf16_act, with the trained weights at phase 1's and phase 13's
      limits);
@@ -23,7 +25,15 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      and the server's descriptors/s; per vendored cloud and at the
      training shape (k1_step) K1's time at npoint 2, 64 and 512, its time
      per step and its set-up (fps_step_split), at every cluster size, with
-     its shared memory and resident clusters; per K3 forward mode and weights
+     its shared memory and resident clusters; per vendored cloud, the
+     Oxford pair and the training batch (k2_step) K2's work counted on the
+     card (k2_counts: points scanned per centre, balls with >= ns hits,
+     pairs tested and the longest chain of the first design and of the
+     cluster design), its shared memory, CTAs per SM and resident clusters
+     per cluster size, and its time split (ball_query_time_split: the
+     plain version, the kernel alone, the wrapper, the kernel ending after
+     its count and after its exchange, and at every cluster size, in
+     turns); per K3 forward mode and weights
      (seeded, trained; k3_step) K3's shared memory and blocks per SM, its
      time split (fused_describe_time_split: the weight packing, the kernel
      leaving each cluster after each stage, the kernel alone, the whole
@@ -112,15 +122,18 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      to f32 of at least 1e-4 (the bf16 rounding shows), then one training
      step, which takes the autograd route: a finite loss, no fused-tower
      launch.
-Option: --parent DIR also builds another tree's training kernels, K1, K3,
-K4, K5 and K6 (its csrc/fused_train.cu, csrc/fps.cu,
+Option: --parent DIR also builds another tree's training kernels, K1-K6
+(its csrc/fused_train.cu, csrc/fps.cu, csrc/ball_query.cu,
 csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
 csrc/fused_detect.cu and the headers it has; DIR a checkout, e.g. a parent
 commit unpacked with git archive, or its csrc/). It prints the parent's
-ptxas lines and SASS counts for K1 and K3-K6 and whether K4's SASS equals
+ptxas lines and SASS counts for K1-K6 and whether K4's SASS equals
 this tree's; in phase 1 it holds the parent's K1 index-exact to this one
 on k1_cases, in phase 4 on every vendored cloud and the training batch,
-timed in turns (k1_step); in phase 4 it holds the parent's K3 bit-equal to this one in
+timed in turns (k1_step); in phase 1 it holds the parent's K2 index-exact
+to this one on the synthetic masked case and k2_cases, in phase 4 on
+every vendored cloud, the Oxford pair and the training batch, timed in
+turns (k2_step); in phase 4 it holds the parent's K3 bit-equal to this one in
 f32 and bf16_act under the seeded and the trained weights, each tree on
 the weights it packs itself, timed in turns with the split of each tree
 that has it, and in phase 15 its decomposition bodies equal to this
@@ -150,6 +163,7 @@ import functools
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -260,6 +274,25 @@ def ms_in_turns(runs, reps):
     for k in list(runs) + list(runs)[::-1]:
         ms[k] += cuda_ms(runs[k], reps) / 2
     return ms
+
+
+def graph_ms(runs, reps):
+    """{key: ms per call} of each callable in `runs` on the device alone:
+    `reps` calls captured in one CUDA graph, whose replays are timed as
+    ms_in_turns times a callable, so the host's launch time is not
+    counted."""
+    import torch
+
+    graphs = {}
+    for key, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        graphs[key] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[key], capture_error_mode="relaxed"):
+            for _ in range(reps):
+                run()
+    ms = ms_in_turns({key: g.replay for key, g in graphs.items()}, 3)
+    return {key: t / reps for key, t in ms.items()}
 
 
 def serving_time_split(k3, weights_t, packed, cfg, reps=10):
@@ -1035,6 +1068,270 @@ def k1_step(card, name, xyz, parent_lib):
     return sp
 
 
+# K2's kernel as ptxas and cuobjdump name it: the mangled name's length
+# prefix keeps K4's sorted_ball_query_kernel out
+K2_MARKER = "17ball_query_kernel"
+K2_CLUSTERS = (1, 2, 4, 8, 16)
+# blocks of turns (parent, this, this, parent) of the model forward with
+# either tree's K2
+FWD_BLOCKS = 10
+
+
+def k2_launcher(lib):
+    """K2 of the ctypes library `lib` as f(xyz, centers, mask, ns, idx, cnt,
+    cluster=None, stop=0, r2=RADIUS^2), on the current stream. A library
+    without f3d_ball_query_occupancy has K2's first design (a warp a
+    centre: no cluster size, no stop); this tree's takes the cluster size,
+    by default the wrapper's (ops.batch_group.k2_cluster_size), and
+    a stop (kernels.BALL_QUERY_STOPS) for the time split."""
+    import ctypes
+
+    import torch
+
+    from feat3dnet_tpu_torch.ops import batch_group
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.f3d_ball_query
+    clustered = hasattr(lib, "f3d_ball_query_occupancy")
+    fn.argtypes = [P, P, P, I, I, I, F, I] + ([I, I] if clustered else []) + [P, P, P]
+    fn.restype = I
+    r2 = float(np.float32(RADIUS) * np.float32(RADIUS))
+
+    def launch(xyz, centers, mask, ns, idx, cnt, cluster=None, stop=0, r2=r2):
+        b, n, _ = xyz.shape
+        m = centers.shape[1]
+        if clustered:
+            extra = [batch_group.k2_cluster_size(b, m, n, xyz.device) if cluster is None
+                     else cluster, stop]
+        else:
+            require(cluster is None and stop == 0, "K2's first design takes no cluster or stop")
+            extra = []
+
+        def ptr(t):
+            return ctypes.c_void_p(None if t is None else t.data_ptr())
+        err = fn(ptr(xyz), ptr(centers), ptr(mask), b, n, m, r2, ns, *extra, ptr(idx), ptr(cnt),
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        require(err == 0, f"K2 launch returned CUDA error {err}")
+    launch.clustered = clustered
+    return launch
+
+
+@contextlib.contextmanager
+def k2_from(lib):
+    """Every K2 launch inside (the wrapper's) goes through the ctypes
+    library `lib`'s K2 (k2_launcher: another tree's, whatever its design);
+    the rest of the path is this tree's."""
+    from feat3dnet_tpu_torch import kernels
+
+    launch = k2_launcher(lib)
+    saved = kernels.launch_ball_query
+
+    def shim(xyz, centers, mask, r2, ns, cluster, idx, cnt, stop=None):
+        require(stop is None, "k2_from: no stop")
+        launch(xyz, centers, mask, ns, idx, cnt, cluster if launch.clustered else None, r2=r2)
+    kernels.launch_ball_query = shim
+    try:
+        yield
+    finally:
+        kernels.launch_ball_query = saved
+
+
+def k2_occupancy(lib, cluster):
+    """(static shared memory bytes a CTA, CTAs resident on one SM, clusters
+    resident on the card) of a clustered K2's launch at `cluster` CTAs."""
+    import ctypes
+
+    import torch
+
+    out = torch.zeros(3, dtype=torch.int32)
+    lib.f3d_ball_query_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.f3d_ball_query_occupancy.restype = ctypes.c_int
+    require(lib.f3d_ball_query_occupancy(cluster, ctypes.c_void_p(out.data_ptr())) == 0,
+            "K2 occupancy query")
+    return tuple(int(v) for v in out)
+
+
+def k2_counts(xyz, ik, ck, cluster):
+    """What K2 must do on one call (r RADIUS, ns NS), counted on the card
+    from its output: per centre the points scanned up to its ns-th hit (all
+    N when it has fewer), their mean and max, the share of balls with >= ns
+    hits; the pairs tested and the longest dependent chain of K2's first
+    design (a warp a centre, 32 points a step, so ceil(scanned / 32) steps);
+    and of the cluster design at `cluster` CTAs a group of 32 centres
+    (rounds of cluster x warps x chunks x 32 points at
+    kernels.ball_query_shape's sizes, a group stopping after the first
+    round that holds every one of its centres' ns-th hit):
+    the rounds it runs, the pairs it tests (its centres times the points of
+    those rounds) and the points one lane passes over in them (its warp's
+    chunks x 32, the chain of a lane)."""
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+
+    b, n, _ = xyz.shape
+    m = ik.shape[1]
+    sat = ck >= NS
+    scanned = torch.where(sat, ik[..., NS - 1].long() + 1, torch.full_like(ck, n).long())
+    w, k, _ = kernels.ball_query_shape()
+    v = cluster * w
+    per_round = v * k * 32
+    pad = -m % 32
+    need = torch.nn.functional.pad(-(-scanned // per_round), (0, pad))
+    rounds = need.view(b, -1, 32).amax(-1)                      # (b, groups)
+    real = torch.nn.functional.pad(torch.ones_like(scanned), (0, pad)).view(b, -1, 32).sum(-1)
+    pts = torch.clamp(rounds * per_round, max=n)
+    chunks = -(-n // 32)
+    lane = sum(-(-min(v * k, chunks - r * v * k) // v) * 32 for r in range(int(rounds.max())))
+    return {"centres": b * m,
+            "share of balls with >= ns hits": sat.double().mean().item(),
+            "points scanned per centre mean": scanned.double().mean().item(),
+            "max": int(scanned.max().item()),
+            "pairs tested (a warp a centre)": int(scanned.sum().item()),
+            "longest chain (a warp a centre), warp steps":
+                int(((scanned + 31) // 32).max().item()),
+            "all pairs": b * m * n,
+            f"cluster {cluster}: rounds max": int(rounds.max().item()),
+            f"cluster {cluster}: pairs tested": int((pts * real).sum().item()),
+            f"cluster {cluster}: points a lane passes": lane}
+
+
+def ball_query_time_split(xyz, ctr, launchers, reps):
+    """K2's time split at r RADIUS, ns NS: ms per call (CUDA events, `reps`
+    back-to-back calls, in turns) of the plain version, and per launcher
+    ({tag: k2_launcher}) of the kernel alone on outputs made once and of
+    the whole call (this tree's wrapper; another tree's kernel on fresh
+    outputs), each with the host's launch time; then on the device alone
+    (graph_ms, keys ending in "dev") the kernel alone and, for a clustered
+    design, the kernel stopped after its count (every round's stage and
+    masks, no exchange) and after its exchange (no writes), and at each
+    cluster size of K2_CLUSTERS. Returns (ms by key, {tag: (idx, cnt) of
+    the kernel-alone runs})."""
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+    from feat3dnet_tpu_torch.ops import batch_group
+
+    b, _, _ = xyz.shape
+    m = ctr.shape[1]
+
+    def fresh():
+        return (torch.empty((b, m, NS), dtype=torch.int32, device=xyz.device),
+                torch.empty((b, m), dtype=torch.int32, device=xyz.device))
+
+    runs = {"plain": functools.partial(batch_group.ball_query_fused.plain, xyz, ctr, RADIUS, NS)}
+    dev = {}
+    outs = {}
+    for tag, launch in launchers.items():
+        outs[tag] = fresh()
+        runs[f"{tag} kernel"] = functools.partial(launch, xyz, ctr, None, NS, *outs[tag])
+        runs[f"{tag} whole"] = (
+            functools.partial(batch_group.ball_query_fused, xyz, ctr, RADIUS, NS)
+            if tag == "this" else (lambda launch=launch: launch(xyz, ctr, None, NS, *fresh())))
+        scratch = fresh()
+        dev[f"{tag} kernel dev"] = functools.partial(launch, xyz, ctr, None, NS, *scratch)
+        if launch.clustered:
+            for stage, stop in kernels.BALL_QUERY_STOPS.items():
+                dev[f"{tag} {stage} dev"] = functools.partial(launch, xyz, ctr, None, NS,
+                                                              *scratch, stop=stop)
+            for c in K2_CLUSTERS:
+                dev[f"{tag} c{c} dev"] = functools.partial(launch, xyz, ctr, None, NS, *scratch,
+                                                           cluster=c)
+    return {**ms_in_turns(runs, reps), **graph_ms(dev, 20)}, outs
+
+
+def k2_step(card, name, xyz, ctr, parent_lib):
+    """Step 0 of K2's redesign and, with a parent library, K2 against it on
+    one call (r RADIUS, ns NS): the counts (k2_counts), each tree's launch
+    (occupancy where it has the entry point), the time split of each tree
+    with the plain version, in turns (ball_query_time_split), beside the
+    bound, and each tree's kernel-alone output index-exact to this tree's
+    wrapper. Returns (the split, the bound)."""
+    import torch
+
+    from feat3dnet_tpu_torch import kernels
+    from feat3dnet_tpu_torch.ops import batch_group
+
+    b, n, _ = xyz.shape
+    m = ctr.shape[1]
+    libs = {"this": kernels.library()}
+    if parent_lib is not None:
+        libs = {"parent": parent_lib, **libs}
+    launchers = {tag: k2_launcher(lib) for tag, lib in libs.items()}
+    ik, ck = batch_group.ball_query_fused(xyz, ctr, RADIUS, NS)
+    c = batch_group.k2_cluster_size(b, m, n, xyz.device)
+    counts = k2_counts(xyz, ik, ck, c)
+    print(f"K2 counts {name} {tuple(xyz.shape)} x {m} centres: " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in counts.items()))
+    for tag, launch in launchers.items():
+        if launch.clustered:
+            occ = ["c{} {} B, {} blocks/SM, {} active clusters".format(
+                cl, *k2_occupancy(libs[tag], cl)) for cl in K2_CLUSTERS]
+            print(f"  occupancy ({tag}): ball_query {name} (wrapper's cluster {c}, "
+                  f"{b * -(-m // 32) * c} CTAs): " + "; ".join(occ))
+        else:
+            print(f"  occupancy ({tag}): ball_query {name}: {-(-b * m // 8)} blocks of 256 "
+                  "threads, a warp a centre, no shared memory (no occupancy entry point)")
+    sp, outs = ball_query_time_split(xyz, ctr, launchers, reps=5)
+    scanned = torch.where(ck >= NS, ik[..., NS - 1].long() + 1,
+                          torch.full_like(ck, n).long()).sum().item()
+    bnd = bound_ms(8.0 * scanned, nbytes(xyz, ctr, ik, ck))
+    print_split(card, f"ball_query {name} {tuple(xyz.shape)} x {m} (bound {bnd[0]:.4f} ms, "
+                f"{bnd[1]})", sp)
+    for tag, (i_t, c_t) in outs.items():
+        require(torch.equal(i_t, ik) and torch.equal(c_t, ck),
+                f"K2 of {tag} (kernel alone) != this tree's wrapper on {name}")
+    if parent_lib is not None:
+        print(f"[{card}] ball_query {name}: parent {sp['parent kernel dev']:.4f} ms, this "
+              f"{sp['this kernel dev']:.4f} ms (kernels alone on the device, in turns); with "
+              f"the host's launch parent {sp['parent kernel']:.4f}, this "
+              f"{sp['this kernel']:.4f} ms; wrapper parent {sp['parent whole']:.4f}, this "
+              f"{sp['this whole']:.4f} ms; plain {sp['plain']:.4f} ms; idx and cnt equal to "
+              "the parent's")
+    return sp, bnd
+
+
+def k2_cases(dev, parent_lib):
+    """K2 index-exact (idx and cnt) against its plain version and, with a
+    parent library, the parent's K2, at r RADIUS, ns NS: the training batch
+    (18 x 4 096, its 512 FPS centres), an all-masked cloud, 70 000 points
+    (past a round of the widest cluster), and N and M off every chunk,
+    round and group boundary with duplicated points and a third masked."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import batch_group, fps
+    from feat3dnet_tpu_torch.ops.neighborhoods import gather_points
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    xyz_t = training_batch(dev, SEED)
+    ragged = torch.randn(3, 3001, 3, generator=g) * 3.0
+    ragged[:, 1500:1700] = ragged[:, 100:300]                   # duplicates
+    ragged_mask = torch.rand(3, 3001, generator=g) > 0.33
+    big = torch.randn(1, 70000, 3, generator=g) * 6.0
+    cases = {
+        "training batch": (xyz_t, gather_points(
+            xyz_t, fps.farthest_point_sample(xyz_t, NPOINT)).contiguous(), None),
+        "all masked (2, 3000)": (ragged[:2, :3000].contiguous().to(dev),
+                                 ragged[:2, :300].contiguous().to(dev),
+                                 torch.zeros(2, 3000, dtype=torch.bool, device=dev)),
+        "70 000 points": (big.to(dev), big[:, ::137][:, :NPOINT].contiguous().to(dev), None),
+        "ragged (3, 3001) x 77, masked": (ragged.to(dev), (ragged[:, ::39][:, :77] + 0.5)
+                                          .contiguous().to(dev), ragged_mask.to(dev))}
+    parent = None if parent_lib is None else k2_launcher(parent_lib)
+    for name, (xyz, ctr, mask) in cases.items():
+        ik, ck = batch_group.ball_query_fused(xyz, ctr, RADIUS, NS, mask)
+        ip, cp = batch_group.ball_query_fused.plain(xyz, ctr, RADIUS, NS, mask)
+        require(torch.equal(ik, ip) and torch.equal(ck, cp), f"K2 != plain on {name}")
+        if parent is not None:
+            i2, c2 = torch.empty_like(ik), torch.empty_like(ck)
+            parent(xyz, ctr, mask, NS, i2, c2)
+            require(torch.equal(i2, ik) and torch.equal(c2, ck), f"K2: parent != this on {name}")
+        print(f"K2 ball_query {name} {tuple(xyz.shape)} x {ctr.shape[1]} (cluster "
+              f"{batch_group.k2_cluster_size(xyz.shape[0], ctr.shape[1], xyz.shape[1], dev)}, "
+              f"mean cnt {ck.float().mean().item():.2f}): index-exact vs plain"
+              + ("" if parent is None else " and the parent"))
+        torch.cuda.empty_cache()
+
+
 # K6's modes as the wrapper takes them (the weights: unfolded, or folded)
 K6_MODES = {"unfolded": {"unfolded": True}, "folded": {},
             "bf16_operands": {"unfolded": True, "bf16_operands": True}}
@@ -1359,7 +1656,7 @@ EXACT_TO_PARENT = ("train_final", "train_bwd_top")
 # --parent: the sources and headers of the other tree that are built (and
 # its tensor-core header where it has one)
 PARENT_BUILD = (("fused_train.cu", "sorted_ball_query.cu", "fused_detect.cu",
-                 "fused_describe.cu", "ball_max.cu", "fps.cu"),
+                 "fused_describe.cu", "ball_max.cu", "fps.cu", "ball_query.cu"),
                 ("common.cuh", "slot_layer.cuh"))
 PARENT_OPTIONAL_HEADERS = ("tc_mma.cuh", "tower_pool.cuh", "block_cull.cuh")
 
@@ -1988,7 +2285,7 @@ TOWER_SASS_OPS = ("HMMA", "FFMA", "LDS", "LDG", "LDL", "STL")
 WALK_SASS_OPS = ("LDG", "LDS", "STS", "LD.", "LDL", "STL", "SHFL", "VOTE", "BAR", "CGABAR",
                  "FMNMX", "FFMA")
 # the kernels whose ptxas lines and SASS counts the build reports print
-WALK_MARKERS = ("fps", "sorted_ball_query", "ball_max")
+WALK_MARKERS = ("fps", "sorted_ball_query", "ball_max", K2_MARKER)
 
 
 def tower_build_report(tag, info, marker, ops=TOWER_SASS_OPS):
@@ -2639,7 +2936,7 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="another tree (a checkout or its csrc/): build its K1, K3-K6 and "
+                    help="another tree (a checkout or its csrc/): build its K1-K6 and "
                          "training kernels too and hold this tree's against them (phases 1, "
                          "4, 5, 15, parent_ab)")
     opts = ap.parse_args()
@@ -2731,6 +3028,13 @@ def main():
     require(bool((ck[:, 100:] == 0).all()) and bool(syn_mask.gather(
         1, ik.reshape(2, -1).long()).all()), "synthetic case: empty balls / mask")
     print("K2 ball_query synthetic (B=2, N=5000, 30% masked, 200 empty balls): exact")
+    if parent_lib is not None:
+        i2, c2 = torch.empty_like(ik), torch.empty_like(ck)
+        k2_launcher(parent_lib)(syn, syn_ctr, syn_mask, NS, i2, c2)
+        require(torch.equal(i2, ik) and torch.equal(c2, ck),
+                "K2: parent != this on the synthetic masked case")
+        print("K2 ball_query synthetic: idx and cnt equal to the parent's")
+    k2_cases(dev, parent_lib)
     report["ball_query"]["max_abs_err"] = 0
 
     # the serving batch: 512 FPS-centred neighbourhoods of each cloud,
@@ -2842,38 +3146,49 @@ def main():
 
     # ---- 4. times ------------------------------------------------------------------
     with torch.no_grad():
-        for key, fn_k, fn_p, rk, rp in (
-                ("fps", lambda x: fps_k(x, NPOINT), lambda x: fps_p(x, NPOINT), 10, 2),
-                ("ball_query", None, None, 20, 5)):
-            per, bounds = [], []
-            for name in CLOUDS:
-                xyz = gpu[name]
-                n_pts = xyz.shape[1]
-                if key == "fps":
-                    kf, pf = (lambda x=xyz: fn_k(x)), (lambda x=xyz: fn_p(x))
-                    # (npoint - 1) sweeps of 3 sub, 3 mul, 2 add and a min per point
-                    bounds.append(bound_ms(9.0 * (NPOINT - 1) * n_pts,
-                                           n_pts * 12 + NPOINT * 4))
-                else:
-                    c = centers[name]
-                    kf = lambda x=xyz, c=c: bq_k(x, c, RADIUS, NS)
-                    pf = lambda x=xyz, c=c: bq_p(x, c, RADIUS, NS)
-                    # each centre scans points up to its ns-th hit (all N if fewer)
-                    ik, ck = bq_k(xyz, c, RADIUS, NS)
-                    scanned = torch.where(ck >= NS, ik[..., NS - 1].long() + 1,
-                                          torch.full_like(ck, n_pts).long()).sum().item()
-                    bounds.append(bound_ms(8.0 * scanned, nbytes(xyz, c, ik, ck)))
-                ms_k, ms_p = in_turns(kf, pf, rk, rp)
-                per.append((ms_k, ms_p))
-                print(f"[{card}] {key} {name} N={xyz.shape[1]}: kernel {ms_k:.4f} ms, "
-                      f"plain {ms_p:.4f} ms")
-            report[key]["ms"] = float(np.mean([p[0] for p in per]))
-            report[key]["plain_ms"] = float(np.mean([p[1] for p in per]))
-            report[key]["bound_ms"], report[key]["bound_by"] = mean_bound(bounds)
+        per, bounds = [], []
+        for name in CLOUDS:
+            xyz = gpu[name]
+            n_pts = xyz.shape[1]
+            # (npoint - 1) sweeps of 3 sub, 3 mul, 2 add and a min per point
+            bounds.append(bound_ms(9.0 * (NPOINT - 1) * n_pts, n_pts * 12 + NPOINT * 4))
+            ms_k, ms_p = in_turns(lambda x=xyz: fps_k(x, NPOINT), lambda x=xyz: fps_p(x, NPOINT),
+                                  10, 2)
+            per.append((ms_k, ms_p))
+            print(f"[{card}] fps {name} N={n_pts}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+        report["fps"]["ms"] = float(np.mean([p[0] for p in per]))
+        report["fps"]["plain_ms"] = float(np.mean([p[1] for p in per]))
+        report["fps"]["bound_ms"], report["fps"]["bound_by"] = mean_bound(bounds)
         # K1's time per step and set-up, per cluster size (and the parent's)
         for name in CLOUDS:
             k1_step(card, name, gpu[name], parent_lib)
         k1_step(card, "training batch", training_batch(dev, SEED), parent_lib)
+        # K2's work, launch and time split per call of the path (and the parent's)
+        per, bounds, dev_ms = [], [], []
+        for name in list(CLOUDS) + ["oxford_pair(B=2)"]:
+            sp, bnd = k2_step(card, name, pair if name == "oxford_pair(B=2)" else gpu[name],
+                              centers[name], parent_lib)
+            if name not in CLOUDS:
+                continue
+            # the kernels line's time, as for every kernel: the wrapper called
+            # back to back (the host's launch included), in turns with plain
+            xyz, c = gpu[name], centers[name]
+            ms_k, ms_p = in_turns(lambda: bq_k(xyz, c, RADIUS, NS),
+                                  lambda: bq_p(xyz, c, RADIUS, NS), 20, 5)
+            per.append((ms_k, ms_p))
+            bounds.append(bnd)
+            dev_ms.append(sp["this kernel dev"])
+            print(f"[{card}] ball_query {name} N={xyz.shape[1]}: kernel {ms_k:.4f} ms, "
+                  f"plain {ms_p:.4f} ms; on the device alone {sp['this kernel dev']:.4f} ms")
+        report["ball_query"]["ms"] = float(np.mean([p[0] for p in per]))
+        report["ball_query"]["plain_ms"] = float(np.mean([p[1] for p in per]))
+        report["ball_query"]["bound_ms"], report["ball_query"]["bound_by"] = mean_bound(bounds)
+        print(f"[{card}] ball_query mean over the clouds: wrapper {report['ball_query']['ms']:.4f}"
+              f" ms (the kernels line's ms), on the device alone {np.mean(dev_ms):.4f} ms "
+              "(graph_ms; not in the kernels line)")
+        xyz_t = training_batch(dev, SEED)
+        k2_step(card, "training batch", xyz_t,
+                gather_points(xyz_t, fps_k(xyz_t, NPOINT)).contiguous(), parent_lib)
         pk3 = fused_describe._describe_kernel_weights(weights_t, cfg, dev)   # packed once
         ms_k, ms_p = in_turns(lambda: k3(weights_t, packed, cfg, packed=pk3),
                               lambda: k3_plain(weights_t, packed, cfg), 10, 3)
@@ -2905,24 +3220,79 @@ def main():
         ev[3].record()
         ev[3].synchronize()
         stages = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-        # the model forward on each cloud (FPS, ball query, towers)
-        fwd = {}
-        for name in CLOUDS:
-            model(gpu[name])
+        # the model forward on each cloud (FPS, ball query, towers); with a
+        # parent, in FWD_BLOCKS blocks of turns (parent, this, this, parent)
+        # with the parent's K2 in the same forward
+        fwd, fwd_parent = {}, {}
+
+        def forward_ms(x):
+            model(x)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             for _ in range(5):
-                model(gpu[name])
+                model(x)
             torch.cuda.synchronize()
-            fwd[name] = (time.perf_counter() - t1) / 5 * 1e3
+            return (time.perf_counter() - t1) / 5 * 1e3
+
+        def k2_tree(tag):
+            return k2_from(parent_lib) if tag == "parent" else contextlib.nullcontext()
+        tags = ("this",) if parent_lib is None else ("parent", "this")
+        for name in CLOUDS:
+            if parent_lib is None:
+                fwd[name] = [forward_ms(gpu[name])]
+                continue
+            t = {"parent": [], "this": []}
+            for _ in range(FWD_BLOCKS):
+                for tag in ("parent", "this", "this", "parent"):
+                    with k2_tree(tag):
+                        t[tag].append(forward_ms(gpu[name]))
+            fwd[name], fwd_parent[name] = t["this"], t["parent"]
+        # one profiled forward per cloud and tree's K2: device busy time, and
+        # K2's share
+        fwd_dev = {}
+        for name in CLOUDS:
+            for tag in tags:
+                with k2_tree(tag):
+                    model(gpu[name])
+                    torch.cuda.synchronize()
+                    with torch.profiler.profile(activities=[
+                            torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        t1 = time.perf_counter()
+                        model(gpu[name])
+                        torch.cuda.synchronize()
+                        wall = (time.perf_counter() - t1) * 1e3
+                ev = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+                busy = sum(e.self_device_time_total for e in ev) / 1e3
+                k2 = sum(e.self_device_time_total for e in ev
+                         if re.search(r"(?<![A-Za-z_])ball_query_kernel", e.key)) / 1e3
+                fwd_dev[name, tag] = (wall, busy, k2)
     print(f"[{card}] server: {REQUESTS} requests x {BATCH} clusters, "
           f"{REQUESTS * BATCH / serve_s2:.0f} descriptors/s end to end "
           f"(host packed array in, host results out; first run {REQUESTS * BATCH / serve_s:.0f})")
     print(f"[{card}] one request: host->device {stages[0]:.3f} ms, describe_packed "
           f"{stages[1]:.3f} ms, device->host {stages[2]:.3f} ms")
     for name, ms in fwd.items():
-        print(f"[{card}] model forward {name} N={gpu[name].shape[1]}: {ms:.3f} ms "
-              f"(host clock, synchronised)")
+        print(f"[{card}] model forward {name} N={gpu[name].shape[1]}: {np.mean(ms):.3f} ms "
+              "(host clock, synchronised)")
+        if name in fwd_parent:
+            # the parent's minus this tree's forward, per block of turns
+            diff = (np.asarray(fwd_parent[name]).reshape(-1, 2).mean(1)
+                    - np.asarray(ms).reshape(-1, 2).mean(1))
+            print(f"[{card}] model forward {name}, {FWD_BLOCKS} blocks of turns (parent, "
+                  f"this, this, parent; 5 forwards a turn): this {np.mean(ms):.3f} ms (min "
+                  f"{np.min(ms):.3f}, max {np.max(ms):.3f}), with the parent's K2 "
+                  f"{np.mean(fwd_parent[name]):.3f} ms (min {np.min(fwd_parent[name]):.3f}, "
+                  f"max {np.max(fwd_parent[name]):.3f}); parent - this per block: mean "
+                  f"{diff.mean():.3f}, sd {diff.std(ddof=1):.3f}, min {diff.min():.3f}, max "
+                  f"{diff.max():.3f} ms")
+        for tag in tags:
+            wall, busy, k2 = fwd_dev[name, tag]
+            print(f"[{card}] profile model forward {name} ({tag}'s K2): wall {wall:.3f} ms, "
+                  f"device busy {busy:.3f} ms ({100 * busy / wall:.1f} %; "
+                  f"{100 * busy / np.mean(fwd_parent[name] if tag == 'parent' else ms):.1f} % "
+                  f"of the unprofiled forward), K2 {k2:.4f} ms of it")
 
     # ---- 5-8. whole-cloud extraction, trained weights ----------------------------
     ext_clouds = {n: load_point_cloud(example_cloud_path(n)) for n in CLOUDS}

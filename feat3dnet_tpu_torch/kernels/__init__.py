@@ -137,9 +137,12 @@ def library() -> ctypes.CDLL:
     # n, cluster, out (host int32 (2,): smem bytes, active clusters)
     lib.f3d_fps_occupancy.argtypes = [_I, _I, _P]
     lib.f3d_fps_occupancy.restype = _I
-    # xyz, centers, mask|NULL, b, n, m, r2, ns, idx, cnt, stream
-    lib.f3d_ball_query.argtypes = [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]
+    # xyz, centers, mask|NULL, b, n, m, r2, ns, cluster, stop, idx, cnt, stream
+    lib.f3d_ball_query.argtypes = [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P]
     lib.f3d_ball_query.restype = _I
+    # out (host int32 (3,): warps a CTA, chunks a warp per round, largest cluster)
+    lib.f3d_ball_query_shape.argtypes = [_P]
+    lib.f3d_ball_query_shape.restype = None
     # packed, ns, batch, weights, layers (host int32 array), extra (host
     # int32 (n, 2) or NULL), n_det, n_det2, n_desc, mode, r2, inv_r, desc,
     # att, stream
@@ -238,13 +241,31 @@ def fps_occupancy(n: int, cluster: int):
     return int(out[0]), int(out[1])
 
 
-def launch_ball_query(xyz, centers, mask, r2, ns, idx, cnt) -> None:
+@functools.lru_cache(maxsize=None)
+def ball_query_shape():
+    """(warps a CTA, 32-point chunks a warp takes per round at most,
+    largest cluster) of K2 as csrc/ball_query.cu defines them."""
+    out = torch.zeros(3, dtype=torch.int32)
+    library().f3d_ball_query_shape(_ptr(out))
+    return tuple(int(v) for v in out)
+
+
+# K2's stops as csrc/ball_query.cu numbers them: the kernel ends after every
+# round's count (no exchange) or after the exchange (no writes)
+BALL_QUERY_STOPS = {"count": 1, "exchange": 2}
+
+
+def launch_ball_query(xyz, centers, mask, r2, ns, cluster, idx, cnt,
+                      stop: Optional[str] = None) -> None:
+    """cluster: CTAs a group of 32 centres (1, 2, 4, 8 or 16); stop: a key
+    of BALL_QUERY_STOPS for the time split (idx and cnt not written)."""
     b, n, _ = xyz.shape
     m = centers.shape[1]
     with torch.cuda.device(xyz.device):
         check(library().f3d_ball_query(_ptr(xyz), _ptr(centers), _ptr(mask), b, n,
-                                       m, r2, ns, _ptr(idx), _ptr(cnt),
-                                       _stream(xyz)), "ball_query")
+                                       m, r2, ns, cluster,
+                                       0 if stop is None else BALL_QUERY_STOPS[stop],
+                                       _ptr(idx), _ptr(cnt), _stream(xyz)), "ball_query")
 
 
 # K3's modes, as csrc/fused_describe.cu numbers them

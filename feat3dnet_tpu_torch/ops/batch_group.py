@@ -8,6 +8,7 @@ valid mask), index-exact.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -15,6 +16,37 @@ import torch
 
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.ops.neighborhoods import _scalar_radius, ball_query_plain
+
+
+def ball_query_cluster_size(b: int, m: int, n: int, shape: Tuple[int, int, int],
+                            sms: int) -> int:
+    """K2's CTAs per group of 32 centres (a thread-block cluster that splits
+    the cloud), a power of two: `shape` is K2's (warps a CTA, chunks a warp
+    takes per round, largest cluster), as kernels.ball_query_shape reads it
+    from the library, and `sms` the card's streaming multiprocessors. The
+    smallest size that covers the cloud in one round (cluster x warps x
+    chunks chunks of 32 points), then doubled while the grid stays within
+    two CTAs an SM and every warp keeps at least two chunks."""
+    warps, chunks_per_warp, max_cluster = shape
+    groups = b * -(-m // 32)
+    chunks = -(-n // 32)
+    c = 1
+    while c < max_cluster and c * warps * chunks_per_warp < chunks:
+        c *= 2
+    while (c < max_cluster and groups * (2 * c) <= 2 * sms
+           and chunks >= 2 * (2 * c) * warps):
+        c *= 2
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def k2_cluster_size(b: int, m: int, n: int, device: torch.device) -> int:
+    """The wrapper's cluster size for K2 on the CUDA `device`."""
+    return ball_query_cluster_size(b, m, n, kernels.ball_query_shape(), _sm_count(device))
 
 
 def ball_query_fused(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
@@ -53,7 +85,8 @@ def ball_query_fused(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     r2 = float(np.float32(r) * np.float32(r))                # float32 square
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=xyz.device)
-    kernels.launch_ball_query(xyz, centers, valid_mask, r2, nsample, idx, cnt)
+    kernels.launch_ball_query(xyz, centers, valid_mask, r2, nsample,
+                              k2_cluster_size(b, m, n, xyz.device), idx, cnt)
     ball_query_fused.launches += 1
     return idx, cnt
 

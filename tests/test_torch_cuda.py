@@ -7,7 +7,9 @@ imports no JAX, so it runs on a machine that has none:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 FPS (K1, at every cluster size, with masks and ties across its slices),
-the ball query, the sorted ball query (K4, also on padding, covered
+the ball query (K2, at every cluster size, at the training shape, past a
+round of its widest cluster, all masked, N and M off every boundary), the
+sorted ball query (K4, also on padding, covered
 blocks and a tile that straddles the padding) and the ball max (K5, also
 on padding, covered blocks, a constant field and values past its start
 values) must be index-exact; the fused describe kernel (K3) within max |d| 1e-4
@@ -23,10 +25,14 @@ tolerances of tests/test_fused_train.py (means rtol 1e-5, pooled 1e-4,
 dW / dgamma / dbeta rtol 5e-3 with atol 5e-4 max|ref|, db atol 1e-3, dx
 rtol 5e-3 / atol 5e-5), and bit-equal across two runs. TF32 is off.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.config import ModelConfig
 from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
 from feat3dnet_tpu_torch.ops import fused_describe as tfd
@@ -70,17 +76,70 @@ def test_fps_kernel_matches_plain(dev, rs):
     assert torch.equal(farthest_point_sample(big, 32), farthest_point_sample_scan(big, 32))
 
 
-@pytest.mark.parametrize("case", ["random", "saturated", "empty", "mask"])
-def test_ball_query_kernel_matches_plain(dev, rs, case):
+def _bq_case(case, rs):
+    """(xyz, centres, mask or None) of a ball-query case at r 1.2, ns 64."""
+    if case == "training":
+        # the training shape: 18 clouds of 4 096 points, 512 centres each
+        xyz = rs.randn(18, 4096, 3).astype(np.float32) * 3.0
+        return xyz, xyz[:, ::8].copy(), None
+    if case == "70000":
+        # past a round of the widest cluster (16 x 8 x 8 chunks of 32 points)
+        xyz = rs.randn(1, 70000, 3).astype(np.float32) * 8.0
+        return xyz, xyz[:, ::137][:, :512].copy(), None
+    if case == "ragged":
+        # N and M off every chunk, round and group boundary; duplicates
+        xyz = rs.randn(3, 3001, 3).astype(np.float32) * 2.0
+        xyz[:, 2000:2300] = xyz[:, 10:310]
+        ctr = xyz[:, 5::39][:, :77].copy()
+        ctr[:, ::5] += 40.0                                  # empty balls
+        return xyz, ctr, rs.rand(3, 3001) > 0.3
     xyz = rs.randn(2, 3000, 3).astype(np.float32) * (0.1 if case == "saturated" else 2.0)
     ctr = xyz[:, ::30].copy()
     if case == "empty":
         ctr[:, ::2] += 40.0
-    mask = rs.rand(2, 3000) > 0.3 if case == "mask" else None
+    mask = None
+    if case == "mask":
+        mask = rs.rand(2, 3000) > 0.3
+    elif case == "all_masked":
+        mask = np.zeros((2, 3000), bool)
+    return xyz, ctr, mask
+
+
+@pytest.mark.parametrize("case", ["random", "saturated", "empty", "mask", "training", "70000",
+                                  "all_masked", "ragged"])
+def test_ball_query_kernel_matches_plain(dev, rs, case):
+    xyz, ctr, mask = _bq_case(case, rs)
     args = (torch.from_numpy(xyz).to(dev), torch.from_numpy(ctr).to(dev), 1.2, 64,
             None if mask is None else torch.from_numpy(mask).to(dev))
     (ik, ck), (ip, cp) = ball_query_fused(*args), ball_query_plain(*args)
     assert torch.equal(ik, ip) and torch.equal(ck, cp)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("case", ["random", "saturated", "ragged"])
+def test_ball_query_kernel_every_cluster_size(dev, rs, case, cluster):
+    """K2 at each cluster size, whatever the wrapper would choose: the split
+    of the cloud over the cluster's warps must not move a hit."""
+    xyz, ctr, mask = _bq_case(case, rs)
+    x, c = torch.from_numpy(xyz).to(dev), torch.from_numpy(ctr).to(dev)
+    mk = None if mask is None else torch.from_numpy(mask).to(dev)
+    b, m = ctr.shape[:2]
+    ik = torch.empty((b, m, 64), dtype=torch.int32, device=dev)
+    ck = torch.empty((b, m), dtype=torch.int32, device=dev)
+    kernels.launch_ball_query(x, c, mk, float(np.float32(1.2) * np.float32(1.2)), 64, cluster,
+                              ik, ck)
+    ip, cp = ball_query_plain(x, c, 1.2, 64, mk)
+    assert torch.equal(ik, ip) and torch.equal(ck, cp)
+
+
+def test_ball_query_shape_is_the_sources(dev):
+    """The wrapper sizes K2's cluster from the library's kWarps, kChunks and
+    kMaxCluster: they must be csrc/ball_query.cu's."""
+    with open(os.path.join(kernels.CSRC_DIR, "ball_query.cu")) as f:
+        src = f.read()
+    want = tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                 for k in ("kWarps", "kChunks", "kMaxCluster"))
+    assert kernels.ball_query_shape() == want
 
 
 def test_fused_describe_kernel_matches_plain(dev, rs):
