@@ -10,8 +10,9 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      and a synthetic masked case, FPS also at the training shape, masked,
      on duplicated points, an all-masked cloud and 70 000 points
      (k1_cases), the ball query also at the training shape, on an
-     all-masked cloud, 70 000 points and N and M off every boundary
-     (k2_cases); the fused describe kernel on 7 680
+     all-masked cloud, 70 000 points, N and M off every boundary and the
+     cluster-pair validator's shape, 512 masked clusters of up to 1 024
+     points with one centre each (k2_cases); the fused describe kernel on 7 680
      clusters within stated tolerances, with seeded weights and, in f32
      and bf16_act, with the trained weights at phase 1's and phase 13's
      limits);
@@ -39,7 +40,10 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      leaving each cluster after each stage, the kernel alone, the whole
      wrapper on weights packed once, in turns) and the rows each of its
      two pooled convs re-sums;
-  5. holds K4 (sorted ball query) and K5 (ball max) index-exact and K6
+  5. holds the Morton layout built on the card (build_sorted_cloud)
+     bit-equal to the host's numpy build in all four fields and times both
+     (layout_step), then holds K4 (sorted ball query) and K5 (ball max)
+     index-exact and K6
      (detector-only tower) within 1e-5 against their plain versions at the
      extraction shapes: the vendored clouds at their buckets and a seeded
      200 000-point synthetic cloud (plain versions on 8 192 of its
@@ -66,10 +70,13 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      keypoints (features within 1e-4, attention 1e-5); the fused route
      keeps >= 99 % of the keypoints, >= 99 % of the shared ones with
      features within 1e-4 and all at cosine >= 0.9999 (K3's folded BN
-     rounds differently from the model tower); every written file is
-     (K, 35) float32 rows;
+     rounds differently from the model tower); both routes on the layout
+     built on the host (host_layout) give the same outputs bit for bit;
+     every written file is (K, 35) float32 rows;
   8. times K4-K6 against their plain versions and the extract latency of
-     both routes per cloud (host Morton sort separately), and profiles
+     both routes per cloud, on the device layout and in turns on the host
+     layout (beside it the device layout's and the host layout's own
+     time), and profiles
      one extract of each of the two largest clouds per route;
   9. holds K7-K10 (the fused training passes) against their plain versions
      at the training shapes: 18 clouds of 4 096 points (the vendored clouds
@@ -80,9 +87,12 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      every slot tied, 40 of 64 slots, ReLU-zero channels);
   10. drives the training path with launch counters reset: cli.train
      --fused_towers for 20 steps at the paper config on a 12-entry dataset
-     written under build/ (three z-rotations of each vendored cloud), then
-     --auto_resume for 4 more; K1, K2 and K7-K10 must have launched, every
-     loss be finite, the resumed run start at step 20;
+     written under build/ (three z-rotations of each vendored cloud, and a
+     clusters/ folder of 32 cluster pairs cropped from them), validating
+     after step 1 and every 10 steps, then --auto_resume for 4 more; K1,
+     K2 and K7-K10 must have launched, every loss be finite, the resumed
+     run start at step 20, and an FP Rate in [0, 1] be logged at steps 1,
+     10 and 20;
   11. checks a step: the fused route against the autograd route (f32
      cotangents: loss, batch_stats, grads per leaf; bf16: cosine >= 0.99
      per leaf), the card against the CPU (loss, grads, params after Adam),
@@ -121,7 +131,18 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      (cosine > 0.98 on > 90 % of descriptors) and a median attention gap
      to f32 of at least 1e-4 (the bf16 rounding shows), then one training
      step, which takes the autograd route: a finite loss, no fused-tower
-     launch.
+     launch;
+  18. reruns the held-out accuracy: the 24-pair held-out set rebuilt from
+     RandomState(0) (eval/heldout.py), the trained weights in
+     ModelConfig(num_clusters=256, num_samples=64) under
+     InferenceConfig(min_response_ratio=0, nms_radius=0.2) through
+     process_directory on the default and the fused route (counters reset;
+     K4 and K5, and K6 and K3 on the fused route, must launch); per route
+     fig4 precision@1m within 1.0 point of 87.198 %, total putative and
+     keypoints per cloud within 1 % of 24 567 and 1 023.8, registration
+     success >= 20/24 (the record of
+     examples/results/scaled_accuracy/inference_sweep.json); then
+     cli.match --device cuda on the first pair's outputs.
 Option: --parent DIR also builds another tree's training kernels, K1-K6
 (its csrc/fused_train.cu, csrc/fps.cu, csrc/ball_query.cu,
 csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
@@ -162,6 +183,7 @@ import contextlib
 import functools
 import itertools
 import json
+import logging
 import os
 import re
 import subprocess
@@ -181,6 +203,7 @@ FULL_CHECK = 32768    # buckets up to this size: plain versions on every centre
 BATCH = 7680          # clusters per serving request (2 048 distinct, tiled)
 REQUESTS = 8
 SEED = 0
+VAL_BATCH, VAL_POINTS = 512, 1024   # ClusterPairValidator's batch and cluster size
 # H100 SXM peaks: f32 outside the tensor cores, bf16 dense tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -329,21 +352,103 @@ def _wrapped(d):
     return torch.remainder(d + np.pi, 2 * np.pi) - np.pi
 
 
+def padded_cloud(cloud):
+    """(padded (nb, 3), valid (nb,)): a cloud at its bucket, as the
+    pipeline pads it."""
+    from feat3dnet_tpu_torch.config import bucket_for
+
+    n = cloud.shape[0]
+    padded = np.zeros((bucket_for(n), 3), np.float32)
+    padded[:n] = cloud[:, :3]
+    return padded, np.arange(padded.shape[0]) < n
+
+
+LAYOUT_FIELDS = ("pts4", "blk_bbox", "orig_idx", "inv_perm")
+
+
+def layout_step(card, name, dev, cloud):
+    """The Morton layout of a cloud at its bucket (r RADIUS, 256-point
+    blocks, as the pipeline builds it): build_sorted_cloud on the card
+    bit-equal to build_sorted_cloud_host (numpy) in all four fields, with no
+    host sync inside (torch's sync debug mode set to raise); times the
+    device build (CUDA events, 10 back-to-back builds), the host's time to
+    queue one, its device ops' busy time (profiler) and the host build
+    (host clock, 3 builds). Returns (device ms, host ms)."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+
+    padded, valid = padded_cloud(cloud)
+    x, v = torch.from_numpy(padded).to(dev), torch.from_numpy(valid).to(dev)
+
+    def build():
+        return hg.build_sorted_cloud(x, v, cell_size=RADIUS, block_size=256)
+    sc = build()
+    host = hg.build_sorted_cloud_host(padded, valid, cell_size=RADIUS, block_size=256)
+    for f in LAYOUT_FIELDS:
+        a, b = getattr(sc, f).cpu().numpy(), getattr(host, f)
+        require(a.dtype == b.dtype and np.array_equal(a, b),
+                f"device layout != host layout in {f} on {name}")
+    # no host sync inside the build: torch raises on any synchronising call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        build()
+        queue_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    dev_ms = cuda_ms(build, 10)
+    # the device's own share: its kernels' time in one profiled build
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        build()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    launched = sum(e.count for e in ev)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        hg.build_sorted_cloud_host(padded, valid, cell_size=RADIUS, block_size=256)
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"[{card}] layout {name} N={cloud.shape[0]} bucket {padded.shape[0]}: device build "
+          f"{dev_ms:.4f} ms (CUDA events, back to back; the host queues one in {queue_ms:.4f} "
+          f"ms, no sync; its {launched} device ops busy {busy_ms:.4f} ms), host numpy build "
+          f"{host_ms:.2f} ms; bit-equal in {', '.join(LAYOUT_FIELDS)}")
+    return dev_ms, host_ms
+
+
+@contextlib.contextmanager
+def host_layout():
+    """The pipeline's Morton layout built on the host in numpy (the route
+    before the device builder), for as long as the context lasts."""
+    from feat3dnet_tpu_torch.inference import pipeline
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+
+    device_build = pipeline.build_sorted_cloud
+    pipeline.build_sorted_cloud = lambda xyz, valid, **kw: hg.build_sorted_cloud_host(
+        xyz.cpu().numpy(), valid.cpu().numpy(), **kw).to(xyz.device)
+    try:
+        yield
+    finally:
+        pipeline.build_sorted_cloud = device_build
+
+
 def sorted_clusters(dev, cloud):
     """A cloud at its bucket, Morton-sorted on the card, and the (M, ns, 3)
     origin-centred K4 clusters of every sorted centre (the attention pass's
     input). Returns (sorted cloud, centres, K4 top, K4 count, clusters, the
     slice of centres the plain versions check: every centre, or SYN_SLICE
     contiguous sorted centres of a cloud past FULL_CHECK)."""
-    from feat3dnet_tpu_torch.config import bucket_for
+    import torch
+
     from feat3dnet_tpu_torch.ops import hash_grid as hg
 
-    n = cloud.shape[0]
-    nb = bucket_for(n)
-    padded = np.zeros((nb, 3), np.float32)
-    padded[:n] = cloud[:, :3]
-    sc = hg.build_sorted_cloud_host(padded, np.arange(nb) < n, cell_size=RADIUS,
-                                    block_size=256).to(dev)
+    padded, valid = padded_cloud(cloud)
+    nb = padded.shape[0]
+    sc = hg.build_sorted_cloud(torch.from_numpy(padded).to(dev),
+                               torch.from_numpy(valid).to(dev), cell_size=RADIUS,
+                               block_size=256)
     ctr = sc.pts4[:, :3]
     top, cnt = hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, RADIUS, NS, tile=256)
     grouped, _, _ = hg._finish_grouped(top, cnt, ctr, NS)
@@ -1294,8 +1399,11 @@ def k2_cases(dev, parent_lib):
     """K2 index-exact (idx and cnt) against its plain version and, with a
     parent library, the parent's K2, at r RADIUS, ns NS: the training batch
     (18 x 4 096, its 512 FPS centres), an all-masked cloud, 70 000 points
-    (past a round of the widest cluster), and N and M off every chunk,
-    round and group boundary with duplicated points and a third masked."""
+    (past a round of the widest cluster), N and M off every chunk, round
+    and group boundary with duplicated points and a third masked, and the
+    cluster-pair validator's shape (VAL_BATCH clusters of 64-1 024 points
+    padded to 1 024, the padding masked at the origin, one centre at the
+    origin each)."""
     import torch
 
     from feat3dnet_tpu_torch.ops import batch_group, fps
@@ -1307,6 +1415,10 @@ def k2_cases(dev, parent_lib):
     ragged[:, 1500:1700] = ragged[:, 100:300]                   # duplicates
     ragged_mask = torch.rand(3, 3001, generator=g) > 0.33
     big = torch.randn(1, 70000, 3, generator=g) * 6.0
+    val = torch.randn(VAL_BATCH, VAL_POINTS, 3, generator=g) * 2.0
+    val_mask = (torch.arange(VAL_POINTS)[None, :]
+                < torch.randint(64, VAL_POINTS + 1, (VAL_BATCH, 1), generator=g))
+    val = torch.where(val_mask[..., None], val, torch.zeros(()))
     cases = {
         "training batch": (xyz_t, gather_points(
             xyz_t, fps.farthest_point_sample(xyz_t, NPOINT)).contiguous(), None),
@@ -1315,7 +1427,9 @@ def k2_cases(dev, parent_lib):
                                  torch.zeros(2, 3000, dtype=torch.bool, device=dev)),
         "70 000 points": (big.to(dev), big[:, ::137][:, :NPOINT].contiguous().to(dev), None),
         "ragged (3, 3001) x 77, masked": (ragged.to(dev), (ragged[:, ::39][:, :77] + 0.5)
-                                          .contiguous().to(dev), ragged_mask.to(dev))}
+                                          .contiguous().to(dev), ragged_mask.to(dev)),
+        f"validator ({VAL_BATCH}, {VAL_POINTS}) x 1, masked": (
+            val.to(dev), torch.zeros(VAL_BATCH, 1, 3, device=dev), val_mask.to(dev))}
     parent = None if parent_lib is None else k2_launcher(parent_lib)
     for name, (xyz, ctr, mask) in cases.items():
         ik, ck = batch_group.ball_query_fused(xyz, ctr, RADIUS, NS, mask)
@@ -1461,11 +1575,14 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
               "fused_detect": {"max_abs_err": 0.0}}
     times = {k: [] for k in report}
     bounds = {k: [] for k in report}
+    layout_ms = {}
 
-    # ---- 5. K4, K5, K6 against their plain versions at the extraction shapes
+    # ---- 5. the Morton layout on the card against the host's; K4, K5, K6
+    # against their plain versions at the extraction shapes
     with torch.no_grad():
         for name, cloud in clouds.items():
             n, nb = cloud.shape[0], bucket_for(cloud.shape[0])
+            layout_ms[name] = layout_step(card, name, dev, cloud)
             sc, ctr, top_k, cnt_k, offs, sl = sorted_clusters(dev, cloud)
             ctr_sl = ctr[sl].contiguous()
             top_p, cnt_p = hg.sorted_ball_query_plain(sc.pts4, ctr_sl, RADIUS, NS)
@@ -1588,6 +1705,17 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
               f"{100 * within:.2f} % within 1e-4 (>= 99 %), min cos {cos.min():.7f} (>= 0.9999)")
         require(overlap >= 0.99 and within >= 0.99 and cos.min() >= 0.9999,
                 f"fused route disagrees on {name}")
+        # both routes on the host-built layout (the route before the device
+        # builder) give the same outputs bit for bit
+        with host_layout():
+            for route, pipe in pipes.items():
+                r_host, r_dev = pipe.extract(cloud), results[route][name]
+                require(r_host.num_keypoints == r_dev.num_keypoints
+                        and all(np.array_equal(getattr(r_host, f), getattr(r_dev, f))
+                                for f in ("keypoints", "attention", "features")),
+                        f"{route} extract on the device layout != on the host layout, {name}")
+        print(f"extract {name}: default and fused routes on the device layout equal to the "
+              "host-layout route (keypoints, attention, features bit for bit)")
     written = sorted(os.listdir(out_dir))
     require(len(written) == n_files == 4, f"process_directory wrote {written}")
     for fname in written:
@@ -1602,18 +1730,27 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
 
     # ---- 8. times: extract latency per cloud, both routes, in turns ---------
     for name, cloud in clouds.items():
-        ms = {route: [] for route in pipes}
-        sort_ms = []
-        for route in ("default", "fused", "fused", "default"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = pipes[route].extract(cloud)
-            ms[route].append((time.perf_counter() - t0) * 1e3)
-            sort_ms.append(pipes[route].timings["host_sort_s"] * 1e3)
-        print(f"[{card}] extract {name} N={cloud.shape[0]}: default {np.mean(ms['default']):.2f} ms, "
-              f"fused {np.mean(ms['fused']):.2f} ms, dense route {dense_ms[name]:.2f} ms "
-              f"(host clock, synchronised); host Morton sort {np.mean(sort_ms):.2f} ms of it; "
-              f"{res.num_keypoints} keypoints")
+        # each route on the device layout and, in turns, on the host layout
+        ms = {key: [] for key in itertools.product(("device", "host"), pipes)}
+        queue_ms = []
+        for layout in ("device", "host", "host", "device"):
+            with host_layout() if layout == "host" else contextlib.nullcontext():
+                for route in (("default", "fused") if layout == "device"
+                              else ("fused", "default")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = pipes[route].extract(cloud)
+                    ms[layout, route].append((time.perf_counter() - t0) * 1e3)
+                    if layout == "device":
+                        queue_ms.append(pipes[route].timings["layout_s"] * 1e3)
+        print(f"[{card}] extract {name} N={cloud.shape[0]}: default "
+              f"{np.mean(ms['device', 'default']):.2f} ms, fused "
+              f"{np.mean(ms['device', 'fused']):.2f} ms (on the host layout, in turns: "
+              f"{np.mean(ms['host', 'default']):.2f}, {np.mean(ms['host', 'fused']):.2f} ms), "
+              f"dense route {dense_ms[name]:.2f} ms (host clock, synchronised); Morton layout "
+              f"on the device {layout_ms[name][0]:.4f} ms (CUDA events; upload and queue on "
+              f"the host {np.mean(queue_ms):.3f} ms of the extract), the old host numpy layout "
+              f"{layout_ms[name][1]:.2f} ms; {res.num_keypoints} keypoints")
     # where the device time goes in one extract of the two largest clouds
     for name, route in itertools.product(
             sorted(clouds, key=lambda k: clouds[k].shape[0])[-2:], pipes):
@@ -1638,6 +1775,7 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
 TRAIN_CLOUDS = 18        # 3B: TrainConfig().batch_size = 6 triplets of clouds
 TRAIN_POINTS = 4096      # TrainConfig().num_points
 TRAIN_EPOCHS, RESUME_EPOCHS = 10, 2   # 12 entries / 6 per step: 20, then 4 more steps
+VAL_PAIRS, VAL_EVERY = 32, 10          # cli.train's cluster pairs, validation cadence
 TIE_CLUSTERS = 256       # clusters whose 64 slots are made equal (every slot ties)
 POOL_PAD_SLOTS = 40      # check_pool_cases: slots kept (24 pad slots)
 RELU_ZERO_CHANNELS = 8   # check_pool_cases: top-conv channels with every pre-ReLU value < 0
@@ -1715,10 +1853,13 @@ def torch_from(a, dev):
 
 def write_train_dataset(root):
     """12 entries in the train.txt format: each vendored cloud under three
-    seeded z-rotations, the other two copies its positives."""
+    seeded z-rotations, the other two copies its positives; and a clusters/
+    folder of VAL_PAIRS cluster pairs (filenames.txt, half of them two views
+    of one crop) for the validator."""
     import shutil
 
     from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+    from feat3dnet_tpu_torch.eval.heldout import write_cluster_pairs
 
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(os.path.join(root, "train"))
@@ -1738,6 +1879,9 @@ def write_train_dataset(root):
             lines.append(f"{fname} | {pos} | ")
     with open(os.path.join(root, "train", "train.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
+    # cluster pairs for the validator: 4 m crops of the vendored clouds
+    places = [load_point_cloud(example_cloud_path(name))[:, :3] for name in CLOUDS]
+    write_cluster_pairs(os.path.join(root, "clusters"), rs, places, VAL_PAIRS)
 
 
 def tower_inputs(cfg, xyz):
@@ -2421,26 +2565,45 @@ def training_phases(dev, card, parent=None):
     log_dir = os.path.join(root, "log")
     args = ["--data_dir", root, "--log_dir", log_dir, "--fused_towers", "--device", "cuda",
             "--num_points", str(TRAIN_POINTS), "--batch_size", str(TRAIN_CLOUDS // 3),
-            "--summary_every_n_steps", "1", "--checkpoint_every_n_steps", "10"]
+            "--summary_every_n_steps", "1", "--checkpoint_every_n_steps", "10",
+            "--validate_every_n_steps", str(VAL_EVERY)]
     per_epoch = 12 // (TRAIN_CLOUDS // 3)
     first, total = TRAIN_EPOCHS * per_epoch, (TRAIN_EPOCHS + RESUME_EPOCHS) * per_epoch
-    t0 = time.perf_counter()
-    state = train_cli.main(args + ["--num_epochs", str(TRAIN_EPOCHS)])
-    first_s = time.perf_counter() - t0
-    require(state.step == first, f"cli.train took {state.step} steps, not {first}")
-    state = train_cli.main(args + ["--num_epochs", str(RESUME_EPOCHS), "--auto_resume"])
+    fp_logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: fp_logged.append(record.getMessage())
+    train_logger = logging.getLogger("feat3dnet_tpu_torch.train")
+    train_logger.addHandler(handler)
+    try:
+        t0 = time.perf_counter()
+        state = train_cli.main(args + ["--num_epochs", str(TRAIN_EPOCHS)])
+        first_s = time.perf_counter() - t0
+        require(state.step == first, f"cli.train took {state.step} steps, not {first}")
+        state = train_cli.main(args + ["--num_epochs", str(RESUME_EPOCHS), "--auto_resume"])
+    finally:
+        train_logger.removeHandler(handler)
     launches = {k: w.launches for k, w in wrappers.items()}
     print(f"training path launches: {launches}")
     for k, n_launch in launches.items():
         require(n_launch > 0, f"kernel {k} was not launched on the training path")
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
+        logged = [json.loads(line) for line in f]
+    rows = [r for r in logged if "loss" in r]
     require([r["step"] for r in rows] == list(range(1, total + 1)) and state.step == total,
             f"training steps logged {[r['step'] for r in rows]}, resumed run at {state.step}")
     require(all(np.isfinite(r["loss"]) for r in rows), "non-finite loss on the training path")
     print(f"cli.train --fused_towers: {first} steps ({first_s:.1f} s with set-up), then "
           f"--auto_resume from step {first} to {total}; losses "
           f"{[round(r['loss'], 4) for r in rows]}")
+    # validation: after the first step and every VAL_EVERY steps of the first run
+    fp_rows = [(r["step"], r["fp_rate"]) for r in logged if "fp_rate" in r]
+    fp_msgs = [m for m in fp_logged if "FP Rate" in m]
+    want = [1] + list(range(VAL_EVERY, first + 1, VAL_EVERY))
+    require([st for st, _ in fp_rows] == want and len(fp_msgs) == len(want)
+            and all(0.0 <= fp <= 1.0 for _, fp in fp_rows),
+            f"cli.train validation: logged {fp_msgs}, metrics rows {fp_rows}")
+    print(f"cli.train validation ({VAL_PAIRS} cluster pairs, batch {VAL_BATCH} x "
+          f"{VAL_POINTS} points, K2 at M 1): {fp_msgs}")
 
     # ---- 11. checks on the step ---------------------------------------------------
     # At these shapes the f32 grads of every route carry discrete choices (the
@@ -2929,6 +3092,98 @@ def detector_mode_phase(dev, card, clouds, npz_path):
     return report, launches
 
 
+
+# the recorded held-out accuracy of the kp1024_ratio0_nms02 setting
+# (examples/results/scaled_accuracy/inference_sweep.json, 24 pairs)
+ACC_PAIRS = 24
+ACC_PRECISION, ACC_PUTATIVE, ACC_KEYPOINTS = 87.19827410754264, 24567, 1023.8125
+ACC_MIN_SUCCESS = 20 / 24
+
+
+def accuracy_phase(dev, card, npz_path):
+    """Phase 18: the held-out accuracy rerun. Rebuilds the 24-pair held-out
+    set (eval/heldout.py, RandomState(0)), runs the trained weights in
+    ModelConfig(num_clusters=256, num_samples=64) with
+    InferenceConfig(min_response_ratio=0, nms_radius=0.2) through
+    process_directory on the default and the fused route (launch counters
+    reset), and holds each route's fig4 and registration to the record;
+    then cli.match --device cuda on two of the outputs."""
+    import io
+    import shutil
+
+    import torch
+
+    from feat3dnet_tpu_torch.cli import match as match_cli
+    from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig
+    from feat3dnet_tpu_torch.eval.heldout import build_test_set, evaluate_setting
+    from feat3dnet_tpu_torch.inference import InferencePipeline
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+    from feat3dnet_tpu_torch.utils import load_variables_npz
+
+    root = os.path.join(HERE, "build", "chip_smoke_accuracy")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    test_dir = build_test_set(root, ACC_PAIRS)
+    print(f"held-out set: {ACC_PAIRS} pairs rebuilt in {time.perf_counter() - t0:.1f} s")
+    cfg = ModelConfig(num_clusters=256, num_samples=64)
+    variables = load_variables_npz(npz_path)
+    icfg = dict(min_response_ratio=0.0, nms_radius=0.2)
+    wrappers = {"sorted_ball_query": hg.sorted_ball_query, "ball_max": hg.ball_max_sorted,
+                "fused_detect": fd.fused_detect_clusters,
+                "fused_describe": fd.fused_describe_clusters_t}
+    kernels_of = {"default": ("sorted_ball_query", "ball_max"),
+                  "fused": ("sorted_ball_query", "ball_max", "fused_detect", "fused_describe")}
+    out_dirs = {}
+    for route, extra in (("default", {}), ("fused", {"use_fused_detector": True})):
+        pipe = InferencePipeline(Feat3DNet(cfg), variables, cfg,
+                                 InferenceConfig(**icfg, **extra), device=dev)
+        for w in wrappers.values():
+            w.launches = 0
+        out_dirs[route] = os.path.join(root, f"results_{route}")
+        t0 = time.perf_counter()
+        entry = evaluate_setting(pipe, test_dir, out_dirs[route])
+        run_s = time.perf_counter() - t0
+        launches = {k: wrappers[k].launches for k in kernels_of[route]}
+        f4, reg = entry["fig4"], entry["registration"]
+        kp = entry["keypoints_per_cloud"]
+        print(f"accuracy kp1024_ratio0_nms02 ({route} route; {run_s:.1f} s, launches "
+              f"{launches}): fig4 precision@1m {f4['precision_at_1m']:.4f} % (record "
+              f"{ACC_PRECISION:.3f} +- 1.0), total putative {int(f4['total_putative'])} (record "
+              f"{ACC_PUTATIVE} +- 1 %), total correct {int(f4['total_correct'])}; keypoints per "
+              f"cloud {kp:.4f} (record {ACC_KEYPOINTS} +- 1 %); registration success "
+              f"{reg['success_rate']:.4f} = {round(reg['success_rate'] * ACC_PAIRS)}/{ACC_PAIRS} "
+              f"(>= 20/24), median rotation error {reg['median_rot_err_deg']:.4f} deg, "
+              f"translation error {reg['median_trans_err_m']:.4f} m, inliers "
+              f"{reg['median_inliers']:.1f}")
+        print(f"accuracy {route} json: {json.dumps(entry)}")
+        for k, n_launch in launches.items():
+            require(n_launch > 0, f"kernel {k} was not launched on the {route} accuracy run")
+        require(abs(f4["precision_at_1m"] - ACC_PRECISION) <= 1.0,
+                f"{route}: precision@1m {f4['precision_at_1m']:.4f} off the record")
+        require(abs(f4["total_putative"] - ACC_PUTATIVE) <= 0.01 * ACC_PUTATIVE,
+                f"{route}: total putative {f4['total_putative']} off the record")
+        require(abs(kp - ACC_KEYPOINTS) <= 0.01 * ACC_KEYPOINTS,
+                f"{route}: keypoints per cloud {kp:.4f} off the record")
+        require(reg["success_rate"] >= ACC_MIN_SUCCESS - 1e-9,
+                f"{route}: registration success {reg['success_rate']:.4f} < 20/24")
+    # cli.match on the first pair's outputs, on the card
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = match_cli.main(["--desc1", os.path.join(out_dirs["default"], "0.bin"),
+                                 "--desc2", os.path.join(out_dirs["default"], "1.bin"),
+                                 "--device", "cuda"])
+    printed = json.loads(buf.getvalue())
+    require(printed == result and result["num_inliers"] > 0
+            and np.isfinite(np.asarray(result["rotation"])).all(),
+            f"cli.match printed {buf.getvalue()[:200]}")
+    print(f"cli.match --device cuda (pair 0 -> 1, default route): {result['num_matches']} "
+          f"matches, {result['num_inliers']} inliers, rotation "
+          f"{np.round(result['rotation'], 4).tolist()}, translation "
+          f"{np.round(result['translation'], 4).tolist()}")
+    torch.cuda.synchronize()
+
 def main():
     import argparse
 
@@ -3321,6 +3576,10 @@ def main():
 
     # ---- 17. the model in bf16 (compute_dtype): forward and a training step ------------
     bf16_model_phase(dev, card)
+
+    # ---- 18. the held-out accuracy rerun, both extract routes; cli.match -----------------
+    accuracy_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
+                                           "ckpt4480_variables.npz"))
 
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),

@@ -7,6 +7,7 @@ cloud .txt = comma-delimited ascii; descriptor .bin = float32 rows of
 from __future__ import annotations
 
 import os
+from typing import Tuple
 
 import numpy as np
 
@@ -45,3 +46,9 @@ def save_descriptors(path: str, xyz: np.ndarray, features: np.ndarray) -> None:
     out = np.concatenate(
         [np.asarray(xyz, np.float32), np.asarray(features, np.float32)], axis=1)
     out.tofile(path)
+
+
+def load_descriptors(path: str, feature_dim: int = 32) -> Tuple[np.ndarray, np.ndarray]:
+    """Read a descriptor .bin back into (xyz (N, 3), features (N, D))."""
+    rows = np.fromfile(path, dtype=np.float32).reshape(-1, 3 + feature_dim)
+    return rows[:, :3], rows[:, 3:]

@@ -9,9 +9,10 @@ as in the JAX pipeline. Two routes compute the same keypoints:
   ball query (K2 on CUDA) + detector in chunks of `keypoint_chunk` points;
   NMS is the dense streamed max (ops/nms.nms_keypoints); descriptors come
   from the model forward at the keypoints;
-* hashed (the default on CUDA): the cloud is Morton-sorted on the host;
-  kernel K4 groups every point's ball, the detector runs on those clusters
-  (chunked torch matmuls, or kernel K6 under `use_fused_detector`), kernel
+* hashed (the default on CUDA): the cloud is Morton-sorted on its device
+  (`build_sorted_cloud`); kernel K4 groups every point's ball, the
+  detector runs on those clusters (chunked torch matmuls, or kernel K6
+  under `use_fused_detector`), kernel
   K5 gives each point's ball max, a point survives iff its attention ties
   it, and `select_keypoints` picks the keypoints. Their descriptors reuse
   the attention pass's own neighbourhoods and orientations, with no second
@@ -39,8 +40,7 @@ from feat3dnet_tpu_torch.models.feat3dnet import Feat3DNet, _group_normalized, _
 from feat3dnet_tpu_torch.ops import fused_describe as fd
 from feat3dnet_tpu_torch.ops.hash_grid import (SortedCloud, ball_max_sorted,
                                                ball_query_grouped_sorted,
-                                               build_sorted_cloud_host,
-                                               estimate_ball_points)
+                                               build_sorted_cloud, estimate_ball_points)
 from feat3dnet_tpu_torch.ops.nms import nms_keypoints, select_keypoints
 from feat3dnet_tpu_torch.utils.convert import load_variables, variables_from_module
 from feat3dnet_tpu_torch.utils.device import resolve_device
@@ -61,7 +61,9 @@ class InferencePipeline:
     load into it (e.g. utils.load_variables_npz), or None to keep the
     model's own weights. device: where the passes run, `cuda` unless the
     caller names another (raises without a CUDA device). `timings` holds
-    the last extract's host sort and total seconds.
+    the last extract's total seconds (`extract_s`) and, on the hashed
+    route, the host seconds of the upload and Morton layout (`layout_s`;
+    no synchronise, so on CUDA it is the time to queue them).
     """
 
     def __init__(self, model: Feat3DNet, variables: Optional[Dict[str, Any]],
@@ -200,11 +202,11 @@ class InferencePipeline:
         icfg, r, ns = self.icfg, float(self.mcfg.base_scale), self.mcfg.num_samples
         L, tc = self._layout_for(padded[0, :n])
         t0 = time.perf_counter()
-        sc = build_sorted_cloud_host(padded[0], valid[0], cell_size=r, block_size=L)
-        self.timings["host_sort_s"] = time.perf_counter() - t0
-        pts4 = torch.from_numpy(sc.pts4).to(self.device)
-        blk_bbox = torch.from_numpy(sc.blk_bbox).to(self.device)
-        inv_perm = torch.from_numpy(sc.inv_perm).to(self.device).long()
+        sc = build_sorted_cloud(torch.from_numpy(padded[0]).to(self.device),
+                                torch.from_numpy(valid[0]).to(self.device),
+                                cell_size=r, block_size=L)
+        self.timings["layout_s"] = time.perf_counter() - t0
+        pts4, blk_bbox, inv_perm = sc.pts4, sc.blk_bbox, sc.inv_perm.long()
         cloud = pts4[inv_perm, :3][None]           # original order, invalid at +1e9
         vmask = cloud[..., 0] < 5.0e8
         centers = pts4[:, :3]

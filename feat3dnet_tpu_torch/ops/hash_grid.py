@@ -4,7 +4,7 @@ The dense ball query scans the whole cloud for every centre, O(M·N). The
 extraction's attention pass makes every point a centre, so this module
 cuts the work by locality and stays index-exact against the dense op:
 
-  1. `build_sorted_cloud_host` sorts the points by the Morton code of their
+  1. `build_sorted_cloud` sorts the points by the Morton code of their
      grid cell (cell = radius) into blocks of L consecutive points, each
      block re-sorted by original index; invalid points go to +1e9;
   2. `block_hitmask` tests each (centre tile, point block) pair of
@@ -23,8 +23,10 @@ cuts the work by locality and stays index-exact against the dense op:
 
 K4 and K5 launch on CUDA tensors; CPU tensors take their plain versions,
 which scan the cloud in (centre chunk x point chunk) tiles without the cull
-and never hold an (M, N) array. The Morton sort runs on the host in numpy,
-as the JAX pipeline runs it (the numpy branch of its layout code).
+and never hold an (M, N) array. The Morton layout is built with torch ops
+on the cloud's own device (`build_sorted_cloud`, the JAX device builder);
+its numpy twin `build_sorted_cloud_host`, bit-equal to the JAX package's
+numpy layout, stays as the oracle of the tests.
 """
 from __future__ import annotations
 
@@ -126,6 +128,60 @@ def build_sorted_cloud_host(xyz, valid_mask=None, cell_size: float = 2.0,
     inv_perm[final_orig[real]] = np.arange(np_, dtype=np.int32)[real]
     return SortedCloud(pts4=pts4, blk_bbox=blk_bbox,
                        orig_idx=final_orig.astype(np.int32),
+                       inv_perm=inv_perm[:n], block_size=L)
+
+
+# ---- device layout ----------------------------------------------------------
+
+def build_sorted_cloud(xyz: torch.Tensor, valid_mask: Optional[torch.Tensor] = None,
+                       cell_size: float = 2.0, block_size: int = 256) -> SortedCloud:
+    """Morton-block layout of one (N, 3) cloud, built with torch ops on the
+    tensor's own device (port of the JAX device builder).
+
+    Every field is bit-equal to `build_sorted_cloud_host`. Nothing here
+    waits on the device: the pad keys come from a cumulative sum and
+    inv_perm from a scatter whose pad rows land in a dummy slot, where the
+    numpy version counts and masks on the host.
+    """
+    n, L = xyz.shape[0], block_size
+    dev = xyz.device
+    pts = xyz.to(torch.float32)
+    valid = torch.isfinite(pts).all(dim=1)
+    if valid_mask is not None:
+        valid = valid & valid_mask.to(device=dev, dtype=torch.bool)
+    pts = torch.where(valid[:, None], pts, _FAR)
+
+    finite_min = pts.min(dim=0).values            # invalid rows are already at +1e9
+    # divide by a device tensor: CUDA turns a division by a host scalar into
+    # a product with its reciprocal, which rounds unlike numpy's f32 divide
+    # (torch.full fills on the device; torch.tensor would copy and wait)
+    cell = torch.full((), cell_size, dtype=torch.float32, device=dev)
+    grid = torch.clamp((pts - finite_min) / cell, 0, 1023).to(torch.int32)
+    key = torch.where(valid, _morton30(grid), 1 << 30)     # invalid points last
+
+    order1 = torch.argsort(key, stable=True)
+    pad = -n % L
+    np_ = n + pad
+    order1 = torch.cat([order1, order1.new_zeros(pad)])     # pad rows alias point 0
+    row = torch.arange(np_, dtype=torch.int64, device=dev)
+    pad_flag = row >= n
+    # each block re-sorted by original index, its pad rows last
+    key2 = (row // L) * (2 * np_) + order1 + pad_flag.to(torch.int64) * np_
+    order2 = torch.argsort(key2, stable=True)
+    final_orig = order1[order2]
+    pad2 = pad_flag[order2]
+    sorted_pts = torch.where(pad2[:, None], _FAR, pts[final_orig])
+
+    # pad rows get unique keys n, n + 1, ... in the key channel
+    key_chan = torch.where(pad2, n - 1 + torch.cumsum(pad2.to(torch.int64), 0), final_orig)
+    pts4 = torch.cat([sorted_pts, key_chan.to(torch.float32)[:, None]], dim=1)
+    blocks = sorted_pts.reshape(-1, L, 3)
+    blk_bbox = torch.cat([blocks.min(dim=1).values, blocks.max(dim=1).values,
+                          sorted_pts.new_zeros((np_ // L, 2))], dim=1)
+
+    inv_perm = torch.zeros(np_ + 1, dtype=torch.int32, device=dev)
+    inv_perm.scatter_(0, torch.where(pad2, np_, final_orig), row.to(torch.int32))
+    return SortedCloud(pts4=pts4, blk_bbox=blk_bbox, orig_idx=final_orig.to(torch.int32),
                        inv_perm=inv_perm[:n], block_size=L)
 
 
@@ -437,8 +493,8 @@ def hashed_ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     (idx (1, M, ns) int32, cnt (1, M) int32), index-exact including the
     ns smallest original indices of saturated balls, repeat-pad, and the
     per-centre nearest valid point for empty balls. Centres that
-    `center_valid` masks get zero rows. The cloud is Morton-sorted on the
-    host; the query runs on the tensors' device (K4 on CUDA)."""
+    `center_valid` masks get zero rows. The layout is built and the query
+    runs on the tensors' device (K4 on CUDA)."""
     if xyz.dim() != 3 or xyz.shape[0] != 1:
         raise ValueError("hashed_ball_query: the hashed path is per cloud (B = 1)")
     dev = xyz.device
@@ -447,8 +503,7 @@ def hashed_ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     m = c.shape[0]
     vm = None if valid_mask is None else valid_mask[0]
     cv = None if center_valid is None else center_valid[0]
-    sc = build_sorted_cloud_host(x.cpu().numpy(), None if vm is None else vm.cpu().numpy(),
-                                 cell_size=cell, block_size=block_size).to(dev)
+    sc = build_sorted_cloud(x, vm, cell_size=cell, block_size=block_size)
     c_sorted, order = sort_centers(c, cv, cell_size=cell)
     _, idx_s, cnt_s = ball_query_grouped_sorted(sc, c_sorted, radius, nsample, tile=tile)
     inv = torch.empty((m,), dtype=torch.int64, device=dev)

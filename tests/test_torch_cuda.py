@@ -23,7 +23,9 @@ as stated at each test; K3's stream body exact and its matmul body within
 1e-5 max|ref|; the training passes K7-K10 within the
 tolerances of tests/test_fused_train.py (means rtol 1e-5, pooled 1e-4,
 dW / dgamma / dbeta rtol 5e-3 with atol 5e-4 max|ref|, db atol 1e-3, dx
-rtol 5e-3 / atol 5e-5), and bit-equal across two runs. TF32 is off.
+rtol 5e-3 / atol 5e-5), and bit-equal across two runs. TF32 is off. The
+Morton layout built on the card (`build_sorted_cloud`, torch ops, no
+kernel of its own) must be bit-equal to the host's numpy build.
 """
 import os
 import re
@@ -163,6 +165,20 @@ def _sorted_cloud(rs, n, dev, block=64, spread=12.0):
     valid = rs.rand(n) > 0.1
     return thg.build_sorted_cloud_host(xyz, valid, cell_size=2.0, block_size=block).to(dev)
 
+
+@pytest.mark.parametrize("cell", [2.0, 0.7])
+def test_device_layout_matches_host(dev, rs, cell):
+    """f32 division by the cell size, clamp before the cast, non-finite and
+    masked points, duplicates and pad rows: bit-equal on the card."""
+    xyz = ((rs.rand(5000, 3) - 0.5) * 40.0).astype(np.float32)
+    xyz[100:400] = xyz[:300]
+    xyz[7], xyz[9, 2] = np.nan, np.inf
+    valid = rs.rand(5000) > 0.2
+    host = thg.build_sorted_cloud_host(xyz, valid, cell_size=cell, block_size=256)
+    got = thg.build_sorted_cloud(torch.from_numpy(xyz).to(dev), torch.from_numpy(valid).to(dev),
+                                 cell_size=cell, block_size=256)
+    for f in ("pts4", "blk_bbox", "orig_idx", "inv_perm"):
+        assert np.array_equal(getattr(got, f).cpu().numpy(), getattr(host, f)), f
 
 @pytest.mark.parametrize("ns,tile,block", [(8, 16, 32), (64, 256, 256), (33, 40, 64)])
 def test_sorted_ball_query_kernel_matches_plain(dev, rs, ns, tile, block):

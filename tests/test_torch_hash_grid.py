@@ -4,6 +4,11 @@
   (use_native=False), with pad rows, invalid points and non-finite
   coordinates; `estimate_ball_points`, `sort_centers` and the bbox hit
   test are equal.
+* `build_sorted_cloud` (torch, on the CPU here) is bit-equal to the host
+  layout and to JAX's jitted device builder on the same cases, a cloud of
+  duplicate points and the four vendored clouds at their buckets; the
+  pipeline's extract on it (the first 6 000 points of a vendored cloud,
+  bucket 8 192) equals the extract on the host layout.
 * The plain versions of kernels K4 (`sorted_ball_query`) and K5
   (`ball_max_sorted`) are index-exact against the JAX kernels run in
   Pallas interpret mode: saturated balls, masks, duplicate points, exact
@@ -17,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from feat3dnet_tpu.ops import ball_query as jax_ball_query
@@ -71,6 +77,82 @@ def test_build_sorted_cloud_host_bit_equal(case):
         assert np.unique(keys).size == keys.size           # unique keys, pads included
         assert (got.pts4[keys >= n, :3] == np.float32(1e9)).all()
 
+
+
+LAYOUT_FIELDS = ("pts4", "blk_bbox", "orig_idx", "inv_perm")
+VENDORED = ("oxford_270.bin", "oxford_456.bin", "kitti_00_001554.bin", "kitti_00_004534.bin")
+
+
+def _layout_case(case):
+    """(xyz, valid, block): the host-layout cases above, a cloud of
+    duplicate points, or a vendored cloud padded to its bucket."""
+    rs = np.random.RandomState(1)
+    if case in VENDORED:
+        from feat3dnet_tpu_torch.config import bucket_for
+        from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+
+        cloud = load_point_cloud(example_cloud_path(case))[:, :3]
+        nb = bucket_for(cloud.shape[0])
+        xyz = np.zeros((nb, 3), np.float32)
+        xyz[:cloud.shape[0]] = cloud
+        return xyz, np.arange(nb) < cloud.shape[0], 256
+    if case == "duplicates":
+        xyz = _cloud(rs, 150, spread=6.0)
+        xyz = np.concatenate([xyz, xyz, xyz[:37], np.repeat(xyz[:1], 20, axis=0)])
+        return xyz, rs.rand(xyz.shape[0]) > 0.1, 64
+    n = 300 if case == "plain" else 437
+    xyz = _cloud(rs, n, spread=15.0, clusters=3, offset=5000.0 if case == "offset" else 0.0)
+    valid = rs.rand(n) > 0.2 if case in ("pads_invalid", "nonfinite") else None
+    if case == "nonfinite":
+        xyz[3] = np.nan
+        xyz[17, 1] = np.inf
+        xyz[40, 2] = -np.inf
+    return xyz, valid, 64
+
+
+@pytest.mark.parametrize("case", ["plain", "pads_invalid", "nonfinite", "offset", "duplicates"]
+                         + list(VENDORED))
+def test_build_sorted_cloud_bit_equal(case):
+    xyz, valid, block = _layout_case(case)
+    host = thg.build_sorted_cloud_host(xyz, valid, cell_size=2.0, block_size=block)
+    got = thg.build_sorted_cloud(torch.from_numpy(xyz),
+                                 None if valid is None else torch.from_numpy(valid),
+                                 cell_size=2.0, block_size=block)
+    # JAX's device builder, jitted on the CPU (its SortedCloud is no pytree)
+    fields = jax.jit(lambda x, v: tuple(getattr(jhg.build_sorted_cloud(
+        x, v, cell_size=2.0, block_size=block), f) for f in LAYOUT_FIELDS))(
+        jnp.asarray(xyz), None if valid is None else jnp.asarray(valid))
+    assert got.block_size == block
+    for f in LAYOUT_FIELDS:
+        a = getattr(got, f).numpy()
+        assert a.dtype == getattr(host, f).dtype, f
+        np.testing.assert_array_equal(a, getattr(host, f), err_msg=f)
+    for f, want in zip(LAYOUT_FIELDS, fields):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(want), err_msg=f)
+
+
+def test_extract_on_the_device_layout_equals_the_host_layout(monkeypatch):
+    from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig
+    from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+    from feat3dnet_tpu_torch.inference import InferencePipeline, pipeline
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.utils import init_variables
+
+    cfg = ModelConfig(num_clusters=-1, num_samples=8, feature_dim=16, detector_mlp=(8, 16),
+                      detector_mlp2=(8,), descriptor_mlp=(8, 8))
+    pipe = InferencePipeline(Feat3DNet(cfg), init_variables(cfg, seed=0, bn_perturb=0.1), cfg,
+                             InferenceConfig(use_hashed_grouping=True, keypoint_chunk=4096,
+                                             num_points=6000),   # its first 6 000 points
+                             device="cpu")
+    cloud = load_point_cloud(example_cloud_path("oxford_270.bin"))
+    got = pipe.extract(cloud)
+    monkeypatch.setattr(pipeline, "build_sorted_cloud", lambda xyz, valid, **kw: (
+        thg.build_sorted_cloud_host(xyz.numpy(), valid.numpy(), **kw).to("cpu")))
+    want = pipe.extract(cloud)
+    assert got.num_keypoints == want.num_keypoints > 100
+    np.testing.assert_array_equal(got.keypoints, want.keypoints)
+    np.testing.assert_array_equal(got.features, want.features)
+    np.testing.assert_array_equal(got.attention, want.attention)
 
 def test_estimate_and_sort_centers_match_jax():
     rs = np.random.RandomState(2)

@@ -117,7 +117,11 @@ def test_nothing_builds_at_import():
             "import feat3dnet_tpu_torch.inference, feat3dnet_tpu_torch.models, "
             "feat3dnet_tpu_torch.utils, feat3dnet_tpu_torch.cli.infer, "
             "feat3dnet_tpu_torch.cli.train, feat3dnet_tpu_torch.train, "
-            "feat3dnet_tpu_torch.data, feat3dnet_tpu_torch.utils.checkpoint\n"
+            "feat3dnet_tpu_torch.data, feat3dnet_tpu_torch.utils.checkpoint, "
+            "feat3dnet_tpu_torch.eval, feat3dnet_tpu_torch.eval.fig4, "
+            "feat3dnet_tpu_torch.eval.heldout, feat3dnet_tpu_torch.eval.visualize, "
+            "feat3dnet_tpu_torch.cli.match\n"
+            "assert 'matplotlib' not in sys.modules\n"
             "assert not {'jax', 'triton'} & set(sys.modules)\n"
             "from feat3dnet_tpu_torch import kernels\n"
             "assert kernels.build.cache_info().currsize == 0\n"

@@ -2,8 +2,8 @@
 
 The reference is JAX `InferencePipeline.extract` with
 use_hashed_grouping=False (XLA ball query, dense NMS, model forward at the
-keypoints; no Pallas). The port's dense route, its hashed route (host
-Morton sort, plain K4, detector, plain K5, selection, descriptors from the
+keypoints; no Pallas). The port's dense route, its hashed route (Morton
+layout built with torch on the CPU, plain K4, detector, plain K5, selection, descriptors from the
 attention pass's neighbourhoods) and the hashed route with
 use_fused_detector (plain K6 and K3) must give the same keypoints and
 counts; features within rtol 1e-4 / atol 1e-5, keypoint attention within
@@ -100,7 +100,7 @@ def test_extract_matches_jax(jax_setup, route):
     got = pipe.extract(cloud)
     _assert_same(got, want)
     assert got.num_keypoints > 8 and np.isfinite(got.features).all()
-    assert ("host_sort_s" in pipe.timings) == (route != "dense")
+    assert ("layout_s" in pipe.timings) == (route != "dense")
     if route == "hashed":
         assert pipe._chunk_size(4096) == jpipe._chunk_size(4096)
         assert pipe._layout_for(cloud[:, :3]) == jpipe._layout_for(cloud[:, :3])
