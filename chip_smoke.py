@@ -142,12 +142,36 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      keypoints per cloud within 1 % of 24 567 and 1 023.8, registration
      success >= 20/24 (the record of
      examples/results/scaled_accuracy/inference_sweep.json); then
-     cli.match --device cuda on the first pair's outputs.
+     cli.match --device cuda on the first pair's outputs;
+  19. batched and pipelined extraction with the trained weights
+     (batch_phase): on the union of the four vendored clouds (bucket
+     32 768, 131 072 points) build_sorted_cloud_batch equal to the
+     per-cloud builds in every field, K4 and K5 with segment= index-exact
+     against their plain versions on every centre and equal per cloud to
+     the cloud alone, each timed against its plain version and bound;
+     then, launch counters reset, per route: extract_batch on the
+     vendored clouds, extract_many (depth 2, batch_size 1 and 4) on 8
+     seeded 120 000-point submap clouds (bucket 131 072), extract_many on
+     the vendored clouds and an odd trailing cloud,
+     process_directory(batch_size=4) and cli.infer --batch_size 4 --device
+     cuda, every cloud bit-equal to extract, and extract_batch on a
+     4 000-point cloud with a KITTI cloud (buckets 4 096 and 32 768)
+     equal to extract; K3-K6 must have launched;
+     one extract_batch launches K4 and K5 once (K6 and K3 once on the
+     fused route); a cloud and a batch are queued with torch's sync debug
+     mode set to raise; clouds/s of the extract loop,
+     extract_many(batch_size=1), extract_batch(4) and
+     extract_many(batch_size=4) in turns on a KITTI stream and the submap
+     stream, 8 clouds each and 64 / 16 (past the pipeline's fill and
+     drain), one profiled batch each (device busy share, top kernels); and
+     a fresh process with and without warmup (the first extract against
+     the next three).
 Option: --parent DIR also builds another tree's training kernels, K1-K6
 (its csrc/fused_train.cu, csrc/fps.cu, csrc/ball_query.cu,
 csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
 csrc/fused_detect.cu and the headers it has; DIR a checkout, e.g. a parent
-commit unpacked with git archive, or its csrc/). It prints the parent's
+commit unpacked with git archive, or its csrc/; its K5 is called with
+the arguments of one cloud, as before K5 took a union). It prints the parent's
 ptxas lines and SASS counts for K1-K6 and whether K4's SASS equals
 this tree's; in phase 1 it holds the parent's K1 index-exact to this one
 on k1_cases, in phase 4 on every vendored cloud and the training batch,
@@ -425,13 +449,21 @@ def host_layout():
     from feat3dnet_tpu_torch.inference import pipeline
     from feat3dnet_tpu_torch.ops import hash_grid as hg
 
-    device_build = pipeline.build_sorted_cloud
-    pipeline.build_sorted_cloud = lambda xyz, valid, **kw: hg.build_sorted_cloud_host(
-        xyz.cpu().numpy(), valid.cpu().numpy(), **kw).to(xyz.device)
+    def host_layouts(xyz, valid, **kw):
+        scs = [hg.build_sorted_cloud_host(x, v, **kw) for x, v in zip(xyz.cpu().numpy(),
+                                                                      valid.cpu().numpy())]
+        return hg.SortedCloud(np.concatenate([s.pts4 for s in scs]),
+                              np.concatenate([s.blk_bbox for s in scs]),
+                              np.stack([s.orig_idx for s in scs]),
+                              np.stack([s.inv_perm for s in scs]),
+                              kw["block_size"]).to(xyz.device)
+
+    device_build = pipeline.build_sorted_cloud_batch
+    pipeline.build_sorted_cloud_batch = host_layouts
     try:
         yield
     finally:
-        pipeline.build_sorted_cloud = device_build
+        pipeline.build_sorted_cloud_batch = device_build
 
 
 def sorted_clusters(dev, cloud):
@@ -943,7 +975,10 @@ def k5_runs(lib, tag, sc, values, tile, r2):
         runs[f"{tag} whole"] = lambda: old(hg._padded_hitmask(ctr, bbox, r2, tile),
                                            torch.empty_like(out))
     else:
-        fn.argtypes = [P, P, I, P, I, P, I, I, F, P, P, P, I, P]
+        # this tree's K5 takes a union of clouds: two more ints (0, 0: one
+        # cloud); a parent tree's (PARENT_LIBS) is from before the union
+        segs = [] if lib._name in PARENT_LIBS else [I, I]
+        fn.argtypes = [P, P, I, P, I, P, I, I, F, P, P, P] + segs + [I, P]
         fn.restype = I
         tiles = -(-np_ // tile)
         hit = torch.empty((tiles, nb), dtype=torch.uint8, device=pts4.device)
@@ -951,7 +986,7 @@ def k5_runs(lib, tag, sc, values, tile, r2):
 
         def new(stage, h, bm, o):
             call(ptr(pts4), ptr(values), np_, ptr(bbox), nb, None, np_, tile, r2, ptr(h),
-                 ptr(bm), ptr(o), stage, stream())
+                 ptr(bm), ptr(o), *([0, 0] if segs else []), stage, stream())
         for stage in ("prep", "walk"):
             runs[f"{tag} {stage}"] = functools.partial(new, kernels.BALL_MAX_STAGES[stage], hit,
                                                        blkmax, out)
@@ -962,6 +997,10 @@ def k5_runs(lib, tag, sc, values, tile, r2):
         runs[f"{tag} whole"] = functools.partial(hg.ball_max_sorted, pts4, bbox, values,
                                                  NMS_RADIUS, tile)
     return runs, out
+
+
+# the paths of the libraries that parent_cdll loaded from another tree
+PARENT_LIBS = set()
 
 
 def ball_max_time_split(sc, values, libs, reps, tile=512):
@@ -1748,8 +1787,8 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
               f"{np.mean(ms['device', 'fused']):.2f} ms (on the host layout, in turns: "
               f"{np.mean(ms['host', 'default']):.2f}, {np.mean(ms['host', 'fused']):.2f} ms), "
               f"dense route {dense_ms[name]:.2f} ms (host clock, synchronised); Morton layout "
-              f"on the device {layout_ms[name][0]:.4f} ms (CUDA events; upload and queue on "
-              f"the host {np.mean(queue_ms):.3f} ms of the extract), the old host numpy layout "
+              f"on the device {layout_ms[name][0]:.4f} ms (CUDA events; queued on the host "
+              f"in {np.mean(queue_ms):.3f} ms of the extract), the old host numpy layout "
               f"{layout_ms[name][1]:.2f} ms; {res.num_keypoints} keypoints")
     # where the device time goes in one extract of the two largest clouds
     for name, route in itertools.product(
@@ -2298,7 +2337,9 @@ def parent_cdll(csrc):
     """Another tree's PARENT_BUILD sources, built alone and loaded."""
     import ctypes
 
-    return ctypes.CDLL(parent_build(csrc).path)
+    lib = ctypes.CDLL(parent_build(csrc).path)
+    PARENT_LIBS.add(lib._name)
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -3184,6 +3225,327 @@ def accuracy_phase(dev, card, npz_path):
           f"{np.round(result['translation'], 4).tolist()}")
     torch.cuda.synchronize()
 
+SUBMAPS, SUBMAP_POINTS = 8, 120_000   # the JAX package's bench_extract_many.py stream
+LONG_KITTI, LONG_SUBMAPS = 64, 16      # the longer streams, past the pipeline's fill and drain
+UNIT = 4                               # clouds per extract_batch / extract_many unit
+COLD_START = r"""
+import json, sys, time
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig
+from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+from feat3dnet_tpu_torch.inference import InferencePipeline
+from feat3dnet_tpu_torch.models import Feat3DNet
+from feat3dnet_tpu_torch.utils import load_variables_npz
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = ModelConfig()
+t0 = time.perf_counter()
+pipe = InferencePipeline(Feat3DNet(cfg), load_variables_npz(sys.argv[2]), cfg,
+                         InferenceConfig(use_fused_detector=True), device="cuda")
+cloud = load_point_cloud(example_cloud_path("kitti_00_004534.bin"))
+out = {"setup_s": time.perf_counter() - t0}
+if sys.argv[3] == "warm":
+    out["warmup"] = {f"{n}x{b}": s for (n, b), s in pipe.warmup(
+        point_counts=[cloud.shape[0]], batch_sizes=(1, 4)).items()}
+ms = []
+for _ in range(4):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.extract(cloud)
+    ms.append((time.perf_counter() - t0) * 1e3)
+out["first_ms"], out["steady_ms"] = ms[0], float(np.mean(ms[1:]))
+print(json.dumps(out))
+"""
+
+
+def submap_clouds(seed, count=SUBMAPS):
+    """`count` seeded clouds of SUBMAP_POINTS points uniform in a 100 m x
+    100 m x 10 m box (the JAX package's bench_extract_many.py stream; bucket
+    131 072)."""
+    rs = np.random.RandomState(seed)
+    box = np.array([100.0, 100.0, 10.0], np.float32)
+    return [rs.rand(SUBMAP_POINTS, 3).astype(np.float32) * box for _ in range(count)]
+
+
+def same_results(what, got, want):
+    """Each cloud's keypoints, attention and features equal bit for bit."""
+    require(len(got) == len(want), f"{what}: {len(got)} results for {len(want)} clouds")
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g.num_keypoints == w.num_keypoints
+                and all(np.array_equal(getattr(g, f), getattr(w, f))
+                        for f in ("keypoints", "attention", "features")),
+                f"{what}: cloud {i} differs from extract")
+
+
+def union_kernel_step(card, dev, clouds, pipe):
+    """Phase 19's kernel checks on the union of `clouds` at their shared
+    bucket (256-point blocks, the pipeline's tiles): build_sorted_cloud_batch
+    equal to the per-cloud builds in every field; K4 and K5 with segment=
+    index-exact against their plain versions on every centre and, per
+    cloud, equal to their run on that cloud alone; the union build, K4 and
+    K5 timed against their plain versions and bounds, beside the four
+    clouds' own calls."""
+    import torch
+
+    from feat3dnet_tpu_torch.config import bucket_for
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+
+    b = len(clouds)
+    nb = max(bucket_for(c.shape[0]) for c in clouds)
+    xyz = torch.zeros((b, nb, 3), device=dev)
+    valid = torch.zeros((b, nb), dtype=torch.bool, device=dev)
+    for i, c in enumerate(clouds):
+        xyz[i, :c.shape[0]] = torch.from_numpy(np.ascontiguousarray(c[:, :3])).to(dev)
+        valid[i, :c.shape[0]] = True
+
+    def union():
+        return hg.build_sorted_cloud_batch(xyz, valid, cell_size=RADIUS, block_size=256)
+
+    def each():
+        return [hg.build_sorted_cloud(xyz[i], valid[i], cell_size=RADIUS, block_size=256)
+                for i in range(b)]
+    sc, alone = union(), each()
+    for f in LAYOUT_FIELDS:
+        join = torch.cat if f in ("pts4", "blk_bbox") else torch.stack
+        require(torch.equal(getattr(sc, f), join([getattr(a, f) for a in alone])),
+                f"build_sorted_cloud_batch != the per-cloud builds in {f}")
+    ms_union, ms_each = cuda_ms(union, 10), cuda_ms(each, 10)
+    ctr = sc.pts4[:, :3]
+    top_k, cnt_k = hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, RADIUS, NS, tile=256,
+                                        segment=nb)
+    top_p, cnt_p = hg.sorted_ball_query_plain(sc.pts4, ctr, RADIUS, NS, segment=nb)
+    require(torch.equal(top_k, top_p) and torch.equal(cnt_k, cnt_p),
+            "K4 with segment != its plain version on the union")
+    grouped, _, _ = hg._finish_grouped(top_k, cnt_k, ctr, NS)
+    offs = (grouped - ctr[:, None, :]).contiguous()
+    att, _ = fd.fused_detect_clusters(pipe._kernel_weights("detect"), offs, pipe.mcfg,
+                                      unfolded=True, packed=pipe._detect_packed)
+    bm_k = hg.ball_max_sorted(sc.pts4, sc.blk_bbox, att, NMS_RADIUS, segment=nb)
+    bm_p = hg.ball_max_plain(sc.pts4, att, NMS_RADIUS, segment=nb)
+    require(torch.equal(bm_k, bm_p), "K5 with segment != its plain version on the union")
+    for i, a in enumerate(alone):
+        rows = slice(i * nb, (i + 1) * nb)
+        t1, c1 = hg.sorted_ball_query(a.pts4, a.blk_bbox, a.pts4[:, :3], RADIUS, NS, tile=256)
+        require(torch.equal(t1, top_k[rows]) and torch.equal(c1, cnt_k[rows]),
+                f"K4 on the union != K4 on cloud {i} alone")
+        require(torch.equal(hg.ball_max_sorted(a.pts4, a.blk_bbox, att[rows].contiguous(),
+                                               NMS_RADIUS), bm_k[rows]),
+                f"K5 on the union != K5 on cloud {i} alone")
+    real = ctr[:, 0] < 5e8
+    _, cnt_nms = hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, NMS_RADIUS, 1, tile=256,
+                                      segment=nb)
+    b4 = bound_ms(8.0 * cnt_k[real].sum().item(), nbytes(sc.pts4, ctr, top_k, cnt_k))
+    b5 = bound_ms(9.0 * cnt_nms[real].sum().item(), nbytes(sc.pts4, att, bm_k))
+    k4 = in_turns(lambda: hg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, RADIUS, NS, tile=256,
+                                               segment=nb),
+                  lambda: hg.sorted_ball_query_plain(sc.pts4, ctr, RADIUS, NS, segment=nb), 5, 1)
+    k5 = in_turns(lambda: hg.ball_max_sorted(sc.pts4, sc.blk_bbox, att, NMS_RADIUS, segment=nb),
+                  lambda: hg.ball_max_plain(sc.pts4, att, NMS_RADIUS, segment=nb), 10, 1)
+    each4 = cuda_ms(lambda: [hg.sorted_ball_query(a.pts4, a.blk_bbox, a.pts4[:, :3], RADIUS, NS,
+                                                  tile=256) for a in alone], 5)
+    each5 = cuda_ms(lambda: [hg.ball_max_sorted(a.pts4, a.blk_bbox,
+                                                att[i * nb:(i + 1) * nb].contiguous(),
+                                                NMS_RADIUS) for i, a in enumerate(alone)], 10)
+    n_pts = sc.pts4.shape[0]
+    print(f"[{card}] union of {b} clouds at bucket {nb} ({n_pts} points): "
+          f"build_sorted_cloud_batch {ms_union:.4f} ms, the {b} per-cloud builds {ms_each:.4f} "
+          f"ms (CUDA events, back to back); bit-equal in {', '.join(LAYOUT_FIELDS)}")
+    print(f"[{card}] sorted_ball_query union segment={nb}: kernel {k4[0]:.4f} ms, plain "
+          f"{k4[1]:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]}); the {b} clouds alone "
+          f"{each4:.4f} ms; index-exact vs plain on all {n_pts} centres, equal per cloud to "
+          "the cloud alone")
+    print(f"[{card}] ball_max union segment={nb}: kernel {k5[0]:.4f} ms, plain {k5[1]:.4f} ms, "
+          f"bound {b5[0]:.6f} ms ({b5[1]}); the {b} clouds alone {each5:.4f} ms; exact vs plain "
+          f"on all {n_pts} centres, equal per cloud to the cloud alone")
+
+
+def throughput(card, name, pipe, route, clouds, rounds=2):
+    """Clouds/s of the four entry points on one stream (host clock,
+    synchronised), in turns forward then backward, `rounds` times. On a
+    short stream the pipelined entry points' rates include the fill and
+    drain of their `depth` units."""
+    import torch
+
+    runs = {"extract loop": lambda: [pipe.extract(c) for c in clouds],
+            "extract_many(batch_size=1)": lambda: pipe.extract_many(clouds, batch_size=1),
+            f"extract_batch({UNIT})": lambda: [pipe.extract_batch(clouds[i:i + UNIT])
+                                               for i in range(0, len(clouds), UNIT)],
+            f"extract_many(batch_size={UNIT})": lambda: pipe.extract_many(clouds,
+                                                                          batch_size=UNIT)}
+    rates = {k: [] for k in runs}
+    for k in (list(runs) + list(runs)[::-1]) * rounds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[k]()
+        torch.cuda.synchronize()
+        rates[k].append(len(clouds) / (time.perf_counter() - t0))
+    print(f"[{card}] throughput {name} ({len(clouds)} clouds, {route} route; clouds/s, host "
+          f"clock, synchronised, {2 * rounds} turns each): " + ", ".join(
+              f"{k} {np.mean(v):.3f} (min {np.min(v):.3f}, max {np.max(v):.3f})"
+              for k, v in rates.items()))
+
+
+def profile_batch(card, name, pipe, route, clouds):
+    """One profiled extract_batch: device busy share and top kernels."""
+    import torch
+
+    pipe.extract_batch(clouds)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.extract_batch(clouds)
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    print(f"[{card}] profile extract_batch {name} x{len(clouds)} ({route}): wall {wall:.2f} ms, "
+          f"device busy {busy:.2f} ms ({100 * busy / wall:.1f} %)")
+    for e in ev[:6]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+
+
+def batch_phase(dev, card, npz_path, data_dir):
+    """Phase 19: batched and pipelined extraction with the trained weights on
+    both routes. The union kernel checks (union_kernel_step) on the four
+    vendored clouds; then, launch counters reset, per route: extract_batch
+    on the vendored clouds, extract_many (depth 2, batch_size 1 and UNIT)
+    on SUBMAPS seeded submap clouds, extract_many on the vendored clouds
+    and an odd trailing one, process_directory(batch_size=UNIT) and
+    cli.infer --batch_size UNIT --device cuda, each cloud's results equal
+    to extract bit for bit, and extract_batch on a cloud of bucket 4 096
+    with one of 32 768 (detector chunks of 4 096 and 8 192 rows) equal to
+    extract; K3-K6 must have launched. Then one
+    extract_batch's launches (K4, K5 once; on the fused route K6 and K3
+    once too), a unit queued under torch's sync debug mode set to raise,
+    throughput (`throughput`) on a KITTI stream and the submap stream of
+    8 clouds each and on longer ones (LONG_KITTI frames, LONG_SUBMAPS
+    submaps), one profiled batch per stream and route, and warmup in a
+    fresh process against a cold one (first request and steady state)."""
+    import io
+    import shutil
+
+    import torch
+
+    from feat3dnet_tpu_torch.cli import infer as infer_cli
+    from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig
+    from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+    from feat3dnet_tpu_torch.inference import InferencePipeline
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+    from feat3dnet_tpu_torch.ops import hash_grid as hg
+    from feat3dnet_tpu_torch.utils import load_variables, load_variables_npz
+
+    cfg = ModelConfig()
+    model = load_variables(Feat3DNet(cfg), load_variables_npz(npz_path)).eval().to(dev)
+    routes = {"default": {}, "fused": {"use_fused_detector": True}}
+    pipes = {r: InferencePipeline(model, None, cfg, InferenceConfig(**kw), device=dev)
+             for r, kw in routes.items()}
+    for pipe in pipes.values():
+        pipe._pack_weights()
+    vendored = {n: load_point_cloud(example_cloud_path(n)) for n in CLOUDS}
+    clouds = list(vendored.values())
+    with torch.no_grad():
+        union_kernel_step(card, dev, clouds, pipes["fused"])
+
+    wrappers = {"sorted_ball_query": hg.sorted_ball_query, "ball_max": hg.ball_max_sorted,
+                "fused_detect": fd.fused_detect_clusters,
+                "fused_describe": fd.fused_describe_clusters_t}
+    subs = submap_clouds(SEED)
+    trailing = clouds[0][::2].copy()          # 8 192 points: a bucket of its own
+    small = clouds[2][:4000].copy()           # bucket 4 096, batched with bucket 32 768
+    root = os.path.join(HERE, "build", "chip_smoke_batch")
+    shutil.rmtree(root, ignore_errors=True)
+    for w in wrappers.values():
+        w.launches = 0
+    for route, pipe in pipes.items():
+        want = [pipe.extract(c) for c in clouds]
+        same_results(f"{route} extract_batch on the vendored clouds", pipe.extract_batch(clouds),
+                     want)
+        same_results(f"{route} extract_batch on a {small.shape[0]}-point cloud and "
+                     f"{CLOUDS[2]}", pipe.extract_batch([small, clouds[2]]),
+                     [pipe.extract(small), want[2]])
+        want_s = [pipe.extract(c) for c in subs]
+        for bs in (1, UNIT):
+            same_results(f"{route} extract_many(depth=2, batch_size={bs}) on the submaps",
+                         pipe.extract_many(subs, depth=2, batch_size=bs), want_s)
+        same_results(f"{route} extract_many(batch_size={UNIT}) on the vendored clouds + a "
+                     "trailing one", pipe.extract_many(clouds + [trailing], batch_size=UNIT),
+                     want + [pipe.extract(trailing)])
+        out_pd, out_cli = os.path.join(root, f"pd_{route}"), os.path.join(root, f"cli_{route}")
+        pipe.process_directory(data_dir, out_pd, log=lambda *_: None, batch_size=UNIT)
+        with contextlib.redirect_stderr(io.StringIO()):
+            infer_cli.main(["--data_dir", data_dir, "--output_dir", out_cli, "--variables",
+                            npz_path, "--batch_size", str(UNIT), "--device", "cuda"]
+                           + (["--use_fused_detector"] if route == "fused" else []))
+        by_name = dict(zip(CLOUDS, want))
+        for out_dir in (out_pd, out_cli):
+            written = sorted(os.listdir(out_dir))
+            require(written == sorted(CLOUDS), f"{out_dir}: wrote {written}")
+            for fname in written:
+                r = by_name[fname]
+                require(np.array_equal(np.fromfile(os.path.join(out_dir, fname), np.float32),
+                                       np.concatenate([r.keypoints, r.features], 1).ravel()),
+                        f"{route}: {os.path.relpath(out_dir, HERE)}/{fname} differs from extract")
+        print(f"batch {route} route: extract_batch (vendored x{len(clouds)}; a "
+              f"{small.shape[0]}-point cloud with {CLOUDS[2]}), extract_many "
+              f"(depth 2, batch_size 1 and {UNIT}; {SUBMAPS} submaps of {SUBMAP_POINTS} points, "
+              f"bucket 131072), extract_many(batch_size={UNIT}) on the vendored clouds + a "
+              f"trailing {trailing.shape[0]}-point one, process_directory(batch_size={UNIT}) and "
+              f"cli.infer --batch_size {UNIT} --device cuda: every cloud bit-equal to extract")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"batch path launches: {launches}")
+    for k, n in launches.items():
+        require(n > 0, f"kernel {k} was not launched on the batch path")
+
+    kitti = [vendored["kitti_00_001554.bin"], vendored["kitti_00_004534.bin"]] * UNIT
+    for route, pipe in pipes.items():
+        # one batch: K4 and K5 once, and on the fused route K6 and K3 once
+        for w in wrappers.values():
+            w.launches = 0
+        pipe.extract_batch(clouds)
+        got = {k: w.launches for k, w in wrappers.items()}
+        fused = route == "fused"
+        require(got == {"sorted_ball_query": 1, "ball_max": 1, "fused_detect": int(fused),
+                        "fused_describe": int(fused)},
+                f"{route}: one extract_batch of {len(clouds)} clouds launched {got}")
+        # a unit is queued without a host sync: torch raises on one
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            pending = [pipe._enqueue(pipe._prep(c)) for c in ([clouds[2]], clouds)]
+            queue_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for p in pending:
+            pipe._finish(p)
+        print(f"batch {route}: one extract_batch of {len(clouds)} clouds launched {got}; one "
+              f"cloud and a batch of {len(clouds)} queued with no host sync ({queue_ms:.2f} ms "
+              "on the host)")
+    subs_long = submap_clouds(SEED + 1, LONG_SUBMAPS)
+    for route, pipe in pipes.items():
+        for stream, rounds in ((kitti, 2), (kitti * (LONG_KITTI // len(kitti)), 1)):
+            throughput(card, "KITTI stream (the two vendored KITTI clouds in turn, bucket 32768)",
+                       pipe, route, stream, rounds)
+        for stream in (subs, subs_long):
+            throughput(card, f"submap stream ({SUBMAP_POINTS} points, bucket 131072)", pipe,
+                       route, stream, rounds=1)
+        for name, stream in (("KITTI", kitti[:UNIT]), ("submap", subs[:UNIT])):
+            profile_batch(card, name, pipe, route, stream)
+    # warmup: a fresh process with and without it (kernels already built)
+    for mode in ("cold", "warm"):
+        proc = subprocess.run([sys.executable, "-c", COLD_START, HERE, npz_path, mode],
+                              capture_output=True, text=True, timeout=300)
+        require(proc.returncode == 0, f"warmup process ({mode}) failed: {proc.stderr[-2000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"[{card}] fresh process, fused route, kitti_00_004534 ({mode}): " + (
+            f"warmup {json.dumps(res['warmup'])} s; " if mode == "warm" else "no warmup; ")
+            + f"first extract {res['first_ms']:.2f} ms, the next three {res['steady_ms']:.2f} "
+            f"ms (host clock, synchronised); set-up {res['setup_s']:.2f} s")
+
+
 def main():
     import argparse
 
@@ -3580,6 +3942,11 @@ def main():
     # ---- 18. the held-out accuracy rerun, both extract routes; cli.match -----------------
     accuracy_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
                                            "ckpt4480_variables.npz"))
+
+    # ---- 19. batched and pipelined extraction, both routes ---------------------------------
+    batch_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
+                                        "ckpt4480_variables.npz"),
+                os.path.dirname(example_cloud_path(CLOUDS[0])))
 
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),

@@ -30,7 +30,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min_response_ratio", type=float, default=1e-2)
     p.add_argument("--max_keypoints", type=int, default=1024)
     p.add_argument("--batch_size", type=int, default=1,
-                   help="clouds per dispatch; only 1 is ported so far")
+                   help="clouds packed per device dispatch (extract_batch; "
+                        "per-cloud results are bit-equal to batch_size=1)")
     p.add_argument("--use_fused_detector", action="store_true",
                    help="attention pass through the detector-only kernel and "
                         "descriptors through the fused describe kernel")

@@ -24,7 +24,12 @@
 //    stricter than the centres' own) and its maximum exceeds the smallest
 //    start value of the tile's centres (-1e30 if one is real, else +1e30):
 //    the TPU kernel's whole-block value skip (hash_grid.py:1178), once per
-//    tile. A tile of padding centres lists nothing.
+//    tile. A tile of padding centres lists nothing. On a union of clouds
+//    (the batched extraction: equal clouds of whole tiles and blocks, keys
+//    local to each) a tile lists only its own cloud's blocks, the TPU
+//    kernels' `block_mask` (hash_grid.py:262-290); the walk reads only
+//    listed blocks and the centre's own block, so each cloud's maxima are
+//    its own run's.
 //  * K4's launch: each tile served by several blocks of 4 warps,
 //    kCentres consecutive centres a block, so the grid has many waves. Each
 //    block compacts its tile's hit row into shared memory.
@@ -84,10 +89,13 @@ block_max_kernel(const float* __restrict__ values, int nb, int block,
 }
 
 // Pre-pass 2: the hit row of one tile of centres (one block a tile).
+// seg_centres / seg_blocks: centres and blocks per cloud of a union (0: one
+// cloud); block j is listed only for a tile of its own cloud.
 __global__ void __launch_bounds__(kPrepThreads)
 tile_hit_kernel(const float4* __restrict__ pts4, const float* __restrict__ centers, int m,
                 int tile, const float4* __restrict__ bbox, const float* __restrict__ blkmax,
-                int nb, float r2, uint8_t* __restrict__ hit) {
+                int nb, float r2, int seg_centres, int seg_blocks,
+                uint8_t* __restrict__ hit) {
   __shared__ float part[6][kPrepThreads / 32];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int c0 = blockIdx.x * tile;
@@ -114,7 +122,12 @@ tile_hit_kernel(const float4* __restrict__ pts4, const float* __restrict__ cente
     }
   const float start = real ? -kBig : kBig;   // the smallest start value in the tile
   uint8_t* row = hit + static_cast<size_t>(blockIdx.x) * nb;
+  const int cloud = seg_centres > 0 ? c0 / seg_centres : 0;
   for (int j = t; j < nb; j += kPrepThreads) {
+    if (seg_centres > 0 && j / seg_blocks != cloud) {
+      row[j] = 0;
+      continue;
+    }
     const float4 bl = bbox[2 * static_cast<size_t>(j)];       // minx miny minz maxx
     const float4 bh = bbox[2 * static_cast<size_t>(j) + 1];   // maxy maxz 0 0
     const float gx = fmaxf(fmaxf(bl.x - hi[0], lo[0] - bl.w), 0.f);
@@ -243,14 +256,22 @@ ball_max_walk_kernel(const float4* __restrict__ pts4, const float* __restrict__ 
 // points (np / nb a multiple of 32); centers (m, 3) f32, or NULL for every
 // sorted row (m == np); tile: centres per row of the hit mask; hit
 // (ceil(m / tile), nb) u8 and blkmax (nb,) f32: the pre-pass's scratch;
-// out (m,). stage 0 runs both parts; 1 the pre-pass alone, 2 the walk alone
-// on an earlier pre-pass's hit and blkmax (the time split).
+// out (m,). seg_centres, seg_blocks: the centres and blocks of each cloud of
+// a union (seg_centres a multiple of tile, the same number of clouds for
+// both), or 0, 0 for one cloud. stage 0 runs both parts; 1 the pre-pass
+// alone, 2 the walk alone on an earlier pre-pass's hit and blkmax (the time
+// split).
 F3D_EXPORT int f3d_ball_max(const float* pts4, const float* values, int np,
                             const float* blk_bbox, int nb, const float* centers, int m,
                             int tile, float r2, uint8_t* hit, float* blkmax, float* out,
-                            int stage, cudaStream_t stream) {
+                            int seg_centres, int seg_blocks, int stage,
+                            cudaStream_t stream) {
   if (nb < 1 || np % nb || (np / nb) % 32 || tile < 1 || stage < 0 || stage > 2 ||
       (centers == nullptr && m != np))
+    return cudaErrorInvalidValue;
+  if (seg_centres != 0 &&
+      (seg_centres < 0 || seg_blocks < 1 || seg_centres % tile || m % seg_centres ||
+       nb % seg_blocks || m / seg_centres != nb / seg_blocks))
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
   const int block = np / nb;
@@ -264,7 +285,7 @@ F3D_EXPORT int f3d_ball_max(const float* pts4, const float* values, int np,
     block_max_kernel<<<(nb + per_block - 1) / per_block, kPrepThreads, 0, stream>>>(
         values, nb, block, blkmax);
     tile_hit_kernel<<<static_cast<unsigned>(tiles), kPrepThreads, 0, stream>>>(
-        p4, centers, m, tile, box, blkmax, nb, r2, hit);
+        p4, centers, m, tile, box, blkmax, nb, r2, seg_centres, seg_blocks, hit);
   }
   if (stage != 1) {
     const size_t smem = walk_smem_bytes(nb);

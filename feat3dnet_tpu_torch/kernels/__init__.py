@@ -162,8 +162,9 @@ def library() -> ctypes.CDLL:
                                           _P, _P, _P]
     lib.f3d_sorted_ball_query.restype = _I
     # pts4, values, np, blk_bbox, nb, centers|NULL, m, tile, r2, hit, blkmax,
-    # out, stage, stream
-    lib.f3d_ball_max.argtypes = [_P, _P, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P, _I, _P]
+    # out, centres per cloud, blocks per cloud (0, 0: one cloud), stage, stream
+    lib.f3d_ball_max.argtypes = [_P, _P, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P, _I, _I, _I,
+                                 _P]
     lib.f3d_ball_max.restype = _I
     # clusters, ns, batch, weights, layers (host int32 array), extra (host
     # int32 (n, 2)), n_det, n_det2, folded, bf16, r, inv_r, r2, out, stream
@@ -326,14 +327,17 @@ def launch_sorted_ball_query(pts4, blk_bbox, hit, block, centers, tile, r2, ns, 
 BALL_MAX_STAGES = {"prep": 1, "walk": 2}
 
 
-def launch_ball_max(pts4, values, blk_bbox, centers, m, tile, r2, hit, blkmax, out) -> None:
+def launch_ball_max(pts4, values, blk_bbox, centers, m, tile, r2, hit, blkmax, out,
+                    seg_centres=0, seg_blocks=0) -> None:
     """centers: (m, 3) float32, or None for every sorted row (m == Np);
-    hit: (ceil(m / tile), nb) uint8 and blkmax (nb,) float32 scratch."""
+    hit: (ceil(m / tile), nb) uint8 and blkmax (nb,) float32 scratch;
+    seg_centres, seg_blocks: centres and blocks per cloud of a union of
+    clouds (0, 0: one cloud)."""
     with torch.cuda.device(pts4.device):
         check(library().f3d_ball_max(
             _ptr(pts4), _ptr(values), pts4.shape[0], _ptr(blk_bbox), blk_bbox.shape[0],
-            _ptr(centers), m, tile, r2, _ptr(hit), _ptr(blkmax), _ptr(out), 0,
-            _stream(pts4)), "ball_max")
+            _ptr(centers), m, tile, r2, _ptr(hit), _ptr(blkmax), _ptr(out), seg_centres,
+            seg_blocks, 0, _stream(pts4)), "ball_max")
 
 
 # K6's stages as csrc/fused_detect.cu numbers them for a detector of

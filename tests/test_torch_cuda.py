@@ -25,7 +25,12 @@ tolerances of tests/test_fused_train.py (means rtol 1e-5, pooled 1e-4,
 dW / dgamma / dbeta rtol 5e-3 with atol 5e-4 max|ref|, db atol 1e-3, dx
 rtol 5e-3 / atol 5e-5), and bit-equal across two runs. TF32 is off. The
 Morton layout built on the card (`build_sorted_cloud`, torch ops, no
-kernel of its own) must be bit-equal to the host's numpy build.
+kernel of its own) must be bit-equal to the host's numpy build. On a union
+of clouds (`build_sorted_cloud_batch`, `segment=`) K4 and K5 must be
+index-exact against their plain versions and equal, per cloud, to their
+run on that cloud alone; `extract_batch` and `extract_many` (also on
+clouds of two buckets) must give each cloud `extract`'s result bit for
+bit on both detector routes.
 """
 import os
 import re
@@ -598,3 +603,81 @@ def test_train_tower_autograd_matches_cpu(dev, rs):
         else:
             _close(a, b, 5e-3, atol_rel=5e-4)
     _close(grads[0][-1], grads[1][-1], 1e-5, atol=1e-6)
+
+
+def _union_on_card(rs, dev, sizes, bucket, block):
+    """Clouds padded to one bucket, their layouts built in one union on the
+    card (build_sorted_cloud_batch), overlapping in space."""
+    xyz = np.zeros((len(sizes), bucket, 3), np.float32)
+    for i, n in enumerate(sizes):
+        xyz[i, :n] = ((rs.rand(n, 3) - 0.5) * 20.0).astype(np.float32)
+    valid = np.arange(bucket)[None, :] < np.asarray(sizes)[:, None]
+    return thg.build_sorted_cloud_batch(torch.from_numpy(xyz).to(dev),
+                                        torch.from_numpy(valid).to(dev), cell_size=2.0,
+                                        block_size=block)
+
+
+@pytest.mark.parametrize("block,tile", [(64, 128), (256, 256)])
+def test_sorted_ball_query_kernel_segment_matches_plain(dev, rs, block, tile):
+    """K4 on a union of three clouds with segment=: index-exact against the
+    plain version (same-cloud pairs only) and each cloud's rows equal to
+    K4 on that cloud alone."""
+    bucket = 4096
+    sc = _union_on_card(rs, dev, (3000, 900, 4096), bucket, block)
+    ctr = sc.pts4[:, :3].contiguous()
+    tk, ck = thg.sorted_ball_query(sc.pts4, sc.blk_bbox, ctr, 2.0, 64, tile=tile,
+                                   segment=bucket)
+    tp, cp = thg.sorted_ball_query_plain(sc.pts4, ctr, 2.0, 64, segment=bucket)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp) and torch.equal(tk, tp)
+    nb = sc.blk_bbox.shape[0] // 3
+    for i in range(3):
+        rows = slice(i * bucket, (i + 1) * bucket)
+        ta, ca = thg.sorted_ball_query(sc.pts4[rows], sc.blk_bbox[i * nb:(i + 1) * nb],
+                                       ctr[rows], 2.0, 64, tile=tile)
+        assert torch.equal(tk[rows], ta) and torch.equal(ck[rows], ca)
+
+
+@pytest.mark.parametrize("tile", [128, 512])
+def test_ball_max_kernel_segment_matches_plain(dev, rs, tile):
+    """K5 with segment=: exact against the plain version and each cloud's
+    maxima equal to K5 on that cloud alone (values tied across clouds)."""
+    bucket = 4096
+    sc = _union_on_card(rs, dev, (2500, 4096, 1200), bucket, 64)
+    vals = torch.from_numpy(rs.rand(3 * bucket).astype(np.float32)).to(dev)
+    vals[::bucket] = 0.999                                   # ties across the clouds
+    got = thg.ball_max_sorted(sc.pts4, sc.blk_bbox, vals, 0.5, tile=tile, segment=bucket)
+    want = thg.ball_max_plain(sc.pts4, vals, 0.5, segment=bucket)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    nb = sc.blk_bbox.shape[0] // 3
+    for i in range(3):
+        rows = slice(i * bucket, (i + 1) * bucket)
+        alone = thg.ball_max_sorted(sc.pts4[rows], sc.blk_bbox[i * nb:(i + 1) * nb],
+                                    vals[rows], 0.5, tile=tile)
+        assert torch.equal(got[rows], alone)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_extract_batch_and_many_match_extract(dev, rs, fused):
+    """extract_batch and extract_many (batch 1 and 2, an odd tail) on the
+    card give each cloud extract's result bit for bit, also with a cloud
+    of bucket 4 096 among clouds of 8 192 at the default keypoint_chunk
+    (extract_batch pads it to 8 192; its detector chunks stay 4 096)."""
+    from feat3dnet_tpu_torch.config import InferenceConfig
+    from feat3dnet_tpu_torch.inference import InferencePipeline
+    from feat3dnet_tpu_torch.models import Feat3DNet
+
+    cfg = ModelConfig()
+    pipe = InferencePipeline(Feat3DNet(cfg), init_variables(cfg, seed=0, bn_perturb=0.1), cfg,
+                             InferenceConfig(use_fused_detector=fused), device=dev)
+    clouds = [((rs.rand(n, 3) - 0.5) * np.float32(40.0)).astype(np.float32)
+              for n in (6000, 7500, 5000, 3000)]
+    want = [pipe.extract(c) for c in clouds]
+    for got in (pipe.extract_batch(clouds), pipe.extract_many(clouds),
+                pipe.extract_many(clouds, batch_size=2)):
+        for g, w in zip(got, want):
+            assert g.num_keypoints == w.num_keypoints > 0
+            for f in ("keypoints", "attention", "features"):
+                assert np.array_equal(getattr(g, f), getattr(w, f)), f
+

@@ -146,8 +146,16 @@ def test_extract_on_the_device_layout_equals_the_host_layout(monkeypatch):
                              device="cpu")
     cloud = load_point_cloud(example_cloud_path("oxford_270.bin"))
     got = pipe.extract(cloud)
-    monkeypatch.setattr(pipeline, "build_sorted_cloud", lambda xyz, valid, **kw: (
-        thg.build_sorted_cloud_host(xyz.numpy(), valid.numpy(), **kw).to("cpu")))
+
+    def host_layouts(xyz, valid, **kw):
+        """The pipeline's (B, N) union of layouts, each built in numpy."""
+        scs = [thg.build_sorted_cloud_host(x, v, **kw) for x, v in zip(xyz.numpy(),
+                                                                       valid.numpy())]
+        return thg.SortedCloud(np.concatenate([s.pts4 for s in scs]),
+                               np.concatenate([s.blk_bbox for s in scs]),
+                               np.stack([s.orig_idx for s in scs]),
+                               np.stack([s.inv_perm for s in scs]), kw["block_size"]).to("cpu")
+    monkeypatch.setattr(pipeline, "build_sorted_cloud_batch", host_layouts)
     want = pipe.extract(cloud)
     assert got.num_keypoints == want.num_keypoints > 100
     np.testing.assert_array_equal(got.keypoints, want.keypoints)

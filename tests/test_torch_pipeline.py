@@ -148,8 +148,12 @@ def test_process_directory_and_cli(jax_setup, tmp_path, monkeypatch):
     ext = np.fromfile(str(tmp_path / "ext" / "a.bin"), np.float32).reshape(-1, 19)
     np.testing.assert_array_equal(ext[:, :3], np.fromfile(
         str(kp_dir / "a_kp.bin"), np.float32).reshape(-1, 3))
-    with pytest.raises(NotImplementedError):
-        pipe.process_directory(str(data), str(tmp_path / "x"), batch_size=2)
+    # batch_size > 1 (extract_batch; the per-file loop off the hashed route)
+    # writes the same files
+    pipe.process_directory(str(data), str(tmp_path / "x"), batch_size=2, log=lambda *_: None)
+    for name in ("a.bin", "b.bin"):
+        np.testing.assert_array_equal(np.fromfile(str(tmp_path / "x" / name), np.float32),
+                                      np.fromfile(str(tmp_path / "ours" / name), np.float32))
 
     npz = str(tmp_path / "v.npz")
     save_variables_npz(npz, v)
