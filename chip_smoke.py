@@ -165,7 +165,41 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      stream, 8 clouds each and 64 / 16 (past the pipeline's fill and
      drain), one profiled batch each (device busy share, top kernels); and
      a fresh process with and without warmup (the first extract against
-     the next three).
+     the next three);
+  20. the workflow around the model (workflow_phase), at the paper config
+     and TrainConfig() widths, under build/chip_smoke_workflow/:
+     a. prepare: metadata.txt files for two datasets of crops of the
+        vendored clouds (24 each, 6 m apart), cli.prepare train-cases
+        --no_test_split, the train.txt read back through TripletDataset (and
+        a 6-entry set, one step an epoch); cli.prepare submaps --normals on
+        two seeded 5 000-point submap binaries in dataprep/submap.py's
+        layout: (N, 6) float32 rows with unit normals and their metadata
+        rows;
+     b. TF1: assets/ckpt4480_variables.npz exported under the TF1 names
+        (export_tf1_arrays); cli.infer --tf1_checkpoint and --variables over
+        examples/data on both routes, every file bit-equal; cli.verify_parity
+        --device cuda --cloud kitti_00_001554.bin against the --variables
+        output: exit 0 with median cosine >= 0.999 (the internal K3 gate's
+        cosines printed), and exit 1 with one descriptor kernel x 1.5;
+     c. training through cli.train --fused_towers --device cuda, launch
+        counters reset for each run: stage 1 (the two-stage script's flags,
+        --num_epochs 1, 8 steps), stage 2 (--checkpoint stage 1
+        --restore_exclude detection: before its first step every detector
+        parameter's Adam step equals stage 1's count with zero moments), one
+        step from --variables assets/ckpt4480_train_state.npz (before it the
+        moments bit-equal to the asset's, count and step 4 480) and one from
+        --tf1_checkpoint (before it the parameters equal ckpt4480's); in
+        every run K1, K2 and K7-K10 launch, every loss is finite, each
+        metrics.jsonl row carries hist_det_cnt (16 counts summing to num,
+        hi <= 64) and, with attention, hist_normalized_attention, and
+        log.txt holds the Arguments line; stage 1's median ms between
+        consecutive metrics rows;
+     d. device_histogram on card tensors under
+        torch.cuda.set_sync_debug_mode("error"): no host sync, counts, lo,
+        hi and num equal to a numpy float32 evaluation of its formula;
+     e. entry(): fn(*example_args) launches K1 and K2 and gives finite
+        (2, 512, 3), (2, 512, 32) and (2, 512) outputs;
+     each sub-phase's wall time, with the card's name and power limit.
 Option: --parent DIR also builds another tree's training kernels, K1-K6
 (its csrc/fused_train.cu, csrc/fps.cu, csrc/ball_query.cu,
 csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
@@ -3546,6 +3580,364 @@ def batch_phase(dev, card, npz_path, data_dir):
             f"ms (host clock, synchronised); set-up {res['setup_s']:.2f} s")
 
 
+# ---- 20. the workflow around the model ------------------------------------------------------
+WF_CROPS = 24          # crops a dataset in phase 20's train.txt: 48 entries, 8 steps an epoch
+WF_SUBMAP_POINTS = 5000
+WF_SPACING = 6.0       # m between neighbouring crops' positions (positives within 11 m)
+
+
+def write_crop_dataset(folder, name, clouds, count, x0, rs):
+    """`count` crops of `clouds` (in turn) as <folder>/<name>/<i>.bin, each
+    centred on a seeded point within 10 m of its cloud's origin and cut to
+    30 m, with a metadata.txt placing crop i at (x0 + WF_SPACING i, 0, 0)."""
+    d = os.path.join(folder, name)
+    os.makedirs(d)
+    rows = ["Idx\tDataset\tStartIdx\tEndIdx\tNumPts\tX\tY\tZ"]
+    for i in range(count):
+        cloud = clouds[i % len(clouds)]
+        near = np.nonzero(np.sum(cloud[:, :3] ** 2, axis=1) < 100.0)[0]
+        crop = cloud.copy()
+        crop[:, :3] -= cloud[rs.choice(near), :3]
+        crop = crop[np.sum(crop[:, :3] ** 2, axis=1) < 900.0]
+        crop.astype(np.float32).tofile(os.path.join(d, f"{i}.bin"))
+        rows.append(f"{i}\t{name}\t\t\t{crop.shape[0]}\t{x0 + WF_SPACING * i}\t0.0\t0.0")
+    with open(os.path.join(d, "metadata.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def write_submap_file(path, rs, world):
+    """A seeded WF_SUBMAP_POINTS-point submap binary in dataprep/submap.py's
+    layout (header, no features, point records): a noisy ground plane and
+    two walls."""
+    from feat3dnet_tpu_torch.dataprep import submap
+
+    n = WF_SUBMAP_POINTS
+    pts = rs.rand(n, 3).astype(np.float32) * np.float32([40.0, 40.0, 0.0])
+    pts[:, 2] = rs.randn(n).astype(np.float32) * 0.02
+    wall = rs.rand(n) < 0.3
+    pts[wall, 0] = 5.0 + rs.randn(int(wall.sum())).astype(np.float32) * 0.02
+    pts[wall, 2] = rs.rand(int(wall.sum())).astype(np.float32) * 4.0
+    header = np.zeros((), submap._HEADER_DTYPE)
+    header["f0"] = 123456
+    header["f10"], header["f11"], header["f12"] = world
+    header["f16"], header["f17"] = 0, n
+    rec = np.zeros(n, np.dtype([("xyz", "3f4"), ("extra", submap._POINT_EXTRA_DTYPE)]))
+    rec["xyz"] = pts
+    with open(path, "wb") as f:
+        header.tofile(f)
+        rec.tofile(f)
+    return pts
+
+
+class FirstStepProbe:
+    """Patches trainer.make_fused_train_step (which cli.train imports when it
+    runs) so that the first step of a run records, before it runs, the
+    state's step and count, its parameters (flax layout) and each
+    parameter's Adam state, on the host."""
+
+    def __init__(self):
+        self.seen = None
+
+    def __enter__(self):
+        from feat3dnet_tpu_torch.train import trainer
+        from feat3dnet_tpu_torch.utils.convert import variables_from_module
+
+        self._orig = orig = trainer.make_fused_train_step
+
+        def make(model, *a, **kw):
+            step = orig(model, *a, **kw)
+
+            def probed(state, clouds):
+                if self.seen is None:
+                    names = {id(p): n for n, p in state.model.named_parameters()}
+                    opt = {names[id(p)]: {k: v.detach().cpu().clone() for k, v in st.items()}
+                           for p, st in state.optimizer.state.items()}
+                    host = lambda t: ({k: host(v) for k, v in t.items()}
+                                      if isinstance(t, dict) else t.detach().cpu().numpy().copy())
+                    self.seen = {"step": state.step, "count": state.count, "opt": opt,
+                                 "variables": host(variables_from_module(state.model))}
+                return step(state, clouds)
+
+            return probed
+
+        trainer.make_fused_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        from feat3dnet_tpu_torch.train import trainer
+
+        trainer.make_fused_train_step = self._orig
+
+
+def flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def param_path(name):
+    *scope, leaf = name.split(".")
+    return "/".join(scope + ["kernel" if leaf == "weight" else leaf]), leaf == "weight"
+
+
+def workflow_phase(dev, card, npz_path, data_dir):
+    """Phase 20: the workflow around the model on the card, at the paper
+    config and TrainConfig() widths (see the module docstring, 20a-20e)."""
+    import io
+    import shutil
+
+    import torch
+
+    from feat3dnet_tpu_torch.cli import infer as infer_cli
+    from feat3dnet_tpu_torch.cli import prepare as prepare_cli
+    from feat3dnet_tpu_torch.cli import train as train_cli
+    from feat3dnet_tpu_torch.cli import verify_parity
+    from feat3dnet_tpu_torch.data.datagenerator import TripletDataset
+    from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+    from feat3dnet_tpu_torch.entry import entry
+    from feat3dnet_tpu_torch.ops import batch_group, fps
+    from feat3dnet_tpu_torch.ops import fused_train as ft
+    from feat3dnet_tpu_torch.utils.convert import load_variables_npz
+    from feat3dnet_tpu_torch.utils.metrics_writer import device_histogram
+    from feat3dnet_tpu_torch.utils.tf1_loader import export_tf1_arrays
+
+    root = os.path.join(HERE, "build", "chip_smoke_workflow")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rs = np.random.RandomState(SEED)
+    vendored = {n: load_point_cloud(example_cloud_path(n)) for n in CLOUDS}
+    times = {}
+
+    # ---- 20a. prepare ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    datasets = {"oxford": [vendored[n] for n in CLOUDS[:2]],
+                "kitti": [vendored[n] for n in CLOUDS[2:]]}
+    data, one = os.path.join(root, "data"), os.path.join(root, "one_step")
+    for k, (name, clouds) in enumerate(datasets.items()):
+        write_crop_dataset(os.path.join(data, "train"), name, clouds, WF_CROPS, 1000.0 * k, rs)
+    # a dataset of TrainConfig().batch_size crops, one step an epoch: two groups far apart
+    write_crop_dataset(os.path.join(one, "train"), "near", datasets["oxford"], 3, 0.0, rs)
+    write_crop_dataset(os.path.join(one, "train"), "far", datasets["kitti"], 3, 1000.0, rs)
+    for folder, names in ((data, list(datasets)), (one, ["near", "far"])):
+        with contextlib.redirect_stdout(io.StringIO()):
+            prepare_cli.main(["train-cases", "--train_folder", os.path.join(folder, "train"),
+                              "--datasets", *names, "--no_test_split"])
+    ds = TripletDataset(os.path.join(data, "train", "train.txt"))
+    require(ds.size == 2 * WF_CROPS and all(len(m.positives) >= 2 for m in ds.meta)
+            and all(len(pool) > 0 for pool in ds._neg_pool),
+            f"train-cases: {ds.size} entries, positives {[len(m.positives) for m in ds.meta]}")
+    a, p, n = next(ds.epoch_triplets(0, 6, TRAIN_POINTS))
+    require(a.shape == p.shape == n.shape == (6, TRAIN_POINTS, 6), "TripletDataset batch shape")
+    require(TripletDataset(os.path.join(one, "train", "train.txt")).size == 6,
+            "one-step train.txt")
+    raw = os.path.join(root, "submaps_raw", "seq")
+    os.makedirs(raw)
+    subs = [os.path.join(raw, f"s{i}.bin") for i in range(2)]
+    pts = [write_submap_file(s, rs, (10.0 * i, 20.0, 0.5)) for i, s in enumerate(subs)]
+    sub_out = os.path.join(root, "submaps")
+    with contextlib.redirect_stdout(io.StringIO()):
+        prepare_cli.main(["submaps", "--normals", "--out", sub_out] + subs)
+    for i, want in enumerate(pts):
+        rows = np.fromfile(os.path.join(sub_out, "seq", f"{i}.bin"), np.float32)
+        require(rows.size == WF_SUBMAP_POINTS * 6, f"submap {i}: {rows.size} floats")
+        rows = rows.reshape(-1, 6)
+        norms = np.linalg.norm(rows[:, 3:], axis=1)
+        require(np.array_equal(rows[:, :3], want) and np.all(np.abs(norms - 1.0) <= 1e-5),
+                f"submap {i}: points or normals (norms {norms.min()}..{norms.max()})")
+    with open(os.path.join(sub_out, "seq", "metadata.txt")) as f:
+        meta = f.read().splitlines()
+    require(meta[0].startswith("Idx\tDataset") and len(meta) == 3
+            and sorted(r.split("\t")[0] for r in meta[1:]) == ["0", "1"],
+            f"submap metadata: {meta}")
+    times["a"] = time.perf_counter() - t0
+    print(f"workflow a. prepare: train-cases on 2 datasets of {WF_CROPS} crops -> "
+          f"{ds.size} entries read back through TripletDataset (a batch "
+          f"{a.shape}), a 6-entry one-step set; submaps --normals on 2 x "
+          f"{WF_SUBMAP_POINTS} points: (N, 6) float32 rows, unit normals, metadata rows "
+          f"({times['a']:.2f} s)")
+
+    # ---- 20b. TF1 weights --------------------------------------------------------------
+    t0 = time.perf_counter()
+    tf1_npz = os.path.join(root, "ckpt4480_tf1.npz")
+    np.savez(tf1_npz, **export_tf1_arrays(load_variables_npz(npz_path)))
+    outs = {}
+    for route in ("default", "fused"):
+        for src in ("tf1", "variables"):
+            out = os.path.join(root, f"infer_{route}_{src}")
+            flag = ["--tf1_checkpoint", tf1_npz] if src == "tf1" else ["--variables", npz_path]
+            with contextlib.redirect_stderr(io.StringIO()):
+                infer_cli.main(["--data_dir", data_dir, "--output_dir", out, "--device", "cuda"]
+                               + flag + (["--use_fused_detector"] if route == "fused" else []))
+            outs[route, src] = out
+        files = sorted(os.listdir(outs[route, "tf1"]))
+        require(files == sorted(CLOUDS) and files == sorted(os.listdir(outs[route, "variables"])),
+                f"cli.infer {route}: wrote {files}")
+        for fname in files:
+            a_, b_ = (open(os.path.join(outs[route, s], fname), "rb").read()
+                      for s in ("tf1", "variables"))
+            require(a_ == b_, f"cli.infer {route}: --tf1_checkpoint != --variables on {fname}")
+    cloud = example_cloud_path("kitti_00_001554.bin")
+    ref = os.path.join(outs["default", "variables"], "kitti_00_001554.bin")
+    gate = {}
+    bad_npz = os.path.join(root, "ckpt4480_tf1_bad.npz")
+    arrays = dict(np.load(tf1_npz))
+    key = "description/layer1/conv0/conv2d/weights"
+    arrays[key] = arrays[key] * np.float32(1.5)
+    np.savez(bad_npz, **arrays)
+    for tag, path in (("true", tf1_npz), ("corrupted", bad_npz)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = verify_parity.main(["--npz", path, "--device", "cuda", "--cloud", cloud,
+                                     "--reference_output", ref])
+        out = buf.getvalue()
+        line = next(x for x in out.splitlines() if x.startswith("descriptor cosine"))
+        internal = next(x for x in out.splitlines() if x.startswith("fused-vs-model cosine"))
+        gate[tag] = (rc, line.split(":", 1)[1].strip(), internal)
+    require(gate["true"][0] == 0 and gate["corrupted"][0] == 1,
+            f"verify_parity exit codes: true {gate['true'][0]}, corrupted {gate['corrupted'][0]}")
+    median = float(re.search(r"'median': ([0-9.e+-]+)", gate["true"][1]).group(1))
+    require(median >= 0.999, f"verify_parity median cosine {median}")
+    times["b"] = time.perf_counter() - t0
+    print(f"workflow b. TF1: cli.infer --tf1_checkpoint == --variables bit for bit on "
+          f"{len(CLOUDS)} clouds, both routes; verify_parity --device cuda on "
+          f"kitti_00_001554.bin: exit 0, {gate['true'][1]}; internal gate {gate['true'][2]}; "
+          f"with {key} x 1.5: exit 1, {gate['corrupted'][1]} ({times['b']:.2f} s)")
+
+    # ---- 20c. training -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    wrappers = {"fps": fps.farthest_point_sample, "ball_query": batch_group.ball_query_fused,
+                "train_stats": ft.stats_pass, "train_final": ft.final_pass,
+                "train_bwd_top": ft.bwd_top_pass, "train_bwd": ft.bwd_pass}
+    common = ["--fused_towers", "--device", "cuda", "--num_epochs", "1",
+              "--summary_every_n_steps", "1", "--validate_every_n_steps", "0"]
+    stage1 = os.path.join(root, "stage1")
+    asset = os.path.join(HERE, "feat3dnet_tpu_torch", "assets", "ckpt4480_train_state.npz")
+    runs = {
+        "stage 1": ["--data_dir", data, "--log_dir", stage1, "--augmentation", "Jitter",
+                    "RotateSmall", "Shift", "--noattention", "--noregress"],
+        "stage 2": ["--data_dir", data, "--log_dir", os.path.join(root, "stage2"),
+                    "--augmentation", "Jitter", "RotateSmall", "Shift", "Rotate1D",
+                    "--checkpoint", stage1, "--restore_exclude", "detection"],
+        "bridged asset": ["--data_dir", one, "--log_dir", os.path.join(root, "asset"),
+                          "--variables", asset],
+        "TF1": ["--data_dir", one, "--log_dir", os.path.join(root, "tf1"),
+                "--tf1_checkpoint", tf1_npz],
+    }
+    states, seen, step_ms = {}, {}, None
+    for name, args in runs.items():
+        for w in wrappers.values():
+            w.launches = 0
+        with FirstStepProbe() as probe, contextlib.redirect_stdout(io.StringIO()):
+            states[name] = train_cli.main(args + common)
+        seen[name] = probe.seen
+        got = {k: w.launches for k, w in wrappers.items()}
+        require(all(v > 0 for v in got.values()), f"cli.train {name}: launches {got}")
+        log_dir = args[args.index("--log_dir") + 1]
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        steps = states[name].step - probe.seen["step"]
+        require(len(rows) == steps and all(np.isfinite(r["loss"]) for r in rows),
+                f"cli.train {name}: {len(rows)} rows for {steps} steps, losses "
+                f"{[r.get('loss') for r in rows]}")
+        for r in rows:
+            h = r["hist_det_cnt"]
+            require(len(h["counts"]) == 16 and sum(h["counts"]) == h["num"]
+                    and h["hi"] <= NS, f"cli.train {name}: hist_det_cnt {h}")
+            require(("hist_normalized_attention" in r) == (name != "stage 1"),
+                    f"cli.train {name}: hist_normalized_attention in {sorted(r)}")
+        with open(os.path.join(log_dir, "log.txt")) as f:
+            require("Arguments" in f.read(), f"cli.train {name}: no Arguments line in log.txt")
+        if name == "stage 1":
+            ts = np.diff([r["ts"] for r in rows]) * 1e3
+            step_ms = float(np.median(ts))
+        print(f"workflow c. cli.train {name}: steps {probe.seen['step']} -> "
+              f"{states[name].step}, losses {[round(r['loss'], 4) for r in rows]}, "
+              f"launches {got}")
+    # stage 2: the detector's Adam state right after the restore
+    s1 = states["stage 1"]
+    det = {k: v for k, v in seen["stage 2"]["opt"].items() if k.startswith("detection")}
+    n_det = sum(1 for k, _ in s1.model.named_parameters() if k.startswith("detection"))
+    require(len(det) == n_det and all(
+        v["step"].item() == s1.count and not v["exp_avg"].any() and not v["exp_avg_sq"].any()
+        for v in det.values()),
+        f"stage 2: detector Adam state after the restore (stage 1 count {s1.count})")
+    # the bridged asset: moments bit-equal, count 4 480
+    with np.load(asset) as z:
+        mu = {k[len("opt_state/mu/"):]: z[k] for k in z.files if k.startswith("opt_state/mu/")}
+        nu = {k[len("opt_state/nu/"):]: z[k] for k in z.files if k.startswith("opt_state/nu/")}
+    b = seen["bridged asset"]
+    require(b["count"] == b["step"] == 4480 and len(b["opt"]) == len(mu) == len(nu),
+            f"bridged asset: step {b['step']}, count {b['count']}, {len(b['opt'])} states")
+    for pname, st in b["opt"].items():
+        path, transpose = param_path(pname)
+        for slot, want in (("exp_avg", mu[path]), ("exp_avg_sq", nu[path])):
+            got = st[slot].numpy()
+            require(np.array_equal(got.T if transpose else got, want) and st["step"].item()
+                    == 4480, f"bridged asset: {slot} of {pname}")
+    # TF1: the parameters before the step are ckpt4480's
+    want = flat_tree(load_variables_npz(npz_path))
+    got = flat_tree(seen["TF1"]["variables"])
+    require(got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want),
+            "TF1: the parameters before the first step differ from ckpt4480's")
+    times["c"] = time.perf_counter() - t0
+    print(f"workflow c. stage 2 restore: {n_det} detector parameters at step {s1.count} "
+          f"(stage 1's count) with zero moments; bridged asset: moments bit-equal, count "
+          f"4480; TF1: parameters equal to ckpt4480's ({times['c']:.2f} s)")
+    print(f"[{card}] workflow stage 1 (cli.train --fused_towers --noattention --noregress, "
+          f"{TRAIN_CLOUDS} x {TRAIN_POINTS} points): median {step_ms:.2f} ms between "
+          f"consecutive metrics rows (one step each, its metrics read on the host), "
+          f"{states['stage 1'].step} steps")
+
+    # ---- 20d. histograms on the card ---------------------------------------------------
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    inputs = {"seeded": torch.randn(18, 512, generator=g) * 2.0 + 1.0,
+              "counts": torch.randint(0, NS + 1, (18, 512), generator=g).float(),
+              "constant": torch.full((64,), 3.0)}
+    for name, x in inputs.items():
+        xd = x.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            h = device_histogram(xd)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        xs = x.numpy().reshape(-1).astype(np.float32)
+        lo, hi = xs.min(), xs.max()
+        width = np.maximum(hi - lo, np.float32(1e-12))
+        bins = np.clip(((xs - lo) / width * np.float32(16)).astype(np.int32), 0, 15)
+        want_counts = np.bincount(bins, minlength=16)
+        require(np.array_equal(h["counts"].cpu().numpy(), want_counts)
+                and h["lo"].item() == lo and h["hi"].item() == hi
+                and h["num"].item() == xs.size, f"device_histogram {name}")
+    times["d"] = time.perf_counter() - t0
+    print(f"workflow d. device_histogram on {sorted(inputs)}: no host sync under "
+          f"set_sync_debug_mode('error'), counts equal to numpy float32 ({times['d']:.2f} s)")
+
+    # ---- 20e. entry() -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    fn, example_args = entry()
+    for w in (fps.farthest_point_sample, batch_group.ball_query_fused):
+        w.launches = 0
+    outs = fn(*example_args)
+    torch.cuda.synchronize()
+    got = {"fps": fps.farthest_point_sample.launches,
+           "ball_query": batch_group.ball_query_fused.launches}
+    require(all(v > 0 for v in got.values()), f"entry(): launches {got}")
+    require([tuple(o.shape) for o in outs] == [(2, 512, 3), (2, 512, 32), (2, 512)]
+            and all(bool(torch.isfinite(o).all()) for o in outs),
+            f"entry(): outputs {[tuple(o.shape) for o in outs]}")
+    times["e"] = time.perf_counter() - t0
+    print(f"workflow e. entry(): fn(*example_args) on {example_args[1].device}, outputs "
+          f"{[tuple(o.shape) for o in outs]} finite, launches {got} ({times['e']:.2f} s)")
+    print(f"[{card}] workflow phase wall times (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in times.items()))
+
+
 def main():
     import argparse
 
@@ -3947,6 +4339,11 @@ def main():
     batch_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
                                         "ckpt4480_variables.npz"),
                 os.path.dirname(example_cloud_path(CLOUDS[0])))
+
+    # ---- 20. the workflow around the model: prepare, TF1, training, histograms, entry() -----
+    workflow_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
+                                           "ckpt4480_variables.npz"),
+                   os.path.dirname(example_cloud_path(CLOUDS[0])))
 
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),

@@ -6,9 +6,11 @@
 
 --variables is a flat npz of the flax variable tree (utils/convert.py;
 the trained checkpoint ships as assets/ckpt4480_variables.npz) and takes
-the place of the JAX CLI's Orbax --checkpoint. --device cuda raises when
-no CUDA device is present. --checkpoint and --tf1_checkpoint need the JAX
-package and are refused here.
+the place of the JAX CLI's Orbax --checkpoint, which needs the JAX package
+and is refused here. --tf1_checkpoint restores a TF1 export of the
+reference's weights into the seeded init (utils/tf1_loader.py; names the
+model lacks are skipped). --device cuda raises when no CUDA device is
+present.
 """
 from __future__ import annotations
 
@@ -38,8 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_dir", type=str, required=True)
     p.add_argument("--checkpoint", type=str, default=None,
                    help="Orbax checkpoint dir: needs the JAX package; use --variables")
-    p.add_argument("--tf1_checkpoint", type=str, default=None,
-                   help="TF1 npz export: needs the JAX package; use --variables")
+    p.add_argument("--tf1_checkpoint", type=str, default=None, help="TF1 npz export")
     p.add_argument("--variables", type=str, default=None,
                    help="flat npz of the flax variable tree (utils/convert.py)")
     p.add_argument("--device", type=str, default="cuda",
@@ -62,9 +63,9 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     logger = logging.getLogger("feat3dnet_tpu_torch.infer")
     logger.info("Arguments: %s", vars(args))
-    if args.checkpoint or args.tf1_checkpoint:
-        raise SystemExit("--checkpoint / --tf1_checkpoint need the JAX package; export "
-                         "the variables to npz and pass --variables")
+    if args.checkpoint:
+        raise SystemExit("--checkpoint needs the JAX package; export the variables to npz "
+                         "and pass --variables")
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -77,7 +78,14 @@ def main(argv=None):
                            num_points=args.num_points,
                            randomize_points=args.randomize_points,
                            use_fused_detector=args.use_fused_detector)
-    if args.variables:
+    if args.tf1_checkpoint:
+        from feat3dnet_tpu_torch.utils.tf1_loader import (load_tf1_arrays,
+                                                          restore_tf1_variables)
+        variables, restored, skipped = restore_tf1_variables(
+            init_variables(mcfg, seed=0), load_tf1_arrays(args.tf1_checkpoint),
+            ignore_missing=True)
+        logger.info("TF1 restore: %d restored, %d skipped", len(restored), len(skipped))
+    elif args.variables:
         variables = load_variables_npz(args.variables)
     else:
         logger.warning("No --variables given: running with a seeded random init")

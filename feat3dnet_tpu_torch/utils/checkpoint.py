@@ -5,8 +5,10 @@ strings only, read back with weights_only=True) holding the step, the
 schedule count, the flax-layout variable tree (utils/convert.py), the Adam
 state and the names of the parameters it is keyed by. Retention keeps the
 newest `max_to_keep`. `restore_exclude`: the named top-level scopes keep
-their init params, BN buffers and Adam moments (the two-stage recipe
-restores stage 1 without 'detection'). Orbax checkpoints of the JAX
+their init params and BN buffers (the two-stage recipe restores stage 1
+without 'detection'); their Adam moments, and those of any parameter the
+checkpoint holds no state for, restart from zero at the checkpoint's
+count, as optax's do (its count is global). Orbax checkpoints of the JAX
 package reach the port through the npz bridge (`--variables`).
 """
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from feat3dnet_tpu_torch.utils.convert import load_variables, variables_from_module
+from feat3dnet_tpu_torch.utils.convert import (load_variables, variables_from_module,
+                                               zero_adam_moments)
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -67,7 +70,8 @@ class CheckpointManager:
     def restore(self, init_state, step: Optional[int] = None,
                 restore_exclude: Optional[Sequence[str]] = None):
         """Restore into `init_state` (its model and optimiser, in place) and
-        return it; excluded scopes keep what init_state holds."""
+        return it; excluded scopes keep init_state's weights and BN buffers,
+        and their Adam moments start from zero at the restored count."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -84,16 +88,8 @@ class CheckpointManager:
         if names != ckpt["param_names"]:
             raise ValueError("checkpoint: the optimiser's parameters differ "
                              f"({len(ckpt['param_names'])} saved, {len(names)} now)")
-        opt = ckpt["optimizer"]
-        if excluded:
-            fresh = init_state.optimizer.state_dict()["state"]
-            kept = {}
-            for i in range(len(names)):
-                src = fresh if names[i].split(".")[0] in excluded else opt["state"]
-                if i in src:
-                    kept[i] = src[i]
-            opt["state"] = kept
-        init_state.optimizer.load_state_dict(opt)
+        init_state.optimizer.load_state_dict(ckpt["optimizer"])
+        zero_adam_moments(init_state.model, init_state.optimizer, ckpt["count"], excluded)
         init_state.step = ckpt["step"]
         init_state.count = ckpt["count"]
         return init_state

@@ -120,7 +120,13 @@ def test_nothing_builds_at_import():
             "feat3dnet_tpu_torch.data, feat3dnet_tpu_torch.utils.checkpoint, "
             "feat3dnet_tpu_torch.eval, feat3dnet_tpu_torch.eval.fig4, "
             "feat3dnet_tpu_torch.eval.heldout, feat3dnet_tpu_torch.eval.visualize, "
-            "feat3dnet_tpu_torch.cli.match\n"
+            "feat3dnet_tpu_torch.cli.match, feat3dnet_tpu_torch.cli.verify_parity, "
+            "feat3dnet_tpu_torch.cli.prepare, feat3dnet_tpu_torch.dataprep, "
+            "feat3dnet_tpu_torch.dataprep.kitti, feat3dnet_tpu_torch.dataprep.oxford, "
+            "feat3dnet_tpu_torch.dataprep.submap, feat3dnet_tpu_torch.entry, "
+            "feat3dnet_tpu_torch.utils.tf1_loader, feat3dnet_tpu_torch.utils.metrics_writer, "
+            "feat3dnet_tpu_torch.utils.logging\n"
+            "assert 'torch.utils.tensorboard' not in sys.modules\n"
             "assert 'matplotlib' not in sys.modules\n"
             "assert not {'jax', 'triton'} & set(sys.modules)\n"
             "from feat3dnet_tpu_torch import kernels\n"

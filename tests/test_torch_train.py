@@ -262,10 +262,17 @@ def test_checkpoint_roundtrip_retention_and_exclude(rng, tmp_path):
         for path, v in _flat(jax.tree.map(lambda t: t.numpy(), got[col]["detection"])).items():
             np.testing.assert_array_equal(
                 v, _flat(jax.tree.map(lambda t: t.numpy(), init_vars[col]["detection"]))[path])
+    # optax's rule: the excluded scope's moments restart from zero at the
+    # restored (global) count; the others come from the checkpoint
     names = [nm for nm, _ in ex_model.named_parameters()]
     opt = ex.optimizer.state_dict()["state"]
-    assert all(not names[i].startswith("detection") for i in opt)
-    assert any(names[i].startswith("description") for i in opt)
+    assert sorted(opt) == list(range(len(names))) and ex.count == 2
+    for i, st in opt.items():
+        assert st["step"].item() == 2.0, names[i]
+        if names[i].startswith("detection"):
+            assert not st["exp_avg"].any() and not st["exp_avg_sq"].any(), names[i]
+        else:
+            assert st["exp_avg_sq"].any(), names[i]
     assert not torch.equal(sd["description.conv0.conv2d.weight"],
                            fresh_model.state_dict()["description.conv0.conv2d.weight"])
     assert ref is not None
