@@ -200,6 +200,31 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      e. entry(): fn(*example_args) launches K1 and K2 and gives finite
         (2, 512, 3), (2, 512, 32) and (2, 512) outputs;
      each sub-phase's wall time, with the card's name and power limit.
+  21. data and point parallelism (parallel_phase), at the paper config and
+     TrainConfig() widths:
+     a. a one-rank nccl group on cuda:0: 3 steps of the data-parallel step
+        (parallel/data_parallel.make_fused_dp_train_step, the model built
+        with bn_group) on each route, fused (K7-K10 with their all-reduces
+        between the launches) and autograd, from the state of 3 plain
+        steps: params, BN buffers and metrics bit-equal (a sum over one
+        rank is the identity); the steps' ms in turns (plain, DP, DP,
+        plain) and, per DP step, the all-reduces' and the all-gather's
+        count and ms (CUDA events around each);
+     b. two gloo ranks both on cuda:0 (run_ranks), each with its
+        role-aligned half of phase 9's batch, fused route with f32
+        cotangents: K7-K10 launched on each rank; every gradient leaf
+        against the one-process step on the combined batch at phase 9's
+        rule (cosine >= 0.999; the analytically zero leaves |g| <= 1e-3),
+        the loss within 1e-5 relative (gloo takes the CUDA tensors; it
+        stages them through the host);
+     c. extraction on a mesh of (cuda:0, cuda:0) with the trained weights
+        on the vendored KITTI clouds, on the default, fused (K6, K3) and
+        dense routes: the sharded extract launches K4 and K5 per shard (K6
+        and K3 on the fused route, K2 on the dense one) and equals extract
+        (keypoints index-exact, attention and features bit-equal);
+        cloud_mesh extract_batch of 4 over 2 shards equals extract per
+        cloud on the default and fused routes;
+     the phase's wall time.
 Option: --parent DIR also builds another tree's training kernels, K1-K6
 (its csrc/fused_train.cu, csrc/fps.cu, csrc/ball_query.cu,
 csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
@@ -3938,6 +3963,276 @@ def workflow_phase(dev, card, npz_path, data_dir):
         f"{k} {v:.2f}" for k, v in times.items()))
 
 
+# ---- 21. data and point parallelism ------------------------------------------------
+
+
+class CollectiveClock:
+    """Counts and times (CUDA events on the current stream) every all-reduce
+    and all-gather of the port's data-parallel step while active."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        import torch
+
+        from feat3dnet_tpu_torch.ops import fused_train
+        from feat3dnet_tpu_torch.train import trainer
+        from feat3dnet_tpu_torch.utils import collectives
+
+        self._saved = [(collectives, "all_reduce_", collectives.all_reduce_),
+                       (fused_train, "all_reduce_", fused_train.all_reduce_),
+                       (trainer, "all_reduce_", trainer.all_reduce_),
+                       (trainer, "all_gather_rows", trainer.all_gather_rows)]
+
+        def timed(kind, fn):
+            def run(t, group):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(t, group)
+                end.record()
+                self.events.append((kind, t.numel(), start, end))
+                return out
+            return run
+
+        for mod, name, fn in self._saved:
+            setattr(mod, name, timed("all_gather" if "gather" in name else "all_reduce", fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def summary(self):
+        """{kind: (count, ms, elements)} over the events recorded."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for kind, n, start, end in self.events:
+            c, ms, el = out.get(kind, (0, 0.0, 0))
+            out[kind] = (c + 1, ms + start.elapsed_time(end), el + n)
+        return out
+
+
+def dp_rank_21b(rank, world, group, dev, variables, clouds):
+    """Phase 21b's rank: one data-parallel fused step on its half of the
+    combined batch; returns its loss, grads, K7-K10 launches and wall ms."""
+    import torch
+
+    from feat3dnet_tpu_torch.config import ModelConfig, TrainConfig
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.ops import fused_train as tft
+    from feat3dnet_tpu_torch.parallel import make_fused_dp_train_step, shard_batch
+    from feat3dnet_tpu_torch.train import init_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(fused_towers=True, fused_cot_dtype=torch.float32)
+    model = Feat3DNet(cfg, bn_group=group)
+    state = init_state(model, TrainConfig(), cfg, variables=variables, device=dev)
+    local = shard_batch(torch.from_numpy(clouds).to(dev), rank, world)
+    step = make_fused_dp_train_step(model, cfg.margin, cfg.attention, group)
+    wrappers = (tft.stats_pass, tft.final_pass, tft.bwd_top_pass, tft.bwd_pass)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, local)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"ms": ms, "loss": metrics["loss"].item(),
+            "launches": [w.launches for w in wrappers],
+            "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()}}
+
+
+def parallel_phase(dev, card, npz_path):
+    """Phase 21: a, b and c of the module's docstring."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig, TrainConfig
+    from feat3dnet_tpu_torch.data.augment import resolve_augmentations
+    from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+    from feat3dnet_tpu_torch.inference import InferencePipeline
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.ops import batch_group, fused_describe, hash_grid
+    from feat3dnet_tpu_torch.ops import fused_train as tft
+    from feat3dnet_tpu_torch.parallel import make_fused_dp_train_step, run_ranks
+    from feat3dnet_tpu_torch.train import init_state, make_fused_train_step
+    from feat3dnet_tpu_torch.utils import init_variables, load_variables_npz
+
+    t_phase = time.perf_counter()
+    cfg, tcfg = ModelConfig(), TrainConfig()
+    aug = tuple(resolve_augmentations(tcfg.augmentations, tcfg.upright_axis))
+    stores = os.path.join(HERE, "build", "chip_smoke_ranks")
+    os.makedirs(stores, exist_ok=True)
+
+    def store(tag):
+        path = os.path.join(stores, f"{tag}_{os.getpid()}")
+        if os.path.exists(path):
+            os.remove(path)
+        return path
+
+    def host(metrics):
+        return [x for k in sorted(metrics) for x in (
+            [metrics[k][f] for f in sorted(metrics[k])] if isinstance(metrics[k], dict)
+            else [metrics[k]])]
+
+    # ---- a. a one-rank nccl group ------------------------------------------------
+    t_a = time.perf_counter()
+    clouds = training_batch(dev, SEED + 200)
+    variables = init_variables(cfg, seed=SEED)
+    train_wrappers = (tft.stats_pass, tft.final_pass, tft.bwd_top_pass, tft.bwd_pass)
+    dist.init_process_group("nccl", init_method="file://" + store("a"), world_size=1, rank=0)
+    group = dist.group.WORLD
+    try:
+        states = {}
+        for route in ("fused", "autograd"):
+            rcfg = ModelConfig(fused_towers=route == "fused")
+            runs = {}
+            for kind in ("plain", "dp"):
+                model = Feat3DNet(rcfg, bn_group=group if kind == "dp" else None)
+                st = init_state(model, tcfg, rcfg, variables=variables, device=dev)
+                make = (make_fused_train_step if kind == "plain" else
+                        functools.partial(make_fused_dp_train_step, group=group))
+                step = make(model, rcfg.margin, rcfg.attention, augmentations=aug, aug_seed=1)
+                for w in train_wrappers:
+                    w.launches = 0
+                for _ in range(3):
+                    st, met = step(st, clouds)
+                torch.cuda.synchronize()
+                launched = [w.launches for w in train_wrappers]
+                runs[kind] = (st, step, met, launched)
+            (sp, _, mp, lp), (sd, _, md, ld) = runs["plain"], runs["dp"]
+            if route == "fused":
+                require(min(ld) > 0, f"21a: the DP step launched K7-K10 {ld} times")
+            require(all(torch.equal(x, y) for x, y in zip(sp.model.parameters(),
+                                                           sd.model.parameters())),
+                    f"21a {route}: params of the one-rank DP step differ from the plain step's")
+            require(all(torch.equal(x, y) for x, y in zip(sp.model.buffers(),
+                                                           sd.model.buffers())),
+                    f"21a {route}: BN buffers differ")
+            require(all(torch.equal(x, y) for x, y in zip(host(mp), host(md))),
+                    f"21a {route}: metrics differ")
+            print(f"21a {route} route: 3 steps of the one-rank nccl DP step bit-equal to the "
+                  f"plain step (params, BN buffers, metrics; K7-K10 launches {ld}, plain {lp})")
+            states[route] = runs
+        # times: the fused route in turns, plain, DP, DP, plain (10 steps a block)
+        for route, runs in states.items():
+            per = {"plain": [], "dp": []}
+            for kind in ("plain", "dp", "dp", "plain"):
+                st, step = runs[kind][0], runs[kind][1]
+                for _ in range(10):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(st, clouds)
+                    torch.cuda.synchronize()
+                    per[kind].append((time.perf_counter() - t0) * 1e3)
+            with CollectiveClock() as clock:
+                st, step = runs["dp"][0], runs["dp"][1]
+                for _ in range(3):
+                    step(st, clouds)
+                summ = clock.summary()
+            coll = ", ".join(f"{c // 3} {kind}s of {el // c} elements on average, "
+                             f"{ms / 3:.3f} ms" for kind, (c, ms, el) in sorted(summ.items()))
+            print(f"[{card}] 21a {route} route ({TRAIN_CLOUDS} x {TRAIN_POINTS} points, "
+                  f"augmented): plain step median {statistics.median(per['plain']):.2f} ms, "
+                  f"one-rank nccl DP step median {statistics.median(per['dp']):.2f} ms (20 "
+                  f"steps each, in turns); per DP step: {coll}")
+        del states, runs
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"[{card}] 21a wall {time.perf_counter() - t_a:.1f} s")
+
+    # ---- b. two gloo ranks on cuda:0 ----------------------------------------------
+    t_b = time.perf_counter()
+    clouds_np = clouds.cpu().numpy()
+    ranks = run_ranks(dp_rank_21b, 2, "gloo", devices=[dev, dev], init_file=store("b"),
+                      args=(variables, clouds_np), timeout=900, collective_timeout=300)
+    fcfg = ModelConfig(fused_towers=True, fused_cot_dtype=torch.float32)
+    model = Feat3DNet(fcfg)
+    st = init_state(model, tcfg, fcfg, variables=variables, device=dev)
+    _, met = make_fused_train_step(model, fcfg.margin, fcfg.attention)(st, clouds)
+    loss = met["loss"].item()
+    want = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    noise = noise_leaves(want)
+    del st, model
+    for r, res in enumerate(ranks):
+        require(min(res["launches"]) > 0, f"21b rank {r}: K7-K10 launched {res['launches']}")
+        require(abs(res["loss"] - loss) <= 1e-5 * abs(loss),
+                f"21b rank {r}: loss {res['loss']} vs one process {loss}")
+        cos = {k: torch.nn.functional.cosine_similarity(res["grads"][k].flatten(),
+                                                        w.flatten(), dim=0).item()
+               for k, w in want.items() if k not in noise}
+        worst = min(cos, key=cos.get)
+        noise_max = max(res["grads"][k].abs().max().item() for k in noise)
+        require(cos[worst] >= 0.999, f"21b rank {r}: cosine {cos[worst]:.6f} on {worst}")
+        require(noise_max <= 1e-3, f"21b rank {r}: an analytically zero leaf at {noise_max}")
+        print(f"21b rank {r}: loss {res['loss']:.7f} (one process {loss:.7f}), "
+              f"worst leaf cosine {cos[worst]:.7f} on {worst} (>= 0.999), noise leaves max |g| "
+              f"{noise_max:.2e}, K7-K10 launches {res['launches']}")
+    print(f"[{card}] 21b two gloo ranks on one card (gloo on CUDA tensors, staged through "
+          f"the host: a check, not a speed figure): first DP step {ranks[0]['ms']:.1f} / {ranks[1]['ms']:.1f} ms; wall "
+          f"{time.perf_counter() - t_b:.1f} s")
+
+    # ---- c. extraction on a mesh that names cuda:0 twice ---------------------------------
+    t_c = time.perf_counter()
+    trained = load_variables_npz(npz_path)
+    kitti = [load_point_cloud(example_cloud_path(n)) for n in CLOUDS if n.startswith("kitti")]
+    counted = {"K2": batch_group.ball_query_fused, "K4": hash_grid.sorted_ball_query,
+               "K5": hash_grid.ball_max_sorted, "K6": fused_describe.fused_detect_clusters,
+               "K3": fused_describe.fused_describe_clusters_t}
+    need = {"default": ("K4", "K5"), "fused": ("K4", "K5", "K6", "K3"), "dense": ("K2",)}
+    mesh = (dev, dev)
+    for route, icfg in (("default", InferenceConfig()),
+                        ("fused", InferenceConfig(use_fused_detector=True)),
+                        ("dense", InferenceConfig(use_hashed_grouping=False))):
+        model = Feat3DNet(cfg)
+        single = InferencePipeline(model, trained, cfg, icfg, device=dev)
+        meshed = InferencePipeline(model, None, cfg, icfg, mesh=mesh)
+        want = [single.extract(c) for c in kitti]
+        for w in counted.values():
+            w.launches = 0
+        got = [meshed.extract(c) for c in kitti]
+        launched = {k: w.launches for k, w in counted.items()}
+        require(all(launched[k] > 0 for k in need[route]),
+                f"21c {route}: the mesh extract launched {launched}")
+        for g, w in zip(got, want):
+            require(g.num_keypoints == w.num_keypoints > 0
+                    and all(np.array_equal(getattr(g, f), getattr(w, f))
+                            for f in ("keypoints", "attention", "features")),
+                    f"21c {route}: the mesh extract differs from extract")
+        t0 = time.perf_counter()
+        for c in kitti:
+            single.extract(c)
+        t_single = (time.perf_counter() - t0) * 1e3 / len(kitti)
+        t0 = time.perf_counter()
+        for c in kitti:
+            meshed.extract(c)
+        t_mesh = (time.perf_counter() - t0) * 1e3 / len(kitti)
+        msg = (f"[{card}] 21c {route} route: mesh (cuda:0, cuda:0) extract on "
+               f"{len(kitti)} KITTI clouds bit-equal to extract (keypoints {[g.num_keypoints for g in got]}); "
+               f"launches {launched}; {t_mesh:.2f} ms a cloud against {t_single:.2f}")
+        if route != "dense":
+            cm = InferencePipeline(model, None, cfg, icfg, cloud_mesh=mesh)
+            batch = kitti * 2
+            for g, w in zip(cm.extract_batch(batch), want * 2):
+                require(g.num_keypoints == w.num_keypoints
+                        and all(np.array_equal(getattr(g, f), getattr(w, f))
+                                for f in ("keypoints", "attention", "features")),
+                        f"21c {route}: cloud_mesh extract_batch differs from extract")
+            msg += "; cloud_mesh extract_batch of 4 over 2 shards bit-equal per cloud"
+        print(msg)
+        del single, meshed, model
+    torch.cuda.empty_cache()
+    print(f"[{card}] 21c wall {time.perf_counter() - t_c:.1f} s")
+    print(f"[{card}] phase 21 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import argparse
 
@@ -4344,6 +4639,10 @@ def main():
     workflow_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
                                            "ckpt4480_variables.npz"),
                    os.path.dirname(example_cloud_path(CLOUDS[0])))
+
+    # ---- 21. data and point parallelism: DP steps over process groups, sharded extraction ----
+    parallel_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
+                                           "ckpt4480_variables.npz"))
 
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),

@@ -113,3 +113,16 @@ def augment_clouds(gen: torch.Generator, xyz: torch.Tensor, names: Sequence[str]
         draw, apply = AUGMENTATIONS[name]
         xyz = apply(xyz, draw(gen, xyz))
     return xyz
+
+
+def augment_rows(gen: torch.Generator, xyz: torch.Tensor, names: Sequence[str],
+                 rows: torch.Tensor, total: int) -> torch.Tensor:
+    """`augment_clouds` of a `total`-cloud batch, for the clouds `rows` of it
+    that `xyz` holds: every augmentation draws the whole batch's values, as
+    `augment_clouds` draws them, and applies the rows' own. A data-parallel
+    rank's clouds thus get the values the single process gives them."""
+    whole = xyz[:1].expand((total,) + tuple(xyz.shape[1:]))
+    for name in names:
+        draw, apply = AUGMENTATIONS[name]
+        xyz = apply(xyz, draw(gen, whole)[rows])
+    return xyz

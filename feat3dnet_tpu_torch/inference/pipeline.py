@@ -29,9 +29,24 @@ the card before the first is read back; `warmup` builds the kernels and
 pays the first calls at start-up. A unit is queued without a host sync
 (`_enqueue`: pinned uploads, every device op, the outputs copied into
 pinned host buffers behind a CUDA event) and read back by `_finish`.
-The mesh-sharded entry points and the JAX pipeline's TPU workarounds
-(packed uploads, F3D_* switches, executable caches) are not part of this
-port.
+Meshes (the JAX pipeline's two modes; a mesh is a tuple of devices,
+parallel/mesh.py, and each distinct device gets its own copy of the model
+and of K6's and K3's packed weights at first use):
+* `mesh=`: one cloud sharded over the devices (latency). `extract` runs
+  parallel/point_parallel.make_sharded_extract on the hashed route (K4,
+  the detector or K6, and K5 per centre shard; K3 per keypoint shard) and
+  keypoint_sharded_attention on the dense one (each device's ball query
+  and detector chunks; NMS and descriptors on the first device);
+  `extract_batch` and `extract_many` are loops of it.
+* `cloud_mesh=`: a sub-batch of clouds per device (throughput).
+  `extract_batch` pads the clouds to a multiple of the mesh with replicas
+  of the last one, queues one `_enqueue` unit per device and drops the
+  replicas' results; `extract_many` deals its units round-robin over the
+  devices, `depth` queued on each.
+Each cloud's results on either mesh equal `extract` bit for bit: the
+shards keep the single-device shapes (point_parallel.py).
+The JAX pipeline's TPU workarounds (packed uploads, F3D_* switches,
+executable caches) are not part of this port.
 """
 from __future__ import annotations
 
@@ -54,6 +69,10 @@ from feat3dnet_tpu_torch.ops.hash_grid import (SortedCloud, ball_max_sorted,
                                                ball_query_grouped_sorted,
                                                build_sorted_cloud_batch, estimate_ball_points)
 from feat3dnet_tpu_torch.ops.nms import nms_keypoints, select_keypoints
+from feat3dnet_tpu_torch.parallel.mesh import as_mesh
+from feat3dnet_tpu_torch.parallel.point_parallel import (keypoint_sharded_attention,
+                                                         make_sharded_extract, on_device,
+                                                         replicas)
 from feat3dnet_tpu_torch.utils.convert import load_variables, variables_from_module
 from feat3dnet_tpu_torch.utils.device import resolve_device
 
@@ -75,21 +94,36 @@ class InferencePipeline:
     caller names another (raises without a CUDA device). `timings` holds
     the last extract's total seconds (`extract_s`) and, on the hashed
     route, the host seconds to queue the Morton layout (`layout_s`; no
-    synchronise).
+    synchronise). mesh / cloud_mesh: a sequence of devices (see the
+    module's docstring), at most one of them; the pipeline's device is
+    then the mesh's first.
     """
 
     def __init__(self, model: Feat3DNet, variables: Optional[Dict[str, Any]],
                  model_cfg: ModelConfig, infer_cfg: InferenceConfig = InferenceConfig(),
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, mesh=None, cloud_mesh=None):
+        if mesh is not None and cloud_mesh is not None:
+            raise ValueError("pass either mesh (one cloud sharded over devices) or "
+                             "cloud_mesh (a sub-batch of clouds per device), not both")
         if variables is not None:
             load_variables(model, variables)
-        self.device = resolve_device(device)
+        self.mesh = None if mesh is None else as_mesh(mesh)
+        self.cloud_mesh = None if cloud_mesh is None else as_mesh(cloud_mesh)
+        devices = self.mesh or self.cloud_mesh
+        for d in devices or ():
+            resolve_device(d)
+        self.device = resolve_device(device if devices is None else devices[0])
+        if device is not None and devices is not None \
+                and as_mesh([device])[0] != devices[0]:
+            raise ValueError(f"device {device} is not the mesh's first device {devices[0]}")
         self.model = model.to(self.device).eval()
         self.mcfg = model_cfg
         self.icfg = infer_cfg
         self._weights: Dict[str, list] = {}
         self._detect_packed: Optional[tuple] = None     # K6's weight buffers
         self._describe_packed: Optional[tuple] = None   # K3's
+        self._pipes: Optional[Dict[torch.device, "InferencePipeline"]] = None
+        self._mesh_fns: Dict[int, Any] = {}
         self.timings: Dict[str, float] = {}
 
     # -- configuration ------------------------------------------------------
@@ -139,6 +173,24 @@ class InferencePipeline:
         if self._describe_packed is None:
             self._describe_packed = fd._describe_kernel_weights(
                 self._kernel_weights("describe"), self.mcfg, self.device)
+
+    def _device_pipes(self) -> Dict[torch.device, "InferencePipeline"]:
+        """One pipeline per distinct device of the mesh: this one on its
+        own device, one over a copy of the model on each other device."""
+        mesh = self.mesh or self.cloud_mesh
+        if self._pipes is None:
+            self._pipes = {self.device: self} if mesh is None else {
+                dev: self if m is self.model else InferencePipeline(
+                    m, None, self.mcfg, self.icfg, device=dev)
+                for dev, m in replicas(self.model, mesh).items()}
+        return self._pipes
+
+    def _mesh_extract_fn(self, n_bucket: int):
+        """The sharded hashed extraction of one bucket on `mesh`, made once."""
+        if n_bucket not in self._mesh_fns:
+            self._mesh_fns[n_bucket] = make_sharded_extract(
+                self.model, self.mesh, self.mcfg, self.icfg, n_bucket, self._device_pipes())
+        return self._mesh_fns[n_bucket]
 
     # -- passes ---------------------------------------------------------------
 
@@ -230,7 +282,12 @@ class InferencePipeline:
         return torch.cat(feats)
 
     def _extract_dense(self, cloud: torch.Tensor, vmask: torch.Tensor):
-        att, _ = self._chunked_attention(cloud, vmask)
+        if self.mesh is None:
+            att, _ = self._chunked_attention(cloud, vmask)
+        else:
+            att, _ = keypoint_sharded_attention(
+                self.model, self.mesh, self._chunk_size(cloud.shape[1]),
+                {d: p.model for d, p in self._device_pipes().items()})(cloud, vmask)
         icfg = self.icfg
         kp, kp_att, num = nms_keypoints(cloud, att[None], icfg.nms_radius,
                                         icfg.max_keypoints, icfg.min_response_ratio,
@@ -324,7 +381,12 @@ class InferencePipeline:
             cloud = cloud[rng.permutation(cloud.shape[0])]
         self._pack_weights()
         prep = self._prep([cloud])
-        if keypoints is None and self._use_hashed():
+        if keypoints is None and self.mesh is not None and self._use_hashed():
+            with torch.no_grad():
+                outs = self._mesh_extract_fn(prep.xyz.shape[1])(prep.xyz, prep.valid,
+                                                                 prep.layout)
+            pending = self._to_host(outs)
+        elif keypoints is None and self._use_hashed():
             pending = self._enqueue(prep)
         else:
             if keypoints is None:
@@ -348,15 +410,32 @@ class InferencePipeline:
         the largest bucket and the smallest layout, and each cloud's result
         equals `extract` on it bit for bit. rng: each cloud's permutation
         drawn in input order, as a loop of `extract` calls draws them. Off
-        the hashed route, or for at most one cloud, it is that loop.
-        Returns the results in input order."""
+        the hashed route, on `mesh`, or for at most one cloud, it is that
+        loop. On `cloud_mesh` each device takes one sub-batch (the clouds
+        padded to a multiple of the mesh with replicas of the last one,
+        whose results are dropped). Returns the results in input order."""
         clouds = list(clouds)
-        if not self._use_hashed() or len(clouds) <= 1:
+        if not self._use_hashed() or self.mesh is not None or len(clouds) <= 1:
             return [self.extract(c, rng=rng) for c in clouds]
         if rng is not None:
             clouds = [c[rng.permutation(c.shape[0])] for c in clouds]
-        self._pack_weights()
-        return self._finish(self._enqueue(self._prep(clouds)))
+        if self.cloud_mesh is None:
+            self._pack_weights()
+            return self._finish(self._enqueue(self._prep(clouds)))
+        n, d = len(clouds), len(self.cloud_mesh)
+        padded = clouds + [clouds[-1]] * (-n % d)
+        per = len(padded) // d
+        pipes = self._device_pipes()
+        units = []
+        for i, dev in enumerate(self.cloud_mesh):
+            p = pipes[dev]
+            p._pack_weights()
+            with on_device(dev):
+                units.append(p._enqueue(p._prep(padded[i * per:(i + 1) * per])))
+        out: List[InferenceResult] = []
+        for unit in units:
+            out.extend(self._finish(unit))
+        return out[:n]
 
     @torch.no_grad()
     def extract_many(self, clouds, rng: Optional[np.random.RandomState] = None,
@@ -371,14 +450,20 @@ class InferencePipeline:
         card; the main thread queues each unit without a host sync and
         reads back the oldest once `depth` are queued. rng: the
         permutations are drawn in input order before any prep, so the
-        results equal a loop of `extract` calls. Off the hashed route it is
-        that loop. Returns the results in input order."""
+        results equal a loop of `extract` calls. Off the hashed route, or on
+        `mesh`, it is that loop. On `cloud_mesh` the units are dealt
+        round-robin over the devices, up to `depth` queued on each.
+        Returns the results in input order."""
         clouds = list(clouds)
-        if not self._use_hashed():
+        if not self._use_hashed() or self.mesh is not None:
             return [self.extract(c, rng=rng) for c in clouds]
         if rng is not None:
             clouds = [c[rng.permutation(c.shape[0])] for c in clouds]
-        self._pack_weights()
+        devs = self.cloud_mesh or (self.device,)
+        pipes = self._device_pipes()
+        for p in pipes.values():
+            p._pack_weights()
+        depth *= len(devs)
         units: List[list] = []
         for c in clouds:
             if (units and len(units[-1]) < batch_size
@@ -390,20 +475,23 @@ class InferencePipeline:
         results: List[InferenceResult] = []
         inflight: deque = deque()
         with ThreadPoolExecutor(max_workers=prep_workers) as pool:
-            it = iter(units)
+            it = enumerate(units)
             futs: deque = deque()
 
             def submit_next():
-                unit = next(it, None)
+                i, unit = next(it, (None, None))
                 if unit is not None:
-                    futs.append(pool.submit(self._prep, unit))
+                    p = pipes[devs[i % len(devs)]]
+                    futs.append((p, pool.submit(p._prep, unit)))
 
             for _ in range(depth + prep_workers):
                 submit_next()
             while futs:
-                prep = futs.popleft().result()
+                p, fut = futs.popleft()
+                prep = fut.result()
                 submit_next()
-                inflight.append(self._enqueue(prep))
+                with on_device(p.device):
+                    inflight.append(p._enqueue(prep))
                 if len(inflight) >= depth:
                     results.extend(self._finish(inflight.popleft()))
             while inflight:

@@ -19,6 +19,9 @@ segments of both towers run through ops/fused_train.tower_prepool_fused
 (kernels K7-K10 on CUDA), otherwise through torch autograd over `ConvBN`.
 On CUDA tensors FPS and the ball query run kernels K1 and K2; the other
 tower products are torch matmuls (the JAX package leaves them to XLA).
+`bn_group` (the JAX model's `bn_axis_name`): a torch.distributed process
+group over whose ranks every BatchNorm takes its training moments, on both
+routes (models/layers.BatchNorm, ops/fused_train's `group=`).
 Module attribute names are the flax scope names ('detection',
 'description', 'conv0', ...) so the weight bridge is mechanical.
 """
@@ -71,7 +74,7 @@ def _group_normalized(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
 
 
 def _convs(module: nn.Module, prefix: str, cin: int, widths, cfg: ModelConfig,
-           final_act: bool = True) -> int:
+           final_act: bool = True, bn_group=None) -> int:
     """Register ConvBN layers `{prefix}{i}`; returns the last width."""
     for i, f in enumerate(widths):
         act = torch.relu if (final_act or i < len(widths) - 1) else None
@@ -79,7 +82,8 @@ def _convs(module: nn.Module, prefix: str, cin: int, widths, cfg: ModelConfig,
                                                  activation=act,
                                                  bn_epsilon=cfg.bn_epsilon,
                                                  bn_momentum=cfg.bn_momentum,
-                                                 dtype=cfg.compute_dtype))
+                                                 dtype=cfg.compute_dtype,
+                                                 bn_group=bn_group))
         cin = f
     return cin
 
@@ -104,7 +108,7 @@ def _use_fused_towers(cfg: ModelConfig, training: bool) -> bool:
 
 
 def _fused_prepool(module: nn.Module, grouped: torch.Tensor, names, plan,
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig, bn_group=None) -> torch.Tensor:
     """A tower's pre-pool segment through tower_prepool_fused: (B, M, ns, C)
     grouped -> (B, M, 1, C_top) pooled. The parameters and BN buffers are
     the ConvBN layers' own; their EMA takes the pipeline's batch moments."""
@@ -113,10 +117,11 @@ def _fused_prepool(module: nn.Module, grouped: torch.Tensor, names, plan,
     flat = []
     for blk in blocks:
         flat += [blk.conv2d.weight.t(), blk.conv2d.bias, blk.bn.scale, blk.bn.bias]
-    x_sm = grouped.to(torch.float32).permute(2, 0, 1, 3).reshape(ns, b * m, cin).contiguous()
+    x_sm = grouped.to(blocks[0].conv2d.weight.dtype).permute(2, 0, 1, 3).reshape(
+        ns, b * m, cin).contiguous()
     pooled, (means, vars_) = tower_prepool_fused(
         x_sm, flat, plan, [blk.conv2d.out_features for blk in blocks], ns, b * m,
-        cfg.bn_epsilon, cfg.fused_cot_dtype)
+        cfg.bn_epsilon, cfg.fused_cot_dtype, bn_group)
     for blk, mean, var in zip(blocks, means, vars_):
         blk.bn.update_stats(mean, var)
     return pooled.reshape(b, m, 1, -1)
@@ -125,11 +130,12 @@ def _fused_prepool(module: nn.Module, grouped: torch.Tensor, names, plan,
 class Detector(nn.Module):
     """Attention + orientation heads over grouped clusters."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, bn_group=None):
         super().__init__()
         self.cfg = cfg
-        c = _convs(self, "conv", 3, cfg.detector_mlp, cfg)
-        c = _convs(self, "conv_post_", c, cfg.detector_mlp2, cfg)
+        self.bn_group = bn_group
+        c = _convs(self, "conv", 3, cfg.detector_mlp, cfg, bn_group=bn_group)
+        c = _convs(self, "conv_post_", c, cfg.detector_mlp2, cfg, bn_group=bn_group)
         self.attention = Dense(c, 1, cfg.compute_dtype)
         self.orientation = Dense(c, 2, cfg.compute_dtype)
 
@@ -140,7 +146,7 @@ class Detector(nn.Module):
         grouped = to_compute(grouped, cfg.compute_dtype)
         if _use_fused_towers(cfg, training):
             x = _fused_prepool(self, grouped, [f"conv{i}" for i in range(n)],
-                               detector_plan(n), cfg)
+                               detector_plan(n), cfg, self.bn_group)
         else:
             x = _run(self, "conv", n, grouped, training)
             x = torch.amax(x, dim=2, keepdim=True)                # pool over samples
@@ -158,19 +164,23 @@ class Detector(nn.Module):
 class Descriptor(nn.Module):
     """MLP -> pool -> [pointwise | pooled] -> MLP2 -> pool -> MLP3 -> L2."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, bn_group=None):
         super().__init__()
         self.cfg = cfg
-        c = _convs(self, "conv", 3, cfg.descriptor_mlp, cfg)
-        c = _convs(self, "conv_mid_", 2 * c, cfg.descriptor_mlp2, cfg, final_act=False)
-        _convs(self, "conv_post_", c, cfg.descriptor_mlp3, cfg, final_act=False)
+        self.bn_group = bn_group
+        c = _convs(self, "conv", 3, cfg.descriptor_mlp, cfg, bn_group=bn_group)
+        c = _convs(self, "conv_mid_", 2 * c, cfg.descriptor_mlp2, cfg, final_act=False,
+                   bn_group=bn_group)
+        _convs(self, "conv_post_", c, cfg.descriptor_mlp3, cfg, final_act=False,
+               bn_group=bn_group)
 
     def forward(self, grouped: torch.Tensor, training: bool = False) -> torch.Tensor:
         cfg = self.cfg
         n_pre, n_mid = len(cfg.descriptor_mlp), len(cfg.descriptor_mlp2)
         if _use_fused_towers(cfg, training):
             names = [f"conv{i}" for i in range(n_pre)] + [f"conv_mid_{i}" for i in range(n_mid)]
-            x = _fused_prepool(self, grouped, names, descriptor_plan(n_pre, n_mid), cfg)
+            x = _fused_prepool(self, grouped, names, descriptor_plan(n_pre, n_mid), cfg,
+                               self.bn_group)
         else:
             h = _run(self, "conv", n_pre, to_compute(grouped, cfg.compute_dtype), training)
             pooled = torch.amax(h, dim=2, keepdim=True).expand_as(h)
@@ -183,7 +193,9 @@ class Descriptor(nn.Module):
 
 class Feat3DNet(nn.Module):
     """Full model; `training=True` uses batch moments and updates the BN
-    buffers (the caller differentiates the outputs).
+    buffers (the caller differentiates the outputs). bn_group: the process
+    group whose ranks share the BN training moments (data parallelism), or
+    None.
 
     Call modes:
       * keypoints=None, cfg.num_clusters > 0 — FPS centres;
@@ -191,11 +203,12 @@ class Feat3DNet(nn.Module):
       * keypoints given — detector + descriptor at those points.
     """
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, bn_group=None):
         super().__init__()
         self.cfg = cfg
-        self.detection = Detector(cfg)
-        self.description = Descriptor(cfg)
+        self.bn_group = bn_group
+        self.detection = Detector(cfg, bn_group)
+        self.description = Descriptor(cfg, bn_group)
 
     def detect_clusters(self, grouped: torch.Tensor, training: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -224,6 +237,10 @@ class Feat3DNet(nn.Module):
 
         grouped, _, det_cnt = _group_normalized(
             xyz, centers, cfg.base_scale, cfg.num_samples, valid_mask)
+        if cfg.compute_dtype == torch.float32:
+            # a model moved to float64 (a reference) runs its towers on the
+            # f32 grouping in float64; for f32 weights this casts nothing
+            grouped = grouped.to(self.detection.attention.weight.dtype)
         attention, orientation = self.detection(grouped, training)
         end_points["keypoints"] = centers
         end_points["attention"] = attention

@@ -25,14 +25,27 @@ both modes:
 `nn.BatchNorm*` / `F.batch_norm` are not used: their momentum runs the
 other way (flax's 0.9 is torch's 0.1) and their running variance is the
 unbiased one.
+
+Data parallelism (flax's `axis_name`): a BatchNorm given a
+torch.distributed `group` takes its training moments over the whole
+group's batch. Each rank's [mean(x), mean(x^2)] is summed over the ranks
+in one differentiable all-reduce (utils/collectives.all_reduce_sum, whose
+backward sums the cotangents) and divided by the group's size: every rank
+holds as many rows (the data-parallel step's shards are equal), so that is
+the global mean. Averaging the ranks' means, not dividing a summed sum by
+the summed count, keeps a group of one bit-equal to no group on CUDA too,
+where `mean` multiplies the sum by 1/n. The EMA takes the global moments.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from feat3dnet_tpu_torch.utils.collectives import all_reduce_sum
 
 
 class Dense(nn.Linear):
@@ -53,14 +66,16 @@ class Dense(nn.Linear):
 
 class BatchNorm(nn.Module):
     """flax BatchNorm: params scale/bias, buffers mean/var (all f32); the
-    output in `dtype`."""
+    output in `dtype`. group: the process group whose ranks share the
+    training moments, or None."""
 
     def __init__(self, features: int, epsilon: float = 1e-3, momentum: float = 0.9,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, group=None):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
         self.dtype = dtype
+        self.group = group
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -83,6 +98,10 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(dim=axes)
             mean2 = (x * x).mean(dim=axes)
+            if self.group is not None:
+                both = all_reduce_sum(torch.stack([mean, mean2]), self.group) \
+                    / dist.get_world_size(self.group)
+                mean, mean2 = both[0], both[1]
             var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
             self.update_stats(mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.epsilon) * self.scale
@@ -97,10 +116,11 @@ class ConvBN(nn.Module):
     def __init__(self, cin: int, features: int, use_bn: bool = True,
                  activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = torch.relu,
                  bn_epsilon: float = 1e-3, bn_momentum: float = 0.9,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bn_group=None):
         super().__init__()
         self.conv2d = Dense(cin, features, dtype)
-        self.bn = BatchNorm(features, bn_epsilon, bn_momentum, dtype) if use_bn else None
+        self.bn = BatchNorm(features, bn_epsilon, bn_momentum, dtype, bn_group) \
+            if use_bn else None
         self.activation = activation
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:

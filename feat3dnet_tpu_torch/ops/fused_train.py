@@ -30,16 +30,31 @@ the same input give the same bits.
 Layout: slot-major x (ns, Gp, C_in), Gp >= g_total real clusters; pad
 clusters are masked out of the statistics and of dy, and their pooled rows
 are garbage. A plan is a tuple of ("conv", relu) and ("poolcat",) entries,
-as in the JAX package. The TPU's lane-dense "t8" layout and the
-data-parallel `axis_name` are not ported (ROADMAP).
+as in the JAX package. The TPU's lane-dense "t8" layout is not ported
+(ROADMAP).
+
+Data parallelism (`group=`, a torch.distributed process group; the JAX
+package's `axis_name`): every rank runs the passes on its own clusters and
+the BN statistics are the whole group's. Between the launches, each
+conv's (sum y, sum y^2) is all-reduced before `_finalize_stats`, and in
+the backward a copy of each level's (sum dz, sum dz * xhat) is
+all-reduced before m1 and m2, which dx needs. dW, db, dgamma and dbeta
+stay the rank's own share (from its rows and its local sums): the
+trainer's one all-reduce of the gradients sums them, so no leaf is
+reduced twice. Every rank holds the same number of clusters (the
+data-parallel step's shards are equal), so the global row count is the
+group's size times the local one, a host number that is not sent. With
+group=None nothing changes.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from feat3dnet_tpu_torch import kernels
+from feat3dnet_tpu_torch.utils.collectives import all_reduce_
 
 Plan = Tuple[Tuple, ...]
 # blocks of a pass (each walks its share of the clusters); the per-block
@@ -191,7 +206,7 @@ def bwd_pass_plain(x_sm, plan, convs, mu, isig, src, m1, m2, ga_sig, mu_p, isig_
         pool, cnt = _pool_and_ties(h)
         do = _route_pool(h, pool, cnt, src)
     else:
-        do = src.to(torch.float32)
+        do = src.to(x_sm.dtype)
     dz = torch.where(rec.y * a + c > 0.0, do, zero) if _relu_of(plan, j) else do
     dy = ga_sig * (dz - m1 - xhat * m2) * _row_mask(x_sm.shape[1], g_total, x_sm.device)
     cin, cout = w.shape
@@ -208,7 +223,7 @@ def bwd_pass_plain(x_sm, plan, convs, mu, isig, src, m1, m2, ga_sig, mu_p, isig_
     else:
         do_prev = dcat
     do_prev = do_prev.to(cot_dtype)
-    dop = do_prev.to(torch.float32)
+    dop = do_prev.to(x_sm.dtype)
     wp, bp, ap, cp_ = convs[j - 1]
     if _relu_of(plan, j - 1):
         dop = torch.where(prev.y * ap + cp_ > 0.0, dop, zero)
@@ -390,13 +405,20 @@ def _finalize_stats(stats, count: float, gamma, beta, eps: float):
     return mean, var, a, c, inv_sigma
 
 
-def _fwd_impl(x_sm, flat, plan, ns, g_total, eps):
+def _count(ns: int, g_total: int, group) -> float:
+    """The BN row count of the whole group (equal shards)."""
+    return float(ns * g_total * (1 if group is None else dist.get_world_size(group)))
+
+
+def _fwd_impl(x_sm, flat, plan, ns, g_total, eps, group=None):
     n = _n_convs(plan)
-    count = float(ns * g_total)
+    count = _count(ns, g_total, group)
     folded, means, vars_, isigs = [], [], [], []
     for j in range(n):
         w, b, g, be = flat[4 * j:4 * j + 4]
         stats = stats_pass(x_sm, plan, folded, w, b, g_total)
+        if group is not None:
+            stats = all_reduce_(stats, group)
         mean, var, a, c, isig = _finalize_stats(stats, count, g, be, eps)
         means.append(mean)
         vars_.append(var)
@@ -405,15 +427,18 @@ def _fwd_impl(x_sm, flat, plan, ns, g_total, eps):
     return final_pass(x_sm, plan, folded), means, vars_, folded, isigs
 
 
-def _bwd_impl(x_sm, flat, dpooled, means, folded, isigs, plan, ns, g_total, cot_dtype):
+def _bwd_impl(x_sm, flat, dpooled, means, folded, isigs, plan, ns, g_total, cot_dtype,
+              group=None):
     n = _n_convs(plan)
-    count = float(ns * g_total)
+    count = _count(ns, g_total, group)
     bst = bwd_top_pass(x_sm, plan, folded, means[-1], isigs[-1], dpooled)
     dflat: List[Optional[torch.Tensor]] = [None] * (4 * n)
     src, dx = dpooled, None
     for j in range(n - 1, -1, -1):
         g = flat[4 * j + 2]
-        m1, m2 = bst[0] / count, bst[1] / count
+        # the group's sums for m1 and m2; dgamma and dbeta below stay local
+        bst_all = bst if group is None else all_reduce_(bst.clone(), group)
+        m1, m2 = bst_all[0] / count, bst_all[1] / count
         dw, db, out, bst_prev = bwd_pass(
             x_sm, plan, folded[:j + 1], means[j], isigs[j], src, m1, m2, g * isigs[j],
             means[j - 1] if j else None, isigs[j - 1] if j else None, g_total, cot_dtype)
@@ -428,10 +453,12 @@ def _bwd_impl(x_sm, flat, dpooled, means, folded, isigs, plan, ns, g_total, cot_
 
 class _TowerPrepool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_sm, plan, ns, g_total, eps, cot_dtype, *flat):
-        pooled, means, vars_, folded, isigs = _fwd_impl(x_sm, flat, plan, ns, g_total, eps)
+    def forward(ctx, x_sm, plan, ns, g_total, eps, cot_dtype, group, *flat):
+        pooled, means, vars_, folded, isigs = _fwd_impl(x_sm, flat, plan, ns, g_total, eps,
+                                                        group)
         n = len(means)
         ctx.plan, ctx.ns, ctx.g_total, ctx.cot_dtype, ctx.n = plan, ns, g_total, cot_dtype, n
+        ctx.group = group
         ctx.save_for_backward(x_sm, *flat, *means, *isigs,
                               *[f[2] for f in folded], *[f[3] for f in folded])
         ctx.mark_non_differentiable(*means, *vars_)
@@ -449,19 +476,21 @@ class _TowerPrepool(torch.autograd.Function):
             dpooled = torch.zeros((x_sm.shape[1], flat[-4].shape[1]), dtype=torch.float32,
                                   device=x_sm.device)
         dx, dflat = _bwd_impl(x_sm, flat, dpooled.contiguous(), means, folded, isigs,
-                              ctx.plan, ctx.ns, ctx.g_total, ctx.cot_dtype)
-        return (dx, None, None, None, None, None, *dflat)
+                              ctx.plan, ctx.ns, ctx.g_total, ctx.cot_dtype, ctx.group)
+        return (dx, None, None, None, None, None, None, *dflat)
 
 
 def tower_prepool_fused(x_sm: torch.Tensor, flat_params: Sequence[torch.Tensor], plan: Plan,
                         widths: Sequence[int], ns: int, g_total: int, eps: float = 1e-3,
-                        cot_dtype: torch.dtype = torch.bfloat16):
+                        cot_dtype: torch.dtype = torch.bfloat16, group=None):
     """Fused training-mode ConvBN tower + slot max-pool.
 
     x_sm: (ns, Gp, C_in) slot-major offsets, Gp >= g_total (pad clusters
     are masked out of every statistic; their pooled rows are garbage).
     flat_params: per conv (W (Cin, Cout), b, gamma, beta), flat, in plan
-    order. cot_dtype: the streamed inter-layer cotangent's type.
+    order. cot_dtype: the streamed inter-layer cotangent's type. group: a
+    torch.distributed process group whose ranks share the BN statistics
+    (each with the same Gp and g_total), or None.
 
     Returns (pooled (Gp, C_top), (batch_means, batch_vars) per conv). The
     loss differentiates through the batch moments (flax BatchNorm training
@@ -475,7 +504,7 @@ def tower_prepool_fused(x_sm: torch.Tensor, flat_params: Sequence[torch.Tensor],
     if x_sm.shape[0] != ns or not 0 < g_total <= x_sm.shape[1]:
         raise ValueError(f"tower_prepool_fused: x {tuple(x_sm.shape)}, ns={ns}, "
                          f"g_total={g_total}")
-    out = _TowerPrepool.apply(x_sm, plan, ns, g_total, float(eps), cot_dtype, *flat)
+    out = _TowerPrepool.apply(x_sm, plan, ns, g_total, float(eps), cot_dtype, group, *flat)
     return out[0], (tuple(out[1:1 + n]), tuple(out[1 + n:]))
 
 

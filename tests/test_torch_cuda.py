@@ -30,7 +30,11 @@ of clouds (`build_sorted_cloud_batch`, `segment=`) K4 and K5 must be
 index-exact against their plain versions and equal, per cloud, to their
 run on that cloud alone; `extract_batch` and `extract_many` (also on
 clouds of two buckets) must give each cloud `extract`'s result bit for
-bit on both detector routes.
+bit on both detector routes. A data-parallel step over a one-rank nccl
+group (K7-K10 with their all-reduces on the fused route, and the autograd
+route) must equal the plain step bit for bit, and `extract` on a mesh
+that names the card twice must equal `extract` bit for bit on the
+default, fused and dense routes.
 """
 import os
 import re
@@ -681,3 +685,85 @@ def test_extract_batch_and_many_match_extract(dev, rs, fused):
             for f in ("keypoints", "attention", "features"):
                 assert np.array_equal(getattr(g, f), getattr(w, f)), f
 
+
+
+@pytest.mark.parametrize("route", ["fused", "autograd"])
+def test_world_of_one_nccl_is_the_plain_step(dev, rs, tmp_path, route):
+    """A data-parallel step over a one-rank nccl group on the card (K7-K10
+    with their all-reduces between the launches on the fused route) equals
+    the plain step bit for bit: a sum over one rank is the identity."""
+    import torch.distributed as dist
+
+    from feat3dnet_tpu_torch.config import TrainConfig
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.parallel import make_fused_dp_train_step
+    from feat3dnet_tpu_torch.train.trainer import init_state, make_fused_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(fused_towers=route == "fused")
+    a = rs.randn(2, 4096, 3).astype(np.float32) * 6.0
+    stacked = torch.from_numpy(np.concatenate([a, a + 0.01 * rs.randn(*a.shape),
+                                               a + 0.2 * rs.randn(*a.shape)]
+                                              ).astype(np.float32)).to(dev)
+
+    def run(group):
+        model = Feat3DNet(cfg, bn_group=group)
+        state = init_state(model, TrainConfig(), cfg, variables=init_variables(cfg, seed=0),
+                           device=dev)
+        make = (make_fused_train_step if group is None else
+                lambda *a, **k: make_fused_dp_train_step(*a, group, **k))
+        step = make(model, cfg.margin, cfg.attention, augmentations=("RotateSmall", "Jitter"),
+                    aug_seed=1)
+        tft.stats_pass.launches = tft.bwd_pass.launches = 0
+        for _ in range(2):
+            state, metrics = step(state, stacked)
+        torch.cuda.synchronize()
+        if route == "fused":
+            assert tft.stats_pass.launches > 0 and tft.bwd_pass.launches > 0
+        return ([p.grad.clone() for p in model.parameters()],
+                [p.detach().clone() for p in model.parameters()],
+                [b.clone() for b in model.buffers()], metrics)
+
+    want = run(None)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        got = run(dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    def flat(metrics):
+        return [x for k in sorted(metrics) for x in (
+            [metrics[k][f] for f in sorted(metrics[k])] if isinstance(metrics[k], dict)
+            else [metrics[k]])]
+
+    for g, w in zip(got[:3] + (flat(got[3]),), want[:3] + (flat(want[3]),)):
+        assert len(g) == len(w) and all(torch.equal(x, y) for x, y in zip(g, w))
+
+
+@pytest.mark.parametrize("route", ["hashed", "fused", "dense"])
+def test_mesh_of_one_card_twice_matches_extract(dev, rs, route):
+    """InferencePipeline(mesh=(cuda:0, cuda:0)) extract on a vendored KITTI
+    cloud (bucket 32 768: two detector chunks a shard) equals extract bit
+    for bit, with K4, K5 (and K6, K3 on the fused route) launched per shard."""
+    from feat3dnet_tpu_torch.config import InferenceConfig
+    from feat3dnet_tpu_torch.inference import InferencePipeline
+    from feat3dnet_tpu_torch.models import Feat3DNet
+
+    cfg = ModelConfig()
+    icfg = InferenceConfig(use_hashed_grouping=route != "dense",
+                           use_fused_detector=route == "fused")
+    model = Feat3DNet(cfg)
+    pipe = InferencePipeline(model, init_variables(cfg, seed=0, bn_perturb=0.1), cfg, icfg,
+                             device=dev)
+    meshed = InferencePipeline(model, None, cfg, icfg, mesh=(dev, dev))
+    cloud = load_point_cloud(example_cloud_path("kitti_00_001554.bin"))
+    want = pipe.extract(cloud)
+    tfd.fused_detect_clusters.launches = thg.sorted_ball_query.launches = 0
+    got = meshed.extract(cloud)
+    if route != "dense":
+        assert thg.sorted_ball_query.launches == 2
+    if route == "fused":
+        assert tfd.fused_detect_clusters.launches == 2
+    assert got.num_keypoints == want.num_keypoints > 0
+    for f in ("keypoints", "attention", "features"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f

@@ -305,7 +305,7 @@ def test_cli_train_and_resume(tmp_path):
     assert all(np.isfinite(r["loss"]) and "sum_positive" in r for r in rows)
     assert CheckpointManager(str(tmp_path / "log" / "ckpt")).latest_step() == 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(args + ["--num_devices", "2"])
+        train.main(args + ["--steps_per_dispatch", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(args[:-3])
