@@ -225,6 +225,25 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
         cloud_mesh extract_batch of 4 over 2 shards equals extract per
         cloud on the default and fused routes;
      the phase's wall time.
+  22. the point-op API (point_api_phase): K2's per-centre form (a (B, M)
+     radius, f3d_ball_query_radii) index-exact against its plain version
+     on k2_cases' inputs with radii drawn per centre from 0.5-3.0 m and one
+     centre each at 0, 1e-3 and 1e3 m, and bit-equal to the scalar launch
+     when every radius is 2 m; then, launch counters reset, sample_points,
+     sample_and_group (FPS centres, masked, not normalised, keypoints,
+     keypoints with orientations, both not normalised) and ops.ball_query
+     with per-centre radii on the vendored clouds (512 x 64, r 2 m): K1,
+     K2 and K2's per-centre form must launch; those calls against the same
+     calls on the CPU (centres, idx and cnt exact, grouped within 1e-6),
+     sample_and_group_all exact; knn_points (k 16) on the training batch
+     and a cloud of duplicated points, index-exact with dist2 equal to the
+     CPU's; prob_sample against the CPU (random weights: at most 1e-3 of
+     the draws one index over, each within 4 ulp of the row total of its
+     boundary; dyadic weights index-exact); FullyConnected card against
+     CPU within rtol 1e-5, atol 1e-5 (eval and training, BN statistics),
+     dropout's kept share, values and seed; then per vendored cloud the
+     per-centre launch, the scalar launch and the plain version in turns,
+     on the device alone (graph_ms), beside the bound.
 Option: --parent DIR also builds another tree's training kernels, K1-K6
 (its csrc/fused_train.cu, csrc/fps.cu, csrc/ball_query.cu,
 csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
@@ -252,8 +271,8 @@ ptxas lines of both; K8's pooled and K9's sums equal to the parent's, K7
 and K10 at phase 9's tolerances; each timed in turns; and, where the
 parent has the split build, K8's split of both trees in turns).
 It writes only under build/ in the checkout.
-The line before last is a JSON summary of the sixteen kernel entries (K1-K10
-and K3's and K6's extra modes: times, their bounds from this run's shapes at
+The line before last is a JSON summary of the seventeen kernel entries
+(K1-K10, K2's per-centre form and K3's and K6's extra modes: times, their bounds from this run's shapes at
 the H100's f32 (bf16 modes: bf16 tensor-core; K7-K10's products and K3's
 and K6's per-slot convs at least 8 wide: TF32 tensor-core; K6
 bf16_operands: all bf16 tensor-core) and HBM peaks,
@@ -1034,10 +1053,8 @@ def k5_runs(lib, tag, sc, values, tile, r2):
         runs[f"{tag} whole"] = lambda: old(hg._padded_hitmask(ctr, bbox, r2, tile),
                                            torch.empty_like(out))
     else:
-        # this tree's K5 takes a union of clouds: two more ints (0, 0: one
-        # cloud); a parent tree's (PARENT_LIBS) is from before the union
-        segs = [] if lib._name in PARENT_LIBS else [I, I]
-        fn.argtypes = [P, P, I, P, I, P, I, I, F, P, P, P] + segs + [I, P]
+        # seg_centres, seg_blocks: 0, 0 is one cloud
+        fn.argtypes = [P, P, I, P, I, P, I, I, F, P, P, P, I, I, I, P]
         fn.restype = I
         tiles = -(-np_ // tile)
         hit = torch.empty((tiles, nb), dtype=torch.uint8, device=pts4.device)
@@ -1045,7 +1062,7 @@ def k5_runs(lib, tag, sc, values, tile, r2):
 
         def new(stage, h, bm, o):
             call(ptr(pts4), ptr(values), np_, ptr(bbox), nb, None, np_, tile, r2, ptr(h),
-                 ptr(bm), ptr(o), *([0, 0] if segs else []), stage, stream())
+                 ptr(bm), ptr(o), 0, 0, stage, stream())
         for stage in ("prep", "walk"):
             runs[f"{tag} {stage}"] = functools.partial(new, kernels.BALL_MAX_STAGES[stage], hit,
                                                        blkmax, out)
@@ -1056,10 +1073,6 @@ def k5_runs(lib, tag, sc, values, tile, r2):
         runs[f"{tag} whole"] = functools.partial(hg.ball_max_sorted, pts4, bbox, values,
                                                  NMS_RADIUS, tile)
     return runs, out
-
-
-# the paths of the libraries that parent_cdll loaded from another tree
-PARENT_LIBS = set()
 
 
 def ball_max_time_split(sc, values, libs, reps, tile=512):
@@ -1329,8 +1342,8 @@ def k2_from(lib):
     launch = k2_launcher(lib)
     saved = kernels.launch_ball_query
 
-    def shim(xyz, centers, mask, r2, ns, cluster, idx, cnt, stop=None):
-        require(stop is None, "k2_from: no stop")
+    def shim(xyz, centers, mask, r2, ns, cluster, idx, cnt, stop=None, radii=None):
+        require(stop is None and radii is None, "k2_from: no stop, no per-centre radii")
         launch(xyz, centers, mask, ns, idx, cnt, cluster if launch.clustered else None, r2=r2)
     kernels.launch_ball_query = shim
     try:
@@ -1493,18 +1506,11 @@ def k2_step(card, name, xyz, ctr, parent_lib):
     return sp, bnd
 
 
-def k2_cases(dev, parent_lib):
-    """K2 index-exact (idx and cnt) against its plain version and, with a
-    parent library, the parent's K2, at r RADIUS, ns NS: the training batch
-    (18 x 4 096, its 512 FPS centres), an all-masked cloud, 70 000 points
-    (past a round of the widest cluster), N and M off every chunk, round
-    and group boundary with duplicated points and a third masked, and the
-    cluster-pair validator's shape (VAL_BATCH clusters of 64-1 024 points
-    padded to 1 024, the padding masked at the origin, one centre at the
-    origin each)."""
+def k2_case_inputs(dev):
+    """{name: (xyz, centres, mask or None)} of K2's cases (k2_cases)."""
     import torch
 
-    from feat3dnet_tpu_torch.ops import batch_group, fps
+    from feat3dnet_tpu_torch.ops import fps
     from feat3dnet_tpu_torch.ops.neighborhoods import gather_points
 
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
@@ -1517,7 +1523,7 @@ def k2_cases(dev, parent_lib):
     val_mask = (torch.arange(VAL_POINTS)[None, :]
                 < torch.randint(64, VAL_POINTS + 1, (VAL_BATCH, 1), generator=g))
     val = torch.where(val_mask[..., None], val, torch.zeros(()))
-    cases = {
+    return {
         "training batch": (xyz_t, gather_points(
             xyz_t, fps.farthest_point_sample(xyz_t, NPOINT)).contiguous(), None),
         "all masked (2, 3000)": (ragged[:2, :3000].contiguous().to(dev),
@@ -1528,8 +1534,23 @@ def k2_cases(dev, parent_lib):
                                           .contiguous().to(dev), ragged_mask.to(dev)),
         f"validator ({VAL_BATCH}, {VAL_POINTS}) x 1, masked": (
             val.to(dev), torch.zeros(VAL_BATCH, 1, 3, device=dev), val_mask.to(dev))}
+
+
+def k2_cases(dev, parent_lib):
+    """K2 index-exact (idx and cnt) against its plain version and, with a
+    parent library, the parent's K2, at r RADIUS, ns NS: the training batch
+    (18 x 4 096, its 512 FPS centres), an all-masked cloud, 70 000 points
+    (past a round of the widest cluster), N and M off every chunk, round
+    and group boundary with duplicated points and a third masked, and the
+    cluster-pair validator's shape (VAL_BATCH clusters of 64-1 024 points
+    padded to 1 024, the padding masked at the origin, one centre at the
+    origin each)."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import batch_group
+
     parent = None if parent_lib is None else k2_launcher(parent_lib)
-    for name, (xyz, ctr, mask) in cases.items():
+    for name, (xyz, ctr, mask) in k2_case_inputs(dev).items():
         ik, ck = batch_group.ball_query_fused(xyz, ctr, RADIUS, NS, mask)
         ip, cp = batch_group.ball_query_fused.plain(xyz, ctr, RADIUS, NS, mask)
         require(torch.equal(ik, ip) and torch.equal(ck, cp), f"K2 != plain on {name}")
@@ -2396,9 +2417,7 @@ def parent_cdll(csrc):
     """Another tree's PARENT_BUILD sources, built alone and loaded."""
     import ctypes
 
-    lib = ctypes.CDLL(parent_build(csrc).path)
-    PARENT_LIBS.add(lib._name)
-    return lib
+    return ctypes.CDLL(parent_build(csrc).path)
 
 
 @functools.lru_cache(maxsize=None)
@@ -4233,6 +4252,254 @@ def parallel_phase(dev, card, npz_path):
     print(f"[{card}] phase 21 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- 22. the point-op API on the card ------------------------------------------------
+
+# per-centre radii of phase 22: uniform in [lo, hi) m, and one centre each at
+# these radii
+RADII_RANGE = (0.5, 3.0)
+RADII_EDGES = (0.0, 1e-3, 1e3)
+KNN_K = 16
+FC_TOL = (1e-5, 1e-5)     # FullyConnected, card against CPU: rtol, atol
+
+
+def centre_radii(b, m, seed, dev):
+    """(b, m) f32 radii in RADII_RANGE from `seed`, the first centres (in
+    row-major order) at RADII_EDGES."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lo, hi = RADII_RANGE
+    r = torch.rand(b, m, generator=g) * (hi - lo) + lo
+    flat = r.view(-1)
+    k = min(len(RADII_EDGES), flat.numel())
+    flat[:k] = torch.tensor(RADII_EDGES[:k])
+    return r.to(dev)
+
+
+def prob_boundary_rule(got, want, probs, uniforms, share=1e-3, ulps=4):
+    """(draws that differ, worst distance in ulp(total)): prob_sample's
+    results on two devices may differ on at most `share` of the draws, each
+    by one index, with its target within `ulps` ulp(row total) of the
+    float64 cdf at the boundary between the two."""
+    diff = np.nonzero(got != want)
+    require(len(diff[0]) <= share * got.size and bool((np.abs(got[diff] - want[diff]) == 1).all()),
+            f"prob_sample: {len(diff[0])} of {got.size} draws differ (or by more than 1)")
+    cdf = np.cumsum(probs.astype(np.float64), axis=-1)
+    ulp = np.spacing(probs.astype(np.float32).sum(-1, dtype=np.float32))
+    rows, cols = diff
+    k = np.minimum(got[diff], want[diff])
+    dist = np.abs(uniforms[rows, cols].astype(np.float64) * cdf[rows, -1] - cdf[rows, k]) \
+        / ulp[rows]
+    worst = float(dist.max()) if dist.size else 0.0
+    require(worst <= ulps, f"prob_sample: a differing draw {worst:.2f} ulp from its boundary")
+    return len(diff[0]), worst
+
+
+def point_api_calls(xyz, mask, ori):
+    """{call: its outputs} of the point-op API on one cloud (1, N, 3), on
+    xyz's device: FPS centres, sample_and_group with each option (mask
+    (1, N), orientations (1, NPOINT)), and ops.ball_query with per-centre
+    radii (centre_radii) at those centres."""
+    from feat3dnet_tpu_torch import ops
+
+    ctr = ops.sample_points(xyz, NPOINT)
+    kp = (ctr + 0.3).contiguous()
+    radii = centre_radii(1, NPOINT, SEED + 50, xyz.device)
+
+    def sag(**kw):
+        return ops.sample_and_group(NPOINT, RADIUS, NS, xyz, **kw)
+    return {"sample_points": (ctr,),
+            "fps": sag(),
+            "fps, masked": sag(valid_mask=mask),
+            "fps, not normalized": sag(normalize_radius=False),
+            "keypoints": sag(keypoints=kp),
+            "keypoints, orientations": sag(keypoints=kp, orientations=ori),
+            "keypoints, orientations, not normalized": sag(keypoints=kp, orientations=ori,
+                                                           normalize_radius=False),
+            "ball_query radii": ops.ball_query(xyz, ctr, radii, NS)}
+
+
+def point_api_phase(dev, card, gpu, cpu):
+    """Phase 22: (a) K2's per-centre form index-exact against its plain
+    version on k2_cases' inputs and bit-equal to the scalar form at equal
+    radii; then, counters reset, the slice's path (sample_points,
+    sample_and_group and per-centre ops.ball_query on the vendored clouds,
+    `gpu` / `cpu` by name); (b) those calls against the same calls on the
+    CPU, sample_and_group_all exact; (c) knn_points; (d) prob_sample; (e)
+    FullyConnected and dropout; then the per-centre launch timed in turns
+    against the scalar launch and the plain version. Returns ({
+    "ball_query_radii": the kernels line's numbers}, its launches)."""
+    import torch
+
+    from feat3dnet_tpu_torch import ops
+    from feat3dnet_tpu_torch.models.layers import FullyConnected, dropout
+    from feat3dnet_tpu_torch.ops import batch_group, fps
+
+    t_phase = time.perf_counter()
+    bq = batch_group.ball_query_fused
+
+    # (a) K2's per-centre form against its plain version
+    for i, (name, (xyz, ctr, mask)) in enumerate(k2_case_inputs(dev).items()):
+        radii = centre_radii(ctr.shape[0], ctr.shape[1], SEED + 30 + i, dev)
+        ik, ck = bq(xyz, ctr, radii, NS, mask)
+        ip, cp = bq.plain(xyz, ctr, radii, NS, mask)
+        require(torch.equal(ik, ip) and torch.equal(ck, cp), f"K2 radii != plain on {name}")
+        same = torch.full_like(radii, RADIUS)
+        (ie, ce), (i_s, cs) = bq(xyz, ctr, same, NS, mask), bq(xyz, ctr, RADIUS, NS, mask)
+        require(torch.equal(ie, i_s) and torch.equal(ce, cs),
+                f"K2: every radius {RADIUS} != the scalar launch on {name}")
+        print(f"K2 ball_query_radii {name} {tuple(xyz.shape)} x {ctr.shape[1]} (radii "
+              f"{RADII_RANGE}, edges {RADII_EDGES}; mean cnt {ck.float().mean().item():.2f}): "
+              f"index-exact vs plain; all radii {RADIUS}: bit-equal to the scalar launch")
+        torch.cuda.empty_cache()
+
+    # the slice's path, counters from zero
+    g = torch.Generator(device="cpu").manual_seed(SEED + 40)
+    inputs = {}
+    for name in CLOUDS:
+        n = gpu[name].shape[1]
+        inputs[name] = {"mask": torch.rand(1, n, generator=g) > 0.2,
+                        "ori": (torch.rand(1, NPOINT, generator=g) * 2 - 1) * np.pi}
+    fps.farthest_point_sample.launches = bq.launches = 0
+    bq.mode_launches = dict.fromkeys(bq.mode_launches, 0)
+    with torch.no_grad():
+        card_out = {name: point_api_calls(gpu[name], inputs[name]["mask"].to(dev),
+                                          inputs[name]["ori"].to(dev)) for name in CLOUDS}
+        torch.cuda.synchronize()
+    launches = {"fps": fps.farthest_point_sample.launches, **bq.mode_launches}
+    print(f"point-op API path launches: {launches}")
+    require(all(v > 0 for v in launches.values()),
+            "K1, K2 and K2's per-centre form must launch on the point-op API path")
+
+    # (b) the same calls on the CPU
+    worst = 0.0
+    for name in CLOUDS:
+        want = point_api_calls(cpu[name], inputs[name]["mask"], inputs[name]["ori"])
+        for call, w in want.items():
+            got = [t.cpu() for t in card_out[name][call]]
+            exact = [0, 2, 3] if len(w) == 4 else range(len(w))
+            require(all(torch.equal(got[i], w[i]) for i in exact),
+                    f"{call} on {name}: card != CPU (centres, idx, cnt)")
+            if len(w) == 4:
+                err = (got[1] - w[1]).abs().max().item()
+                worst = max(worst, err)
+                require(err <= 1e-6, f"{call} on {name}: grouped card vs CPU {err:.3e} > 1e-6")
+        ca, ga, ia = ops.sample_and_group_all(gpu[name])
+        n = gpu[name].shape[1]
+        require(torch.equal(ca.cpu(), torch.zeros(1, 1, 3)) and torch.equal(ga[:, 0], gpu[name])
+                and torch.equal(ia.cpu(), torch.arange(n, dtype=torch.int32).expand(1, 1, n)),
+                f"sample_and_group_all on {name}")
+        require(torch.equal(ops.sample_points(gpu[name], 0), gpu[name]), "sample_points(0)")
+    print(f"point-op API on the card vs the CPU, {len(CLOUDS)} clouds x {len(want)} calls "
+          f"({NPOINT} x {NS}, r {RADIUS}): centres, idx and cnt exact, grouped max|d| "
+          f"{worst:.3e} (<= 1e-6); sample_and_group_all exact")
+
+    # (c) knn_points on the training batch (and a cloud with duplicates)
+    xyz_t = training_batch(dev, SEED)
+    ctr_t = ops.sample_points(xyz_t, NPOINT)
+    dup = xyz_t[:1].clone()
+    dup[:, TRAIN_POINTS // 2:] = dup[:, :TRAIN_POINTS // 2]
+    for name, (x, c) in {"training batch": (xyz_t, ctr_t),
+                         "duplicated points": (dup, ctr_t[:1].contiguous())}.items():
+        t0 = time.perf_counter()
+        dk, ik = ops.knn_points(KNN_K, x, c)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        dc, ic = ops.knn_points(KNN_K, x.cpu(), c.cpu())
+        require(torch.equal(ik.cpu(), ic) and torch.equal(dk.cpu(), dc),
+                f"knn_points on {name}: card != CPU")
+        print(f"[{card}] knn_points k={KNN_K} {name} {tuple(x.shape)} x {c.shape[1]}: idx and "
+              f"dist2 equal to the CPU's; {ms:.3f} ms (host clock, one call)")
+    del xyz_t, ctr_t, dup
+    torch.cuda.empty_cache()
+
+    # (d) prob_sample
+    rs = np.random.RandomState(SEED + 60)
+    probs = rs.rand(4, 5000).astype(np.float32)
+    u = rs.rand(4, 2000).astype(np.float32)
+    got = ops.prob_sample(torch.from_numpy(probs).to(dev), torch.from_numpy(u).to(dev))
+    want = ops.prob_sample(torch.from_numpy(probs), torch.from_numpy(u))
+    require(got.dtype == torch.int32, "prob_sample: int32")
+    nd, far = prob_boundary_rule(got.cpu().numpy(), want.numpy(), probs, u)
+    dy = rs.randint(0, 6, (4, 5000)).astype(np.float32)
+    require(torch.equal(ops.prob_sample(torch.from_numpy(dy).to(dev),
+                                        torch.from_numpy(u).to(dev)).cpu(),
+                        ops.prob_sample(torch.from_numpy(dy), torch.from_numpy(u))),
+            "prob_sample on dyadic weights: card != CPU")
+    print(f"prob_sample 4 x 5000 random weights, 4 x 2000 draws: {nd} draws differ from the "
+          f"CPU (<= 1e-3 of them, each by one index), the farthest {far:.2f} ulp(total) from "
+          "its boundary (<= 4); dyadic weights index-exact")
+
+    # (e) FullyConnected and dropout
+    torch.manual_seed(SEED)
+    rtol, atol = FC_TOL
+    x = torch.randn(4096, 32, generator=torch.Generator().manual_seed(SEED + 70))
+    for use_bn, act in ((False, torch.relu), (True, torch.relu), (True, None)):
+        fc_c = FullyConnected(32, 64, use_bn=use_bn, activation=act)
+        if use_bn:
+            with torch.no_grad():
+                fc_c.bn.mean.normal_(0.0, 0.2)
+                fc_c.bn.var.uniform_(0.5, 2.0)
+                fc_c.bn.scale.uniform_(0.5, 1.5)
+        fc_g = FullyConnected(32, 64, use_bn=use_bn, activation=act).to(dev)
+        fc_g.load_state_dict(fc_c.state_dict())
+        for training in (False, True) if use_bn else (False,):
+            with torch.no_grad():
+                yc, yg = fc_c(x, training), fc_g(x.to(dev), training).cpu()
+            err = ((yg - yc).abs() - rtol * yc.abs()).max().item()
+            require(err <= atol, f"FullyConnected use_bn={use_bn} training={training}: card "
+                    f"vs CPU beyond rtol {rtol} by {err:.3e} > atol {atol}")
+            for k in ("mean", "var") if training else ():
+                a, b = getattr(fc_g.bn, k).cpu(), getattr(fc_c.bn, k)
+                require(torch.allclose(a, b, rtol=rtol, atol=atol),
+                        f"FullyConnected BN {k}: card vs CPU")
+            print(f"FullyConnected(32, 64, use_bn={use_bn}, activation="
+                  f"{'relu' if act else None}) training={training} on 4096 rows: card vs CPU "
+                  f"within rtol {rtol}, atol {atol} (excess {err:.3e})")
+    xd = torch.randn(1024, 1024, device=dev)
+    y1 = dropout(xd, torch.Generator(device=dev).manual_seed(SEED), keep_prob=0.5)
+    y2 = dropout(xd, torch.Generator(device=dev).manual_seed(SEED), keep_prob=0.5)
+    kept = y1 != 0
+    share = kept.float().mean().item()
+    require(abs(share - 0.5) < 0.005 and torch.equal(y1, y2)
+            and torch.equal(y1[kept], xd[kept] / 0.5)
+            and dropout(xd, None, training=False) is xd, "dropout's contract on the card")
+    print(f"dropout keep_prob 0.5 on 1024 x 1024: kept share {share:.5f} (0.5 +- 0.005), kept "
+          "values x / keep_prob exactly, same seed same mask, identity when not training")
+
+    # the per-centre launch against the scalar launch and the plain version
+    per, bounds = [], []
+    for name in CLOUDS:
+        x = gpu[name]
+        ctr = card_out[name]["sample_points"][0]
+        radii = centre_radii(1, NPOINT, SEED + 50, dev)
+        ik, ck = bq(x, ctr, radii, NS)
+        n = x.shape[1]
+        scanned = torch.where(ck >= NS, ik[..., NS - 1].long() + 1,
+                              torch.full_like(ck, n).long()).sum().item()
+        bounds.append(bound_ms(8.0 * scanned, nbytes(x, ctr, radii, ik, ck)))
+        ms = ms_in_turns({"radii": lambda: bq(x, ctr, radii, NS),
+                          "scalar": lambda: bq(x, ctr, RADIUS, NS),
+                          "plain": lambda: bq.plain(x, ctr, radii, NS)}, 10)
+        same = torch.full_like(radii, RADIUS)
+        dev_ms = graph_ms({"radii": lambda: bq(x, ctr, radii, NS),
+                           "scalar": lambda: bq(x, ctr, RADIUS, NS),
+                           "same": lambda: bq(x, ctr, same, NS)}, 20)
+        per.append((ms["radii"], ms["plain"]))
+        print(f"[{card}] ball_query_radii {name} N={n} x {NPOINT} (radii {RADII_RANGE}): "
+              f"per-centre {ms['radii']:.4f} ms, scalar (r {RADIUS}) {ms['scalar']:.4f} ms, "
+              f"plain {ms['plain']:.4f} ms (wrappers, in turns); on the device alone "
+              f"per-centre {dev_ms['radii']:.4f}, scalar {dev_ms['scalar']:.4f}, per-centre "
+              f"at every radius {RADIUS} {dev_ms['same']:.4f} ms (the same scans: the "
+              f"per-centre form's own cost); bound "
+              f"{bounds[-1][0]:.4f} ms ({bounds[-1][1]}; 8 flop x {scanned} points scanned)")
+    report = {"max_abs_err": 0, "ms": float(np.mean([p[0] for p in per])),
+              "plain_ms": float(np.mean([p[1] for p in per]))}
+    report["bound_ms"], report["bound_by"] = mean_bound(bounds)
+    print(f"[{card}] phase 22 (the point-op API): {time.perf_counter() - t_phase:.1f} s")
+    return {"ball_query_radii": report}, {"ball_query_radii": launches["radii"]}
+
+
 def main():
     import argparse
 
@@ -4644,10 +4911,17 @@ def main():
     parallel_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
                                            "ckpt4480_variables.npz"))
 
+    # ---- 22. the point-op API: per-centre radii through K2, the pointnet wrappers, kNN ----
+    more = point_api_phase(dev, card, gpu, clouds)
+    report.update(more[0])
+    launches.update(more[1])
+
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),
         "ball_query": ("feat3dnet_tpu_torch/csrc/ball_query.cu",
                        "feat3dnet_tpu/ops/batch_group.py:51"),
+        "ball_query_radii": ("feat3dnet_tpu_torch/csrc/ball_query.cu",
+                             "feat3dnet_tpu/ops/batch_group.py:51"),
         "fused_describe": ("feat3dnet_tpu_torch/csrc/fused_describe.cu",
                            "feat3dnet_tpu/ops/fused_describe.py:883"),
         "sorted_ball_query": ("feat3dnet_tpu_torch/csrc/sorted_ball_query.cu",

@@ -2,8 +2,9 @@
 //
 // Replaces: feat3dnet_tpu/ops/batch_group.py:_bq_batch_kernel (behind
 // ball_query_fused), and is the port's ops.ball_query on CUDA tensors.
-// Contract (feat3dnet_tpu/ops/neighborhoods.py:ball_query, scalar radius):
-// for each centre, the first ns points in index order with d2 < r2
+// Contract (feat3dnet_tpu/ops/neighborhoods.py:ball_query, a scalar radius
+// or a (B, M) radius per centre, QueryBallPoint2): for each centre, the
+// first ns points in index order with d2 < r2
 // (strict; d2 from coordinate differences, no FMA); cnt = min(count, ns);
 // slots at or past cnt repeat the first in-ball index; an empty ball gets
 // the centre's nearest valid point in every slot (first index on ties)
@@ -50,6 +51,17 @@
 //    them), so one cloud's 16 groups fill the card and a training batch of
 //    288 groups runs 2 CTAs each. `stop` ends the kernel after the count or
 //    the exchange (idx and cnt not written), for the time split.
+//  * Per-centre radii (kPerCentre, f3d_ball_query_radii) come as the
+//    caller's (b, m) radii: each live lane loads its own once, before the
+//    scan, and squares it (__fmul_rn, the f32 square of JAX's jnp.square,
+//    so a NaN or zero radius is an empty ball and a negative one its
+//    absolute value). The scalar instantiation reads no radii and compares
+//    with its constant-bank r2 (the caller's square). The per-centre one holds
+//    r2 in a register through the scan; ptxas keeps both at 64 registers.
+//    Kept live from the entry, the centre's 64-bit index g was then parked
+//    in local memory (8 bytes stored and loaded a thread), so the
+//    per-centre count's write forms g again from the block and the lane;
+//    neither instantiation spills.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -102,10 +114,11 @@ __device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
                  : "=r"(done) : "r"(bar), "r"(parity) : "memory");
 }
 
+template <bool kPerCentre>
 __global__ void __launch_bounds__(kThreads)
 ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
-                  const uint8_t* __restrict__ mask, int n, int m, float r2, int ns, int stop,
-                  int* __restrict__ idx, int* __restrict__ cnt) {
+                  const uint8_t* __restrict__ mask, const float* __restrict__ radii, int n, int m,
+                  float r2, int ns, int stop, int* __restrict__ idx, int* __restrict__ cnt) {
   __shared__ Smem s;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -126,6 +139,10 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ cente
     cx = centers[3 * g];
     cy = centers[3 * g + 1];
     cz = centers[3 * g + 2];
+    if constexpr (kPerCentre) {
+      const float r = radii[g];
+      r2 = __fmul_rn(r, r);
+    }
   }
   int* out = idx + g * ns;
 
@@ -276,13 +293,28 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ cente
     }
     cluster.sync();                  // no CTA leaves while rank 0 reads its candidates
   }
-  if (rank == 0 && w == 0 && live) cnt[g] = c;
+  if (rank == 0 && w == 0 && live) {
+    if constexpr (kPerCentre) {
+      // g again, from special registers read anew (asm volatile): else the
+      // compiler keeps g from the entry, and with r2 in a register through
+      // the scan ptxas parks it in local memory
+      unsigned bx, cs, ln;
+      asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
+      asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(cs));
+      asm volatile("mov.u32 %0, %%laneid;" : "=r"(ln));
+      const int grp = static_cast<int>(bx / cs);
+      cnt[static_cast<size_t>(grp / groups) * m + (grp % groups) * 32 + static_cast<int>(ln)] = c;
+    } else {
+      cnt[g] = c;
+    }
+  }
 }
 
 bool valid_cluster(int cluster) {
   return cluster >= 1 && cluster <= kMaxCluster && (cluster & (cluster - 1)) == 0;
 }
 
+template <bool kPerCentre>
 cudaError_t configure(int cluster, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   cfg->blockDim = dim3(kThreads);
   cfg->dynamicSmemBytes = 0;
@@ -292,8 +324,29 @@ cudaError_t configure(int cluster, cudaLaunchConfig_t* cfg, cudaLaunchAttribute*
   attr->val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return cudaFuncSetAttribute(ball_query_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                              1);
+  return cudaFuncSetAttribute(ball_query_kernel<kPerCentre>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+template <bool kPerCentre>
+int launch(const float* xyz, const float* centers, const uint8_t* mask, const float* radii, int b,
+           int n, int m, float r2, int ns, int cluster, int stop, int* idx, int* cnt,
+           cudaStream_t stream) {
+  if (b < 0 || m < 0 || n < 1 || ns < 1 || !valid_cluster(cluster) || stop < 0 || stop > 2)
+    return cudaErrorInvalidValue;
+  const long long ctas = static_cast<long long>(b) * ((m + 31) / 32) * cluster;
+  if (ctas == 0) return cudaSuccess;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+  cfg.stream = stream;
+  cudaError_t err = configure<kPerCentre>(cluster, &cfg, attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, ball_query_kernel<kPerCentre>, xyz, centers, mask, radii, n, m,
+                           r2, ns, stop, idx, cnt);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -305,21 +358,19 @@ cudaError_t configure(int cluster, cudaLaunchConfig_t* cfg, cudaLaunchAttribute*
 F3D_EXPORT int f3d_ball_query(const float* xyz, const float* centers, const uint8_t* mask,
                               int b, int n, int m, float r2, int ns, int cluster, int stop,
                               int* idx, int* cnt, cudaStream_t stream) {
-  if (b < 0 || m < 0 || n < 1 || ns < 1 || !valid_cluster(cluster) || stop < 0 || stop > 2)
-    return cudaErrorInvalidValue;
-  const long long ctas = static_cast<long long>(b) * ((m + 31) / 32) * cluster;
-  if (ctas == 0) return cudaSuccess;
-  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
-  cfg.stream = stream;
-  cudaError_t err = configure(cluster, &cfg, attr);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, ball_query_kernel, xyz, centers, mask, n, m, r2, ns, stop,
-                           idx, cnt);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch<false>(xyz, centers, mask, nullptr, b, n, m, r2, ns, cluster, stop, idx, cnt,
+                       stream);
+}
+
+// As f3d_ball_query with a radius per centre: radii (b, m) f32, in place of
+// r2.
+F3D_EXPORT int f3d_ball_query_radii(const float* xyz, const float* centers,
+                                    const uint8_t* mask, const float* radii, int b, int n, int m,
+                                    int ns, int cluster, int stop, int* idx, int* cnt,
+                                    cudaStream_t stream) {
+  if (radii == nullptr && b > 0 && m > 0) return cudaErrorInvalidValue;
+  return launch<true>(xyz, centers, mask, radii, b, n, m, 0.f, ns, cluster, stop, idx, cnt,
+                      stream);
 }
 
 // K2's sizes, for the caller's choice of cluster size: out[0] kWarps (warps
@@ -331,7 +382,8 @@ F3D_EXPORT void f3d_ball_query_shape(int* out) {
   out[2] = kMaxCluster;
 }
 
-// K2's launch at this cluster size: out[0] the static shared memory of a
+// K2's launch at this cluster size (the scalar instantiation's; the
+// per-centre one has the same shared memory): out[0] the static shared memory of a
 // CTA in bytes, out[1] the CTAs resident on one SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[2] the clusters
 // resident on the card (cudaOccupancyMaxActiveClusters).
@@ -340,15 +392,16 @@ F3D_EXPORT int f3d_ball_query_occupancy(int cluster, int* out) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   cfg.gridDim = dim3(cluster);
-  cudaError_t err = configure(cluster, &cfg, attr);
+  cudaError_t err = configure<false>(cluster, &cfg, attr);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, ball_query_kernel);
+  err = cudaFuncGetAttributes(&fa, ball_query_kernel<false>);
   if (err != cudaSuccess) return err;
   int per_sm = 0, clusters = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ball_query_kernel, kThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ball_query_kernel<false>,
+                                                      kThreads, 0);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveClusters(&clusters, ball_query_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, ball_query_kernel<false>, &cfg);
   out[0] = static_cast<int>(fa.sharedSizeBytes);
   out[1] = per_sm;
   out[2] = clusters;

@@ -140,6 +140,9 @@ def library() -> ctypes.CDLL:
     # xyz, centers, mask|NULL, b, n, m, r2, ns, cluster, stop, idx, cnt, stream
     lib.f3d_ball_query.argtypes = [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P]
     lib.f3d_ball_query.restype = _I
+    # xyz, centers, mask|NULL, radii (b, m), b, n, m, ns, cluster, stop, idx, cnt, stream
+    lib.f3d_ball_query_radii.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib.f3d_ball_query_radii.restype = _I
     # out (host int32 (3,): warps a CTA, chunks a warp per round, largest cluster)
     lib.f3d_ball_query_shape.argtypes = [_P]
     lib.f3d_ball_query_shape.restype = None
@@ -257,16 +260,24 @@ BALL_QUERY_STOPS = {"count": 1, "exchange": 2}
 
 
 def launch_ball_query(xyz, centers, mask, r2, ns, cluster, idx, cnt,
-                      stop: Optional[str] = None) -> None:
+                      stop: Optional[str] = None, radii=None) -> None:
     """cluster: CTAs a group of 32 centres (1, 2, 4, 8 or 16); stop: a key
-    of BALL_QUERY_STOPS for the time split (idx and cnt not written)."""
+    of BALL_QUERY_STOPS for the time split (idx and cnt not written);
+    radii: a contiguous (b, m) f32 tensor of each centre's radius (the
+    per-centre entry point, which squares them and ignores r2), or None."""
     b, n, _ = xyz.shape
     m = centers.shape[1]
+    stop = 0 if stop is None else BALL_QUERY_STOPS[stop]
     with torch.cuda.device(xyz.device):
-        check(library().f3d_ball_query(_ptr(xyz), _ptr(centers), _ptr(mask), b, n,
-                                       m, r2, ns, cluster,
-                                       0 if stop is None else BALL_QUERY_STOPS[stop],
-                                       _ptr(idx), _ptr(cnt), _stream(xyz)), "ball_query")
+        if radii is None:
+            check(library().f3d_ball_query(_ptr(xyz), _ptr(centers), _ptr(mask), b, n,
+                                           m, r2, ns, cluster, stop,
+                                           _ptr(idx), _ptr(cnt), _stream(xyz)), "ball_query")
+        else:
+            check(library().f3d_ball_query_radii(_ptr(xyz), _ptr(centers), _ptr(mask),
+                                                 _ptr(radii), b, n, m, ns, cluster, stop,
+                                                 _ptr(idx), _ptr(cnt), _stream(xyz)),
+                  "ball_query_radii")
 
 
 # K3's modes, as csrc/fused_describe.cu numbers them

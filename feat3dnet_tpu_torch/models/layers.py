@@ -132,6 +132,41 @@ class ConvBN(nn.Module):
         return x
 
 
+class FullyConnected(nn.Module):
+    """Dense + optional BN + activation (after BN), the reference's
+    `fully_connected` (layers.py:131-167), which 3DFeat-Net does not call.
+    Submodules `dense` and `bn` (momentum 0.9, epsilon 1e-3) are flax's
+    names, so utils/convert maps a flax FullyConnected's variables onto it."""
+
+    def __init__(self, cin: int, features: int, use_bn: bool = False,
+                 activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = torch.relu,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dense = Dense(cin, features, dtype)
+        self.bn = BatchNorm(features, 1e-3, 0.9, dtype) if use_bn else None
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        x = self.dense(x)
+        if self.bn is not None:
+            x = self.bn(x, training)
+        if self.activation is not None:
+            x = self.activation(x)
+        return x
+
+
+def dropout(x: torch.Tensor, generator: torch.Generator, keep_prob: float = 0.5,
+            training: bool = True) -> torch.Tensor:
+    """Functional dropout (reference layers.py:107-128): each element kept
+    with probability keep_prob (a draw of `generator`, on x's device) and
+    scaled by 1 / keep_prob, else 0; x itself when not training or
+    keep_prob >= 1."""
+    if not training or keep_prob >= 1.0:
+        return x
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def to_compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """x in the compute dtype; f32, the default, leaves x's own dtype."""
     return x if dtype == torch.float32 else x.to(dtype)

@@ -3,8 +3,8 @@
 On the TPU the model ran XLA's dense ball query and the Pallas kernel was
 opt-in. Here kernel K2 (csrc/ball_query.cu) is the ball query for every
 CUDA tensor: `ops.ball_query` reaches it through `ball_query_fused`. The
-contract is `neighborhoods.ball_query_plain`'s (scalar radius, optional
-valid mask), index-exact.
+contract is `neighborhoods.ball_query_plain`'s (a scalar or a (B, M)
+per-centre radius, optional valid mask), index-exact.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from feat3dnet_tpu_torch import kernels
-from feat3dnet_tpu_torch.ops.neighborhoods import _scalar_radius, ball_query_plain
+from feat3dnet_tpu_torch.ops.neighborhoods import (Radius, ball_query_plain,
+                                                   per_centre_radius)
 
 
 def ball_query_cluster_size(b: int, m: int, n: int, shape: Tuple[int, int, int],
@@ -49,20 +50,22 @@ def k2_cluster_size(b: int, m: int, n: int, device: torch.device) -> int:
     return ball_query_cluster_size(b, m, n, kernels.ball_query_shape(), _sm_count(device))
 
 
-def ball_query_fused(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
+def ball_query_fused(xyz: torch.Tensor, centers: torch.Tensor, radius: Radius,
                      nsample: int, valid_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Ball query through kernel K2: (B, N, 3), (B, M, 3) f32 ->
-    (idx (B, M, nsample) int32, cnt (B, M) int32).
+    """Ball query through kernel K2: (B, N, 3), (B, M, 3) f32, a scalar or
+    a contiguous (B, M) f32 radius -> (idx (B, M, nsample) int32, cnt (B, M)
+    int32).
 
-    CPU tensors take `ball_query_plain`; CUDA tensors launch the kernel,
-    and anything it does not take raises.
+    CPU tensors take `ball_query_plain`; CUDA tensors launch the kernel
+    (a (B, M) radius: its per-centre entry point, which squares each
+    radius on the card), and anything it does not take raises. Each launch counts in
+    `launches` and in `mode_launches` ('scalar' or 'radii').
     """
     if xyz.device.type == "cpu":
         return ball_query_plain(xyz, centers, radius, nsample, valid_mask)
     if xyz.device.type != "cuda":
         raise ValueError(f"ball_query_fused: unsupported device {xyz.device}")
-    r = _scalar_radius(radius)
     if (xyz.dtype != torch.float32 or centers.dtype != torch.float32
             or xyz.dim() != 3 or centers.dim() != 3 or xyz.shape[2] != 3
             or centers.shape[2] != 3 or centers.shape[0] != xyz.shape[0]):
@@ -82,14 +85,23 @@ def ball_query_fused(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
             or valid_mask.device != xyz.device or not valid_mask.is_contiguous()):
         raise ValueError("ball_query_fused: valid_mask must be a contiguous (B, N) "
                          f"bool tensor on {xyz.device}")
-    r2 = float(np.float32(r) * np.float32(r))                # float32 square
+    radii = per_centre_radius(radius, xyz, centers)
+    if radii is None:
+        r = float(radius)
+        r2, mode = float(np.float32(r) * np.float32(r)), "scalar"   # float32 square
+    else:
+        if not radii.is_contiguous():
+            raise ValueError("ball_query_fused: the (B, M) radius must be contiguous")
+        r2, mode = 0.0, "radii"
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=xyz.device)
     kernels.launch_ball_query(xyz, centers, valid_mask, r2, nsample,
-                              k2_cluster_size(b, m, n, xyz.device), idx, cnt)
+                              k2_cluster_size(b, m, n, xyz.device), idx, cnt, radii=radii)
     ball_query_fused.launches += 1
+    ball_query_fused.mode_launches[mode] += 1
     return idx, cnt
 
 
 ball_query_fused.launches = 0
+ball_query_fused.mode_launches = {"scalar": 0, "radii": 0}
 ball_query_fused.plain = ball_query_plain

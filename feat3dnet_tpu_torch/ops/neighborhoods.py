@@ -1,4 +1,4 @@
-"""Ball query, grouping and gathers (port of feat3dnet_tpu/ops/neighborhoods.py).
+"""Ball query, grouping, gathers and kNN (port of feat3dnet_tpu/ops/neighborhoods.py).
 
 Ball-query contract (reference query_ball_point_gpu, with the JAX
 package's per-centre nearest fallback): the first `nsample` points in index
@@ -7,16 +7,26 @@ order with d2 < r^2 (strict; d2 from coordinate differences, never the
 in-ball index; an empty ball gets the centre's nearest valid point (first
 index on ties) in every slot; masked points are never selected.
 
+The radius is a scalar (a Python number or a 0-d tensor) or, as in
+QueryBallPoint2, a (B, M) tensor of the cloud's dtype on its device, one
+radius per centre. r^2 is the square in that dtype (JAX's
+`jnp.square(radius)`), so a zero or NaN radius is an empty ball (the
+nearest point fills it) and a negative one acts as its absolute value.
+
 `ball_query_plain` is the CPU path and the oracle for kernel K2
 (ops/batch_group.py); `ball_query` dispatches on the tensors' device.
-Per-centre radii (QueryBallPoint2) and `knn_points` are not ported yet
-(no path of the port calls them).
+`knn_points` is plain torch on every device (JAX's is `lax.top_k`, no
+Pallas kernel).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from numbers import Real
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
+
+Radius = Union[float, torch.Tensor]
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -30,13 +40,26 @@ def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d
 
 
-def _scalar_radius(radius) -> float:
-    if isinstance(radius, torch.Tensor) and radius.dim() > 0:
-        raise NotImplementedError("per-centre radii are not ported yet")
-    return float(radius)
+def per_centre_radius(radius: Radius, xyz: torch.Tensor,
+                      centers: torch.Tensor) -> Optional[torch.Tensor]:
+    """The (B, M) radius tensor of a per-centre query, or None for a scalar
+    radius (a real number or a 0-d tensor); anything else raises."""
+    if isinstance(radius, torch.Tensor):
+        if radius.dim() == 0:
+            return None
+        if (radius.shape != centers.shape[:-1] or radius.dtype != xyz.dtype
+                or radius.device != xyz.device):
+            raise ValueError(f"ball_query: a per-centre radius is a {tuple(centers.shape[:-1])} "
+                             f"{xyz.dtype} tensor on {xyz.device}, got {tuple(radius.shape)} "
+                             f"{radius.dtype} on {radius.device}")
+        return radius
+    if isinstance(radius, (Real, np.ndarray)) and np.ndim(radius) == 0:
+        return None
+    raise TypeError(f"ball_query: the radius is a number, a 0-d tensor or a (B, M) tensor, "
+                    f"got {type(radius).__name__}")
 
 
-def ball_query_plain(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
+def ball_query_plain(xyz: torch.Tensor, centers: torch.Tensor, radius: Radius,
                      nsample: int, valid_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain ball query: (B, N, 3), (B, M, 3) -> idx (B, M, nsample) int32,
@@ -48,8 +71,12 @@ def ball_query_plain(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     """
     n = xyz.shape[-2]
     lead = centers.shape[:-1]
-    r = torch.tensor(_scalar_radius(radius), dtype=xyz.dtype)
-    r2 = (r * r).item()                                      # float32 square
+    radii = per_centre_radius(radius, xyz, centers)
+    if radii is None:
+        r = torch.tensor(float(radius), dtype=xyz.dtype)
+        r2 = (r * r).item()                                  # square in xyz's dtype
+    else:
+        r2 = (radii * radii).reshape(-1, 1)                  # (BM, 1), on the device
     d2 = pairwise_sqdist(centers, xyz).reshape(-1, n)        # (BM, N)
     in_ball = d2 < r2
     valid_rows = None
@@ -72,11 +99,12 @@ def ball_query_plain(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     return idx.reshape(*lead, nsample), cnt.reshape(lead)
 
 
-def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
+def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: Radius,
                nsample: int, valid_mask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fixed-size radius neighbourhoods: the plain version on CPU tensors,
-    kernel K2 (ops/batch_group.ball_query_fused) on CUDA tensors."""
+    """Fixed-size radius neighbourhoods (a scalar or a (B, M) radius): the
+    plain version on CPU tensors, kernel K2 (ops/batch_group.ball_query_fused)
+    on CUDA tensors."""
     from feat3dnet_tpu_torch.ops.batch_group import ball_query_fused
 
     return ball_query_fused(xyz, centers, radius, nsample, valid_mask)
@@ -93,3 +121,22 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C), (B, M) -> (B, M, C)."""
     flat = idx.long()[..., None].expand(*idx.shape, points.shape[-1])
     return torch.gather(points, 1, flat)
+
+
+def knn_points(k: int, xyz: torch.Tensor, centers: torch.Tensor,
+               valid_mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest points of each centre: (dist2 (B, M, k) in xyz's dtype,
+    idx (B, M, k) int32), nearest first, ties to the lower index (as
+    `lax.top_k` on -d2, and the reference's selection sort); masked points
+    are at inf. A stable ascending sort of d2, the same order on every
+    device (torch.topk orders ties arbitrarily on CUDA). Holds (B, M, N)."""
+    n = xyz.shape[-2]
+    if not 0 <= k <= n:
+        raise ValueError(f"knn_points: k={k} with N={n} points")
+    d2 = pairwise_sqdist(centers, xyz)
+    if valid_mask is not None:
+        d2 = torch.where(valid_mask[..., None, :], d2,
+                         torch.tensor(float("inf"), dtype=d2.dtype, device=d2.device))
+    dist2, idx = torch.sort(d2, dim=-1, stable=True)
+    return dist2[..., :k].contiguous(), idx[..., :k].to(torch.int32)

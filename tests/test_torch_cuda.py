@@ -8,7 +8,9 @@ imports no JAX, so it runs on a machine that has none:
 
 FPS (K1, at every cluster size, with masks and ties across its slices),
 the ball query (K2, at every cluster size, at the training shape, past a
-round of its widest cluster, all masked, N and M off every boundary), the
+round of its widest cluster, all masked, N and M off every boundary; its
+per-centre form at every cluster size too, with radii of 0, NaN, below 0
+and 1e3, and bit-equal to the scalar form when every radius is equal), the
 sorted ball query (K4, also on padding, covered
 blocks and a tile that straddles the padding) and the ball max (K5, also
 on padding, covered blocks, a constant field and values past its start
@@ -141,6 +143,54 @@ def test_ball_query_kernel_every_cluster_size(dev, rs, case, cluster):
                               ik, ck)
     ip, cp = ball_query_plain(x, c, 1.2, 64, mk)
     assert torch.equal(ik, ip) and torch.equal(ck, cp)
+
+
+def _radii(rs, b, m):
+    """Per-centre radii 0.3-2.5 with a zero, a NaN, a negative one and 1e3."""
+    r = rs.uniform(0.3, 2.5, (b, m)).astype(np.float32)
+    r[:, 0], r[:, 1], r[:, 2], r[:, 3] = 0.0, np.nan, -r[:, 4], 1e3
+    return r
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("case", ["random", "saturated", "ragged", "training"])
+def test_ball_query_radii_kernel_every_cluster_size(dev, rs, case, cluster):
+    """K2's per-centre form at each cluster size against the plain version."""
+    xyz, ctr, mask = _bq_case(case, rs)
+    x, c = torch.from_numpy(xyz).to(dev), torch.from_numpy(ctr).to(dev)
+    mk = None if mask is None else torch.from_numpy(mask).to(dev)
+    b, m = ctr.shape[:2]
+    radii = torch.from_numpy(_radii(rs, b, m)).to(dev)
+    ik = torch.empty((b, m, 64), dtype=torch.int32, device=dev)
+    ck = torch.empty((b, m), dtype=torch.int32, device=dev)
+    kernels.launch_ball_query(x, c, mk, 0.0, 64, cluster, ik, ck, radii=radii)
+    ip, cp = ball_query_plain(x, c, radii, 64, mk)
+    assert torch.equal(ik, ip) and torch.equal(ck, cp)
+
+
+def test_ball_query_radii_through_the_wrapper(dev, rs):
+    xyz, ctr, mask = _bq_case("ragged", rs)
+    x, c, mk = (torch.from_numpy(a).to(dev) for a in (xyz, ctr, mask))
+    radii = torch.from_numpy(_radii(rs, *ctr.shape[:2])).to(dev)
+    n0, r0 = ball_query_fused.launches, ball_query_fused.mode_launches["radii"]
+    ik, ck = ball_query_fused(x, c, radii, 64, mk)
+    ip, cp = ball_query_plain(x, c, radii, 64, mk)
+    assert torch.equal(ik, ip) and torch.equal(ck, cp)
+    assert ball_query_fused.launches == n0 + 1
+    assert ball_query_fused.mode_launches["radii"] == r0 + 1
+    with pytest.raises(ValueError):
+        ball_query_fused(x, c, radii.cpu(), 64, mk)
+
+
+@pytest.mark.parametrize("case", ["random", "mask", "training", "70000"])
+def test_ball_query_radii_equal_is_scalar(dev, rs, case):
+    """Every radius equal: the per-centre launch bit-equal to the scalar one."""
+    xyz, ctr, mask = _bq_case(case, rs)
+    x, c = torch.from_numpy(xyz).to(dev), torch.from_numpy(ctr).to(dev)
+    mk = None if mask is None else torch.from_numpy(mask).to(dev)
+    radii = torch.full(ctr.shape[:2], 1.2, dtype=torch.float32, device=dev)
+    (ir, cr), (i_s, cs) = ball_query_fused(x, c, radii, 64, mk), ball_query_fused(x, c, 1.2, 64, mk)
+    assert torch.equal(ir, i_s) and torch.equal(cr, cs)
 
 
 def test_ball_query_shape_is_the_sources(dev):

@@ -105,12 +105,6 @@ def test_ball_query_at_radius_is_strict():
     assert cnt.item() == 1 and idx.tolist() == [[[1, 1, 1, 1]]]
 
 
-def test_ball_query_per_centre_radius_raises():
-    xyz = torch.zeros(1, 4, 3)
-    with pytest.raises(NotImplementedError):
-        ball_query(xyz, xyz, torch.ones(1, 4), 2)
-
-
 def test_pairwise_sqdist_matches_jax(rng):
     from feat3dnet_tpu.ops.neighborhoods import pairwise_sqdist as jax_sqdist
 

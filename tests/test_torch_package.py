@@ -4,7 +4,10 @@
   tests/test_torch_cuda.py) imports JAX or its libraries — checked on
   the source, since this test process itself has JAX loaded.
 * Every kernel wrapper carries a launch counter and its plain twin, takes
-  the twin only for CPU tensors, and refuses other devices.
+  the twin only for CPU tensors, and refuses other devices; K2's wrapper
+  counts its scalar and per-centre launches apart.
+* `feat3dnet_tpu_torch.ops` exports what JAX's `ops` exports, but for the
+  CSR entry points (TPU layouts of K4's and K5's computations).
 * The kernel sources exist, carry their note, and nothing builds at import.
 """
 import ast
@@ -74,6 +77,29 @@ def test_wrapper_has_counter_and_plain_twin(name):
     assert isinstance(wrapper.launches, int)
     assert wrapper.plain is plain
     assert wrapper.__module__ == plain.__module__ or name == "ball_query"
+
+
+def test_ball_query_counts_its_modes():
+    w = batch_group.ball_query_fused
+    assert set(w.mode_launches) == {"scalar", "radii"}
+    assert all(isinstance(n, int) for n in w.mode_launches.values())
+    with pytest.raises(ValueError, match="unsupported device"):
+        meta = torch.device("meta")
+        w(torch.empty(1, 8, 3, device=meta), torch.empty(1, 2, 3, device=meta),
+          torch.ones(1, 2, device=meta), 4)
+
+
+def test_ops_exports_jax_names():
+    from feat3dnet_tpu import ops as jax_ops
+    from feat3dnet_tpu_torch import ops
+
+    csr = {"build_hit_csr_host", "ball_query_grouped_csr", "ball_max_csr"}
+    assert set(jax_ops.__all__) - set(ops.__all__) == csr
+    for name in ("knn_points", "prob_sample", "sample_points", "sample_and_group",
+                 "sample_and_group_all"):
+        assert getattr(ops, name).__module__.startswith("feat3dnet_tpu_torch.ops."), name
+    for name in ops.__all__:
+        assert callable(getattr(ops, name)), name
 
 
 def test_wrappers_refuse_other_devices():
