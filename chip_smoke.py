@@ -244,6 +244,45 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
      dropout's kept share, values and seed; then per vendored cloud the
      per-centre launch, the scalar launch and the plain version in turns,
      on the device alone (graph_ms), beside the bound.
+  23. the training modes (training_modes_phase), at the paper config and
+     TrainConfig() widths, under build/chip_smoke_modes/ (phase 20 trains
+     on the numpy reader, numpy_reader(), so that its figure stays
+     comparable):
+     a. the native reader (csrc/host/pointcloud_io.cpp, built with g++ at
+        first use; its build seconds): TripletDataset("auto") takes it; two
+        batches of phase 20's cli.prepare dataset equal per-cloud
+        load_processed calls with the epoch's seeds; a batch of 6 triplets
+        x 4 096 points, native against numpy, in turns; cli.train stage 1
+        with phase 20's flags on it (K1, K2, K7-K10 launched, log.txt naming
+        the reader) and its median ms between metrics rows beside phase
+        20's numpy figure;
+     b. the chained step (k = 4), fused and autograd, from one state: one
+        chained call under torch.cuda.set_sync_debug_mode("error")
+        bit-equal to 4 fused calls (params, BN buffers, Adam moments,
+        metrics), K1, K2 and K7-K10 launched 4 times one step's count; ms per
+        step of the chained call and of the loop, in turns, synchronised,
+        and each one's device busy share (profiler); a one-rank nccl
+        chained data-parallel step bit-equal to the chained step on both
+        routes;
+     c. the int16 upload: the card's dequantized batch equal to the host's
+        q * scale bit for bit, a fused step from (q, scale) equal to one
+        from that f32 batch; the bytes and each copy's ms;
+     d. the memory modes on the autograd route in f32 and bf16 compute
+        (remat_towers, residual_dtype bfloat16, the trainer's remat): peak
+        GiB and step ms beside plain; remat_towers and remat bit-equal to
+        plain in loss, every gradient and the BN buffers after one step;
+        residual_dtype's f32 step bit-equal to the same squash points
+        through plain autograd (the packing changes nothing), its loss
+        within 1e-4 of the CPU's step of the same mode, and the gradients'
+        card-vs-CPU cosines printed (not gated: the squash points round
+        the two devices' f32 sums to bf16 with other flips, which moves
+        noise-dominated leaves to cosines near 0.97);
+     e. cli.train for 8 steps each, launch counters reset per run:
+        --steps_per_dispatch 4 (rows and losses bit-equal to a's run), with
+        and without --upload_quant int16 (bit-equal to --upload_quant int16
+        alone), --remat_towers, --compute_dtype bfloat16 --residual_dtype
+        bfloat16, each run's rows held to phase 20c's rules;
+     the phase's wall time.
 Option: --parent DIR also builds another tree's training kernels, K1-K6
 (its csrc/fused_train.cu, csrc/fps.cu, csrc/ball_query.cu,
 csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
@@ -3673,6 +3712,21 @@ def write_submap_file(path, rs, world):
     return pts
 
 
+@contextlib.contextmanager
+def numpy_reader():
+    """TripletDataset's "auto" takes the numpy reader while active (phase 20's
+    runs keep the reader they were measured with; phase 23 runs the native
+    one beside them)."""
+    from feat3dnet_tpu_torch.utils import native
+
+    saved = native.native_available
+    native.native_available = lambda: False
+    try:
+        yield
+    finally:
+        native.native_available = saved
+
+
 class FirstStepProbe:
     """Patches trainer.make_fused_train_step (which cli.train imports when it
     runs) so that the first step of a run records, before it runs, the
@@ -3875,7 +3929,8 @@ def workflow_phase(dev, card, npz_path, data_dir):
     for name, args in runs.items():
         for w in wrappers.values():
             w.launches = 0
-        with FirstStepProbe() as probe, contextlib.redirect_stdout(io.StringIO()):
+        with FirstStepProbe() as probe, numpy_reader(), \
+                contextlib.redirect_stdout(io.StringIO()):
             states[name] = train_cli.main(args + common)
         seen[name] = probe.seen
         got = {k: w.launches for k, w in wrappers.items()}
@@ -3980,6 +4035,7 @@ def workflow_phase(dev, card, npz_path, data_dir):
           f"{[tuple(o.shape) for o in outs]} finite, launches {got} ({times['e']:.2f} s)")
     print(f"[{card}] workflow phase wall times (s): " + ", ".join(
         f"{k} {v:.2f}" for k, v in times.items()))
+    return {"data": data, "stage1": runs["stage 1"] + common, "step_ms": step_ms}
 
 
 # ---- 21. data and point parallelism ------------------------------------------------
@@ -4500,6 +4556,427 @@ def point_api_phase(dev, card, gpu, cpu):
     return {"ball_query_radii": report}, {"ball_query_radii": launches["radii"]}
 
 
+# ---- 23. the training modes ------------------------------------------------------------------
+MODE_K = 4             # steps a chained call in phase 23
+MODE_STEPS = 3         # timed steps a memory mode
+
+
+def host_tree(tree):
+    """A metrics tree on the host (numpy), for bit-equality checks."""
+    return {k: host_tree(v) if isinstance(v, dict) else v.detach().cpu().numpy()
+            for k, v in tree.items()}
+
+
+def trees_equal(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(trees_equal(a[k], b[k]) for k in a)
+    return np.array_equal(a, b)
+
+
+def state_equal(s1, s2):
+    """Parameters, BN buffers and Adam's moments and steps bit-equal."""
+    import torch
+
+    m1, m2 = s1.model, s2.model
+    if not (all(torch.equal(x, y) for x, y in zip(m1.parameters(), m2.parameters()))
+            and all(torch.equal(x, y) for x, y in zip(m1.buffers(), m2.buffers()))
+            and (s1.step, s1.count) == (s2.step, s2.count)):
+        return False
+    for p, q in zip(m1.parameters(), m2.parameters()):
+        a, b = s1.optimizer.state[p], s2.optimizer.state[q]
+        if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+            return False
+    return True
+
+
+def metrics_rows(log_dir):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_rows(tag, log_dir, steps, attention):
+    """Phase 20c's rules on a cli.train run's rows; returns them without ts."""
+    rows = metrics_rows(log_dir)
+    require(len(rows) == steps and all(np.isfinite(r["loss"]) for r in rows),
+            f"{tag}: {len(rows)} rows for {steps} steps, losses {[r.get('loss') for r in rows]}")
+    for r in rows:
+        h = r["hist_det_cnt"]
+        require(len(h["counts"]) == 16 and sum(h["counts"]) == h["num"] and h["hi"] <= NS,
+                f"{tag}: hist_det_cnt {h}")
+        require(("hist_normalized_attention" in r) == attention,
+                f"{tag}: hist_normalized_attention in {sorted(r)}")
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        require("Arguments" in f.read(), f"{tag}: no Arguments line in log.txt")
+    return [{k: v for k, v in r.items() if k != "ts"} for r in rows]
+
+
+def row_gap_ms(log_dir):
+    return float(np.median(np.diff([r["ts"] for r in metrics_rows(log_dir)]) * 1e3))
+
+
+def profiled_busy(fn):
+    """(wall ms, device busy ms) of one call of fn under torch.profiler."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return wall, busy
+
+
+def training_modes_phase(dev, card, workflow):
+    """Phase 23: a-e of the module docstring, at the paper config and
+    TrainConfig() widths."""
+    import io
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from feat3dnet_tpu_torch.cli import train as train_cli
+    from feat3dnet_tpu_torch.config import ModelConfig, TrainConfig
+    from feat3dnet_tpu_torch.data.augment import resolve_augmentations
+    from feat3dnet_tpu_torch.data.datagenerator import TripletDataset
+    from feat3dnet_tpu_torch.data.quant import quantize_clouds
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.ops import batch_group, fps
+    from feat3dnet_tpu_torch.ops import fused_train as ft
+    from feat3dnet_tpu_torch.parallel import make_chained_dp_train_step
+    from feat3dnet_tpu_torch.train import (init_state, make_chained_train_step,
+                                           make_fused_train_step)
+    from feat3dnet_tpu_torch.train.trainer import dequantize, upload
+    from feat3dnet_tpu_torch.utils import init_variables, native
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "chip_smoke_modes")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg, tcfg = ModelConfig(), TrainConfig()
+    aug = tuple(resolve_augmentations(tcfg.augmentations, tcfg.upright_axis))
+    variables = init_variables(cfg, seed=SEED)
+    wrappers = {"fps": fps.farthest_point_sample, "ball_query": batch_group.ball_query_fused,
+                "train_stats": ft.stats_pass, "train_final": ft.final_pass,
+                "train_bwd_top": ft.bwd_top_pass, "train_bwd": ft.bwd_pass}
+    times = {}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def cli_run(tag, args):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return train_cli.main(args)
+
+    # ---- 23a. the native reader --------------------------------------------------------
+    t0 = time.perf_counter()
+    built = native.build()
+    meta = os.path.join(workflow["data"], "train", "train.txt")
+    ds = TripletDataset(meta)
+    require(ds.use_native, "23a: TripletDataset('auto') did not take the native reader")
+    batch = tcfg.batch_size
+    got = ds.epoch_triplets(0, batch, TRAIN_POINTS)
+    order, rng = ds.epoch_order(0), np.random.RandomState((ds.seed, 0, ds.shard_index, 0xA5))
+    for start in (0, batch):
+        ids = []
+        for anchor in order[start:start + batch]:
+            ids.extend((int(anchor),) + ds.sample_triplet_indices(int(anchor), rng))
+        seeds = [int(rng.randint(0, 2 ** 31)) for _ in ids]
+        want = np.stack([native.load_processed(os.path.join(ds.folder, ds.meta[i].fname),
+                                               ds.num_cols, tcfg.crop_radius, TRAIN_POINTS, s)
+                         for i, s in zip(ids, seeds)]).reshape(batch, 3, TRAIN_POINTS, -1)
+        require(all(np.array_equal(x, want[:, r]) for r, x in enumerate(next(got))),
+                f"23a: the native batch at {start} differs from per-cloud load_processed")
+    readers = {"native": ds, "numpy": TripletDataset(meta, use_native="no")}
+    read_ms = {k: [] for k in readers}
+    for rnd in range(5):
+        for k in (("numpy", "native", "native", "numpy") if rnd % 2 else
+                  ("native", "numpy", "numpy", "native")):
+            t1 = time.perf_counter()
+            next(readers[k].epoch_triplets(rnd, batch, TRAIN_POINTS))
+            read_ms[k].append((time.perf_counter() - t1) * 1e3)
+    native_run = os.path.join(root, "stage1_native")
+    args = list(workflow["stage1"])
+    args[args.index("--log_dir") + 1] = native_run
+    zero()
+    cli_run("23a", args)
+    require(all(v > 0 for v in counts().values()), f"23a cli.train: launches {counts()}")
+    native_rows = check_rows("23a cli.train stage 1 (native)", native_run, 8, False)
+    with open(os.path.join(native_run, "log.txt")) as f:
+        require("Triplet reader: native" in f.read(), "23a: log.txt does not name the native reader")
+    times["a"] = time.perf_counter() - t0
+    print(f"23a. native reader: built in {built.seconds:.2f} s ({os.path.relpath(built.path, HERE)}); "
+          "TripletDataset('auto') takes it; 2 batches of phase 20's dataset equal per-cloud "
+          f"load_processed with the epoch's seeds ({times['a']:.2f} s)")
+    print(f"[{card}] 23a. a batch of {batch} triplets x {TRAIN_POINTS} points (first batch of a "
+          f"fresh epoch, 10 each in turns): native median {np.median(read_ms['native']):.3f} ms "
+          f"(min {min(read_ms['native']):.3f}), numpy {np.median(read_ms['numpy']):.3f} ms "
+          f"(min {min(read_ms['numpy']):.3f})")
+    print(f"[{card}] 23a. cli.train stage 1 (phase 20's flags) on the native reader: median "
+          f"{row_gap_ms(native_run):.2f} ms between consecutive metrics rows; phase 20 on numpy "
+          f"{workflow['step_ms']:.2f} ms")
+
+    # ---- 23b. the chained step ---------------------------------------------------------
+    t0 = time.perf_counter()
+    clouds_k = torch.stack([training_batch(dev, SEED + 300 + j) for j in range(MODE_K)])
+    chained_ms = {}
+    for route in ("fused", "autograd"):
+        rcfg = ModelConfig(fused_towers=route == "fused")
+        states = {k: init_state(Feat3DNet(rcfg), tcfg, rcfg, variables=variables, device=dev)
+                  for k in ("chained", "loop")}
+        chained = make_chained_train_step(states["chained"].model, rcfg.margin, rcfg.attention,
+                                          augmentations=aug, aug_seed=1)
+        single = make_fused_train_step(states["loop"].model, rcfg.margin, rcfg.attention,
+                                       augmentations=aug, aug_seed=1)
+        zero()
+        metrics = []
+        for j in range(MODE_K):
+            metrics.append(host_tree(single(states["loop"], clouds_k[j])[1]))
+        torch.cuda.synchronize()
+        loop_counts = counts()
+        zero()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, met_k = chained(states["chained"], clouds_k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        chain_counts = counts()
+        met_k = host_tree(met_k)
+        require(state_equal(states["chained"], states["loop"]),
+                f"23b {route}: the chained call's state differs from {MODE_K} fused calls'")
+        require(all(trees_equal({k: (v[j] if not isinstance(v, dict) else
+                                     {f: x[j] for f, x in v.items()})
+                                 for k, v in met_k.items()}, metrics[j])
+                    for j in range(MODE_K)), f"23b {route}: metrics differ")
+        require(chain_counts == loop_counts and loop_counts["fps"] == MODE_K
+                and (route == "autograd" or min(loop_counts[k] for k in wrappers
+                                                if k.startswith("train")) > 0),
+                f"23b {route}: launches chained {chain_counts}, loop {loop_counts}")
+        one = {k: v // MODE_K for k, v in loop_counts.items()}
+        print(f"23b. {route}: one chained call of {MODE_K} steps under "
+              "set_sync_debug_mode('error') bit-equal to 4 fused calls (params, BN buffers, "
+              f"Adam moments, metrics); launches {chain_counts} = {MODE_K} x {one}")
+
+        def run_chained():
+            chained(states["chained"], clouds_k)
+
+        def run_loop():
+            for j in range(MODE_K):
+                single(states["loop"], clouds_k[j])
+
+        per = {"chained": [], "loop": []}
+        for kind in ("loop", "chained", "chained", "loop") * 2:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (run_chained if kind == "chained" else run_loop)()
+            torch.cuda.synchronize()
+            per[kind].append((time.perf_counter() - t1) * 1e3 / MODE_K)
+        busy = {k: profiled_busy(f) for k, f in (("chained", run_chained), ("loop", run_loop))}
+        chained_ms[route] = per
+        print(f"[{card}] 23b. {route} route, ms per step ({MODE_K} steps a call, 4 calls each in "
+              "turns, synchronised): chained " + ", ".join(f"{x:.2f}" for x in per["chained"])
+              + " (median " + f"{np.median(per['chained']):.2f}), loop of fused calls "
+              + ", ".join(f"{x:.2f}" for x in per["loop"])
+              + f" (median {np.median(per['loop']):.2f}); profiled: chained busy "
+              f"{busy['chained'][1]:.2f} of {busy['chained'][0]:.2f} ms "
+              f"({100 * busy['chained'][1] / busy['chained'][0]:.1f} %), loop "
+              f"{busy['loop'][1]:.2f} of {busy['loop'][0]:.2f} ms "
+              f"({100 * busy['loop'][1] / busy['loop'][0]:.1f} %)")
+        del states, chained, single
+    # a one-rank nccl chained data-parallel step against the plain chained step
+    store = os.path.join(root, f"store_{os.getpid()}")
+    dist.init_process_group("nccl", init_method="file://" + store, world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        for route in ("fused", "autograd"):
+            rcfg = ModelConfig(fused_towers=route == "fused")
+            sp = init_state(Feat3DNet(rcfg), tcfg, rcfg, variables=variables, device=dev)
+            sd = init_state(Feat3DNet(rcfg, bn_group=group), tcfg, rcfg, variables=variables,
+                            device=dev)
+            _, mp = make_chained_train_step(sp.model, rcfg.margin, rcfg.attention,
+                                            augmentations=aug, aug_seed=1)(sp, clouds_k)
+            _, md = make_chained_dp_train_step(sd.model, rcfg.margin, rcfg.attention, group,
+                                               augmentations=aug, aug_seed=1)(sd, clouds_k)
+            require(state_equal(sp, sd) and trees_equal(host_tree(mp), host_tree(md)),
+                    f"23b {route}: the one-rank chained DP step differs from the chained step")
+            del sp, sd
+        print(f"23b. one-rank nccl chained DP step ({MODE_K} steps) bit-equal to the chained "
+              "step on both routes (params, BN buffers, Adam moments, metrics)")
+    finally:
+        dist.destroy_process_group()
+    times["b"] = time.perf_counter() - t0
+
+    # ---- 23c. the int16 upload ---------------------------------------------------------
+    t0 = time.perf_counter()
+    host = training_batch(torch.device("cpu"), SEED + 400).numpy()
+    q, scale = quantize_clouds(host)
+    qd, sd_ = upload(host, dev, quant=True)
+    deq = dequantize((qd, sd_)).cpu().numpy()
+    require(np.array_equal(deq, q.astype(np.float32) * scale),
+            "23c: the card's dequantized batch differs from the host's q * scale")
+    rcfg = ModelConfig(fused_towers=True)
+    s1 = init_state(Feat3DNet(rcfg), tcfg, rcfg, variables=variables, device=dev)
+    s2 = init_state(Feat3DNet(rcfg), tcfg, rcfg, variables=variables, device=dev)
+    _, m1 = make_fused_train_step(s1.model, rcfg.margin, rcfg.attention, augmentations=aug,
+                                  aug_seed=1)(s1, (qd, sd_))
+    _, m2 = make_fused_train_step(s2.model, rcfg.margin, rcfg.attention, augmentations=aug,
+                                  aug_seed=1)(s2, torch.from_numpy(deq).to(dev))
+    require(state_equal(s1, s2) and trees_equal(host_tree(m1), host_tree(m2)),
+            "23c: a fused step from (q, scale) differs from one from its f32 batch")
+    del s1, s2
+    copy_ms = {"f32": [], "int16": []}
+    quant_ms = []
+    for rnd in range(10):
+        for kind in (("f32", "int16") if rnd % 2 else ("int16", "f32")):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if kind == "f32":
+                torch.from_numpy(host).to(dev)
+            else:
+                torch.from_numpy(q).to(dev)
+                torch.from_numpy(np.asarray(scale, np.float32)).to(dev)
+            torch.cuda.synchronize()
+            copy_ms[kind].append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        quantize_clouds(host)
+        quant_ms.append((time.perf_counter() - t1) * 1e3)
+    times["c"] = time.perf_counter() - t0
+    print(f"23c. int16 upload: the card's q * scale equals the host's bit for bit; a fused "
+          f"step from (q, scale) equals one from that f32 batch ({times['c']:.2f} s)")
+    print(f"[{card}] 23c. upload of one {tuple(host.shape)} batch (pageable, synchronised, 10 "
+          f"each in turns): f32 {host.nbytes} bytes median {np.median(copy_ms['f32']):.4f} ms; "
+          f"int16 {q.nbytes} + 4 bytes median {np.median(copy_ms['int16']):.4f} ms (q and scale); "
+          f"quantize_clouds on the host median {np.median(quant_ms):.4f} ms")
+
+    # ---- 23d. the memory modes on the autograd route -------------------------------------
+    t0 = time.perf_counter()
+    clouds = clouds_k[0]
+    modes = {"plain": ({}, False), "remat_towers": ({"remat_towers": True}, False),
+             "residual_dtype": ({"residual_dtype": torch.bfloat16}, False),
+             "remat": ({}, True)}
+    mem = {}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        first = {}
+        for mode, (kw, remat) in modes.items():
+            mcfg = ModelConfig(compute_dtype=dtype, **kw)
+            st = init_state(Feat3DNet(mcfg), tcfg, mcfg, variables=variables, device=dev)
+            step = make_fused_train_step(st.model, mcfg.margin, mcfg.attention, remat=remat)
+            _, met = step(st, clouds)
+            first[mode] = (met["loss"].item(),
+                           {k: p.grad.detach().clone() for k, p in st.model.named_parameters()},
+                           [b.detach().clone() for b in st.model.buffers()])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            per = []
+            for _ in range(MODE_STEPS):
+                t1 = time.perf_counter()
+                step(st, clouds)
+                torch.cuda.synchronize()
+                per.append((time.perf_counter() - t1) * 1e3)
+            mem[dname, mode] = (torch.cuda.max_memory_allocated() / 2 ** 30, float(np.median(per)))
+            del st, step
+            torch.cuda.empty_cache()
+        if dname == "float32":
+            first_f32 = first
+        lp, gp, bp = first["plain"]
+        for mode in ("remat_towers", "remat"):
+            lm, gm, bm = first[mode]
+            require(lm == lp and all(torch.equal(gm[k], gp[k]) for k in gp)
+                    and all(torch.equal(x, y) for x, y in zip(bm, bp)),
+                    f"23d {dname} {mode}: loss, gradients or BN buffers differ from plain")
+        print(f"23d. {dname}: remat_towers and remat bit-equal to plain autograd (loss, every "
+              "gradient, BN buffers after one step: the EMA once)")
+    # residual_dtype on the card: packing the saved tensors changes nothing
+    # (bit-equal to the same squash points through plain autograd), and the
+    # step against the CPU's step of the same mode
+    from feat3dnet_tpu_torch.models import feat3dnet as model_module
+
+    rcfg = ModelConfig(residual_dtype=torch.bfloat16)
+    packed_at = model_module._maybe_remat
+    model_module._maybe_remat = lambda per_point, c, training: per_point
+    try:
+        st = init_state(Feat3DNet(rcfg), tcfg, rcfg, variables=variables, device=dev)
+        _, met = make_fused_train_step(st.model, rcfg.margin, rcfg.attention)(st, clouds)
+    finally:
+        model_module._maybe_remat = packed_at
+    loss_card, resid_card = first_f32["residual_dtype"][0], first_f32["residual_dtype"][1]
+    require(met["loss"].item() == loss_card and all(
+        torch.equal(p.grad, resid_card[k]) for k, p in st.model.named_parameters()),
+        "23d residual_dtype: the packed step differs from the same squash points unpacked")
+    st = init_state(Feat3DNet(rcfg), tcfg, rcfg, variables=variables, device="cpu")
+    t1 = time.perf_counter()
+    _, met = make_fused_train_step(st.model, rcfg.margin, rcfg.attention)(st, clouds.cpu())
+    cpu_s = time.perf_counter() - t1
+    loss_cpu = met["loss"].item()
+    resid_cpu = {k: p.grad for k, p in st.model.named_parameters()}
+    zeros = {k for k in resid_cpu if k.endswith("conv2d.bias") and ".conv" in k} | {
+        f"description.conv_mid_{len(rcfg.descriptor_mlp2) - 1}.bn.bias"}
+    cos = {k: torch.nn.functional.cosine_similarity(resid_card[k].cpu().flatten(),
+                                                    g.flatten(), dim=0).item()
+           for k, g in resid_cpu.items() if k not in zeros}
+    worst = sorted(cos, key=cos.get)[:3]
+    zmax = max(max(resid_card[k].abs().max().item(), resid_cpu[k].abs().max().item())
+               for k in zeros)
+    require(abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu),
+            f"23d residual_dtype: loss on the card {loss_card} vs the CPU {loss_cpu}")
+    del st
+    times["d"] = time.perf_counter() - t0
+    print(f"23d. residual_dtype (bf16), one step: packed bit-equal to unpacked on the card; "
+          f"loss card {loss_card:.7f} vs CPU {loss_cpu:.7f} (rel <= 1e-4); gradients card vs "
+          "CPU (not gated: the squash points round the two devices' f32 sums to bf16 with "
+          "other flips) worst cosine " + ", ".join(f"{k} {cos[k]:.6f}" for k in worst)
+          + f", analytic zeros max |g| {zmax:.2e}; CPU step {cpu_s:.1f} s")
+    for (dname, mode), (gib, ms) in mem.items():
+        print(f"[{card}] 23d. autograd route {dname} {mode}: peak {gib:.3f} GiB, step "
+              f"{ms:.2f} ms (median of {MODE_STEPS}; plain {mem[dname, 'plain'][0]:.3f} GiB, "
+              f"{mem[dname, 'plain'][1]:.2f} ms)")
+
+    # ---- 23e. cli.train with the modes ---------------------------------------------------
+    t0 = time.perf_counter()
+    base = [a for a in workflow["stage1"]]
+    runs = {"chained": ["--steps_per_dispatch", str(MODE_K)],
+            "int16": ["--upload_quant", "int16"],
+            "chained int16": ["--steps_per_dispatch", str(MODE_K), "--upload_quant", "int16"],
+            "remat_towers": ["--remat_towers"],
+            "bf16 residual": ["--compute_dtype", "bfloat16", "--residual_dtype", "bfloat16"]}
+    rows = {}
+    for name, extra in runs.items():
+        args = list(base)
+        log_dir = os.path.join(root, name.replace(" ", "_"))
+        args[args.index("--log_dir") + 1] = log_dir
+        if name in ("remat_towers", "bf16 residual"):
+            args.remove("--fused_towers")
+        zero()
+        cli_run(name, args + extra)
+        got = counts()
+        fused_run = "--fused_towers" in args
+        require(got["fps"] > 0 and got["ball_query"] > 0
+                and (not fused_run or min(got[k] for k in wrappers if k.startswith("train")) > 0),
+                f"23e cli.train {name}: launches {got}")
+        rows[name] = check_rows(f"23e cli.train {name}", log_dir, 8, False)
+        print(f"23e. cli.train {' '.join(extra)}: 8 rows, losses "
+              f"{[round(r['loss'], 4) for r in rows[name]]}, launches {got}")
+    require(rows["chained"] == native_rows,
+            f"23e: --steps_per_dispatch {MODE_K} rows differ from --steps_per_dispatch 1's")
+    require(rows["chained int16"] == rows["int16"],
+            f"23e: --steps_per_dispatch {MODE_K} --upload_quant int16 rows differ from "
+            "--upload_quant int16's")
+    times["e"] = time.perf_counter() - t0
+    print(f"23e. --steps_per_dispatch {MODE_K}: rows and losses bit-equal to one step a call, "
+          f"with and without --upload_quant int16 ({times['e']:.2f} s)")
+    print(f"[{card}] phase 23 (training modes) wall {time.perf_counter() - t_phase:.1f} s; "
+          "sub-phases (s): " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+
+
 def main():
     import argparse
 
@@ -4903,9 +5380,9 @@ def main():
                 os.path.dirname(example_cloud_path(CLOUDS[0])))
 
     # ---- 20. the workflow around the model: prepare, TF1, training, histograms, entry() -----
-    workflow_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
-                                           "ckpt4480_variables.npz"),
-                   os.path.dirname(example_cloud_path(CLOUDS[0])))
+    workflow = workflow_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
+                                                      "ckpt4480_variables.npz"),
+                              os.path.dirname(example_cloud_path(CLOUDS[0])))
 
     # ---- 21. data and point parallelism: DP steps over process groups, sharded extraction ----
     parallel_phase(dev, card, os.path.join(HERE, "feat3dnet_tpu_torch", "assets",
@@ -4915,6 +5392,9 @@ def main():
     more = point_api_phase(dev, card, gpu, clouds)
     report.update(more[0])
     launches.update(more[1])
+
+    # ---- 23. the training modes: native reader, chained step, int16 upload, memory modes ----
+    training_modes_phase(dev, card, workflow)
 
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),

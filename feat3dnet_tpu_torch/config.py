@@ -4,12 +4,11 @@ Same fields, defaults and derived widths as the JAX dataclasses, with torch
 dtypes in place of jnp ones. `compute_dtype` is the model's compute dtype
 in eval and training, as flax's `dtype`: the towers' convs, BN outputs and
 heads run in it, parameters and BN statistics stay f32, and the outputs
-are f32. The training-only fields (remat, residual dtype, fused towers) are
-kept so that configurations round-trip between the two packages; the eval
-forward ignores them, the training forward reads `fused_towers` (f32 only,
-as in JAX: other compute dtypes train through autograd) and
-`fused_cot_dtype` and refuses the two TPU-era memory modes
-(`remat_towers`, `residual_dtype`). The extraction pipeline's fused
+are f32. The training-only fields (memory modes, fused towers) round-trip
+between the two packages; the eval forward ignores them. The training
+forward reads `fused_towers` (f32 only, as in JAX: other compute dtypes
+train through autograd), `fused_cot_dtype` and the two memory modes of the
+autograd route (see ModelConfig). The extraction pipeline's fused
 detector and the cluster server read their own modes, not `compute_dtype`.
 """
 from __future__ import annotations
@@ -29,6 +28,15 @@ class ModelConfig:
     feature_dim: descriptor width. attention / regress_orientation /
     use_bn: the reference switches. bn_momentum / bn_epsilon: flax's
     BatchNorm constants (momentum 0.9 is flax's decay convention).
+    remat_towers: in training on the autograd route, each tower's per-point
+    segment saves only its input and is recomputed in the backward
+    (torch.utils.checkpoint; bit-equal, the BN EMA applied once).
+    residual_dtype: e.g. torch.bfloat16; in training every ConvBN rounds
+    its Dense output and its activation's output to it (their cotangents
+    too), and on the autograd route the per-point segments keep those
+    rounded copies, in that dtype, as what autograd saves (with ReLU masks;
+    no recompute); not bit-equal to f32 training. It takes precedence over
+    remat_towers; fused_towers still takes the pre-pool segments.
     """
 
     num_clusters: int = 512

@@ -6,8 +6,15 @@ from the clouds outside positives and nonnegatives; per cloud a crop to a
 20 m radius around the origin, then a random downsample without
 replacement to num_points, or duplicate-padding with random resampling.
 Epoch e's order is `RandomState((seed, e)).permutation`, sliced per shard.
-Batches are bit-equal to the JAX package's numpy branch; its native C++
-reader is not part of the port.
+
+Two readers, as in the JAX package, each bit-equal to its JAX branch:
+`use_native="auto"` (the default) takes the native C++ reader
+(utils/native.py: every cloud of a batch read, cropped and resampled on
+host threads, with a seed per cloud drawn from the epoch's RandomState)
+when it builds, else numpy; True, "true" or "yes" takes the native reader
+and raises if it cannot be built; anything else takes numpy. The two draw
+different resamples: the same command trains on different clouds with
+either reader. `use_native` after construction says which one runs.
 """
 from __future__ import annotations
 
@@ -43,16 +50,24 @@ def parse_metadata(path: str) -> List[TripletMetadata]:
 
 
 class TripletDataset:
-    """Seeded triplet sampler over a train.txt metadata file (numpy reader)."""
+    """Seeded triplet sampler over a train.txt metadata file."""
 
     def __init__(self, metadata_file: str, num_cols: int = 6, seed: int = 0,
-                 shard_index: int = 0, num_shards: int = 1):
+                 shard_index: int = 0, num_shards: int = 1, use_native="auto"):
+        from feat3dnet_tpu_torch.utils import native
+
         self.folder = os.path.split(metadata_file)[0]
         self.meta = parse_metadata(metadata_file)
         self.num_cols = num_cols
         self.seed = seed
         self.shard_index = shard_index
         self.num_shards = num_shards
+        if use_native == "auto":
+            self.use_native = native.native_available()
+        else:
+            self.use_native = use_native in (True, "true", "yes")
+            if self.use_native:
+                native.library()          # raises where the reader cannot be built
         self.size = len(self.meta)
         # each anchor's negative pool: the complement of positives | nonnegatives
         self._neg_pool = [np.array([i for i in range(self.size)
@@ -84,6 +99,21 @@ class TripletDataset:
         num_cols); the ragged tail is dropped."""
         order = self.epoch_order(epoch)
         rng = np.random.RandomState((self.seed, epoch, self.shard_index, 0xA5))
+        if self.use_native:
+            from feat3dnet_tpu_torch.utils.native import load_processed_batch
+
+            for start in range(0, len(order) - batch_size + 1, batch_size):
+                ids = []
+                for anchor in order[start:start + batch_size]:
+                    pos, neg = self.sample_triplet_indices(int(anchor), rng)
+                    ids.extend((int(anchor), pos, neg))
+                paths = [os.path.join(self.folder, self.meta[i].fname) for i in ids]
+                seeds = [int(rng.randint(0, 2**31)) for _ in ids]
+                flat = load_processed_batch(paths, self.num_cols, crop_radius, num_points,
+                                            seeds).reshape(batch_size, 3, num_points,
+                                                           self.num_cols)
+                yield flat[:, 0], flat[:, 1], flat[:, 2]
+            return
         batch_a, batch_p, batch_n = [], [], []
         for anchor in order:
             pos, neg = self.sample_triplet_indices(int(anchor), rng)

@@ -41,6 +41,11 @@ def load_point_cloud(path: str, num_cols: int = 6) -> np.ndarray:
     return np.loadtxt(path, dtype=np.float32, delimiter=",")
 
 
+def save_point_cloud(path: str, cloud: np.ndarray) -> None:
+    """Write a cloud as float32 rows (the .bin format load_point_cloud reads)."""
+    np.ascontiguousarray(cloud, dtype=np.float32).tofile(path)
+
+
 def save_descriptors(path: str, xyz: np.ndarray, features: np.ndarray) -> None:
     """Write [xyz | descriptor] float32 rows."""
     out = np.concatenate(

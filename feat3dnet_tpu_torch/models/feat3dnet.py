@@ -17,6 +17,14 @@ Training (`training=True`) takes flax BatchNorm's batch moments and writes
 their EMA into the BN buffers. With `cfg.fused_towers` (f32) the pre-pool
 segments of both towers run through ops/fused_train.tower_prepool_fused
 (kernels K7-K10 on CUDA), otherwise through torch autograd over `ConvBN`.
+On the autograd route the memory modes wrap those segments (JAX's
+`_maybe_remat`): under `cfg.residual_dtype` autograd saves the segment's
+bf16-exact tensors as bf16 (models/layers.residual_saving: the ConvBN
+squash points, with ReLU masks and BN's small vectors), with no
+recompute; `cfg.remat_towers` saves only the segment's input and
+recomputes it in the backward (models/layers.remat). `residual_dtype`
+takes precedence, and its squash points apply to every ConvBN in
+training, the post-pool ones too.
 On CUDA tensors FPS and the ball query run kernels K1 and K2; the other
 tower products are torch matmuls (the JAX package leaves them to XLA).
 `bn_group` (the JAX model's `bn_axis_name`): a torch.distributed process
@@ -34,7 +42,8 @@ import torch
 from torch import nn
 
 from feat3dnet_tpu_torch.config import ModelConfig
-from feat3dnet_tpu_torch.models.layers import (ConvBN, Dense, from_compute, l2_normalize,
+from feat3dnet_tpu_torch.models.layers import (ConvBN, Dense, from_compute, keep_low,
+                                              l2_normalize, remat, residual_saving,
                                               to_compute)
 from feat3dnet_tpu_torch.ops import (ball_query, farthest_point_sample,
                                      gather_points, group_points)
@@ -83,7 +92,8 @@ def _convs(module: nn.Module, prefix: str, cin: int, widths, cfg: ModelConfig,
                                                  bn_epsilon=cfg.bn_epsilon,
                                                  bn_momentum=cfg.bn_momentum,
                                                  dtype=cfg.compute_dtype,
-                                                 bn_group=bn_group))
+                                                 bn_group=bn_group,
+                                                 residual_dtype=cfg.residual_dtype))
         cin = f
     return cin
 
@@ -95,12 +105,25 @@ def _run(module: nn.Module, prefix: str, n: int, x: torch.Tensor,
     return x
 
 
+def _maybe_remat(per_point, cfg: ModelConfig, training: bool):
+    """A tower's pre-pool segment under the config's memory mode (training
+    only): residual_dtype saves its bf16-exact tensors as bf16;
+    remat_towers saves only the input and recomputes the rest."""
+    if not training:
+        return per_point
+    if cfg.residual_dtype is not None:
+        def packed(h):
+            with residual_saving():
+                return per_point(h)
+
+        return packed
+    if cfg.remat_towers:
+        return lambda h: remat(per_point, h)
+    return per_point
+
+
 def _use_fused_towers(cfg: ModelConfig, training: bool) -> bool:
     """The fused tower pipeline applies to f32 training only."""
-    if training and (cfg.remat_towers or cfg.residual_dtype is not None):
-        raise NotImplementedError(
-            "remat_towers / residual_dtype are TPU-era memory modes that the port does "
-            "not have (ROADMAP.md: not ported, on purpose)")
     use = cfg.fused_towers and training and cfg.compute_dtype == torch.float32
     if use and not cfg.use_bn:
         raise ValueError("fused_towers needs use_bn=True (the kernels train ConvBN)")
@@ -148,8 +171,11 @@ class Detector(nn.Module):
             x = _fused_prepool(self, grouped, [f"conv{i}" for i in range(n)],
                                detector_plan(n), cfg, self.bn_group)
         else:
-            x = _run(self, "conv", n, grouped, training)
-            x = torch.amax(x, dim=2, keepdim=True)                # pool over samples
+            def per_point(h):
+                h = _run(self, "conv", n, h, training)
+                return torch.amax(h, dim=2, keepdim=True)        # pool over samples
+
+            x = _maybe_remat(per_point, cfg, training)(grouped)
         x = _run(self, "conv_post_", len(cfg.detector_mlp2), x, training)
         att = self.attention(x)[..., 0, 0]
         attention = from_compute(torch.logaddexp(att, torch.zeros((), dtype=att.dtype,
@@ -182,11 +208,17 @@ class Descriptor(nn.Module):
             x = _fused_prepool(self, grouped, names, descriptor_plan(n_pre, n_mid), cfg,
                                self.bn_group)
         else:
-            h = _run(self, "conv", n_pre, to_compute(grouped, cfg.compute_dtype), training)
-            pooled = torch.amax(h, dim=2, keepdim=True).expand_as(h)
-            h = torch.cat([h, pooled], dim=-1)
-            h = _run(self, "conv_mid_", n_mid, h, training)
-            x = torch.amax(h, dim=2, keepdim=True)
+            def per_point(h):
+                h = _run(self, "conv", n_pre, h, training)
+                pooled = torch.amax(h, dim=2, keepdim=True).expand_as(h)
+                h = torch.cat([h, pooled], dim=-1)
+                rd = cfg.residual_dtype
+                if training and rd is not None and h.dtype != rd:
+                    h = keep_low(h, h.to(rd))       # squashed values: exact in rd
+                h = _run(self, "conv_mid_", n_mid, h, training)
+                return torch.amax(h, dim=2, keepdim=True)
+
+            x = _maybe_remat(per_point, cfg, training)(to_compute(grouped, cfg.compute_dtype))
         x = _run(self, "conv_post_", len(cfg.descriptor_mlp3), x, training)
         return l2_normalize(from_compute(x[..., 0, :], cfg.compute_dtype), dim=-1, epsilon=1e-8)
 

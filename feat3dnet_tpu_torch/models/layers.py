@@ -35,10 +35,29 @@ holds as many rows (the data-parallel step's shards are equal), so that is
 the global mean. Averaging the ranks' means, not dividing a summed sum by
 the summed count, keeps a group of one bit-equal to no group on CUDA too,
 where `mean` multiplies the sum by 1/n. The EMA takes the global moments.
+
+Memory modes of training:
+* `remat` (flax's nn.remat): a segment run under torch.utils.checkpoint
+  saves only its inputs and is recomputed in the backward, bit-equal.
+  BatchNorm writes its EMA in the forward only, never in the recompute, so
+  a step applies it once, as flax does.
+* residual_dtype (JAX's squash points, `ConvBN(residual_dtype=)`): in
+  training the Dense output and the activation's output are rounded to
+  that dtype and back; autograd's ToCopyBackward rounds the cotangent
+  there the same way, as JAX's transpose of the cast does. Inside
+  `residual_saving()` every tensor autograd saves that is exact in the low
+  dtype (a squash point's output, BN's f32 view of a low-precision input,
+  the descriptor's concat of squashed tensors) is kept as its low-precision
+  copy, and BN's normalise and the ReLU save nothing else full-size (the
+  input and a bool mask): the bytes JAX's save_only_these_names policy
+  keeps, with no recompute. Gradients equal those of the same squash
+  points without the packing.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+import threading
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -46,6 +65,108 @@ import torch.nn.functional as F
 from torch import nn
 
 from feat3dnet_tpu_torch.utils.collectives import all_reduce_sum
+
+_recompute = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether this thread is recomputing a `remat` segment for the backward."""
+    return getattr(_recompute, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _recompute_context():
+    _recompute.depth = getattr(_recompute, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _recompute.depth -= 1
+
+
+def remat(fn: Callable, *args):
+    """fn(*args) under torch.utils.checkpoint (non-reentrant): the backward
+    recomputes the segment from its inputs (flax nn.remat), bit-equal to the
+    forward; BatchNorm skips its EMA while recomputing."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recompute_context()))
+
+
+def keep_low(t: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
+    """Mark t as exactly `low` (a lower-precision tensor of the same values):
+    residual_saving() saves `low` in its place."""
+    t._residual_low = low
+    return t
+
+
+class _Low:
+    __slots__ = ("low", "dtype")
+
+    def __init__(self, low: torch.Tensor, dtype: torch.dtype):
+        self.low, self.dtype = low, dtype
+
+
+def _pack(t: torch.Tensor):
+    low = getattr(t, "_residual_low", None)
+    base = t._base
+    if low is None and base is not None and base.is_contiguous():
+        # a view of a marked tensor (e.g. Dense's 2-D view of its input)
+        base_low = getattr(base, "_residual_low", None)
+        if base_low is not None:
+            low = base_low.as_strided(t.size(), t.stride(), t.storage_offset())
+    return t if low is None else _Low(low, t.dtype)
+
+
+def _unpack(p):
+    return p.low.to(p.dtype) if isinstance(p, _Low) else p
+
+
+def residual_saving():
+    """Context in which autograd saves each keep_low-marked tensor as its
+    low-precision copy (residual_dtype's memory saving)."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
+
+
+def squash_residual(x: torch.Tensor, dtype: Any, active: bool) -> torch.Tensor:
+    """x rounded to `dtype` and back when active (a squash point), marked so
+    that residual_saving() keeps the rounded copy."""
+    if not active or x.dtype == dtype:
+        return x
+    low = x.to(dtype)
+    return keep_low(low.to(x.dtype), low)
+
+
+class _Normalize(torch.autograd.Function):
+    """(x - mean) * mul + bias over the last axis's channels, saving x, mean
+    and mul (not x - mean); the gradients of that expression."""
+
+    @staticmethod
+    def forward(ctx, x, mean, mul, bias):
+        ctx.save_for_backward(x, mean, mul)
+        return (x - mean) * mul + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, mul = ctx.saved_tensors
+        axes = tuple(range(g.dim() - 1))
+        gd = g * mul
+        return gd, (-gd).sum(axes), (g * (x - mean)).sum(axes), g.sum(axes)
+
+
+class _Relu(torch.autograd.Function):
+    """relu(z), saving the bool mask z > 0 (not the f32 output)."""
+
+    @staticmethod
+    def forward(ctx, z):
+        mask = z > 0
+        ctx.save_for_backward(mask)
+        return torch.where(mask, z, torch.zeros((), dtype=z.dtype, device=z.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return torch.where(mask, g, torch.zeros((), dtype=g.dtype, device=g.device))
 
 
 class Dense(nn.Linear):
@@ -83,15 +204,22 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def update_stats(self, batch_mean: torch.Tensor, batch_var: torch.Tensor) -> None:
-        """flax's EMA of the batch moments into the running statistics."""
+        """flax's EMA of the batch moments into the running statistics (not
+        while a `remat` segment recomputes: once a step)."""
+        if recomputing():
+            return
         m = self.momentum
         self.mean.copy_(m * self.mean + (1.0 - m) * batch_mean)
         self.var.copy_(m * self.var + (1.0 - m) * batch_var)
 
-    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False,
+                residual: bool = False) -> torch.Tensor:
+        """residual: residual_dtype's training forward (the same values; the
+        f32 view of a low-precision input marked for residual_saving, the
+        normalise saving its input, not x - mean)."""
         low = self.dtype != torch.float32
         if low:
-            x = x.to(torch.float32)
+            x = keep_low(x.to(torch.float32), x) if residual else x.to(torch.float32)
         if not training:
             mean, var = self.mean, self.var
         else:
@@ -105,30 +233,37 @@ class BatchNorm(nn.Module):
             var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
             self.update_stats(mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.epsilon) * self.scale
-        y = (x - mean) * mul + self.bias
+        y = _Normalize.apply(x, mean, mul, self.bias) if residual \
+            else (x - mean) * mul + self.bias
         return y.to(self.dtype) if low else y
 
 
 class ConvBN(nn.Module):
     """Dense (= 1x1 conv) + optional BN + activation (after BN), computed in
-    `dtype`."""
+    `dtype`. residual_dtype (training only): squash points after the Dense
+    output and after the activation; BN's moments are taken over the
+    squashed values."""
 
     def __init__(self, cin: int, features: int, use_bn: bool = True,
                  activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = torch.relu,
                  bn_epsilon: float = 1e-3, bn_momentum: float = 0.9,
-                 dtype: torch.dtype = torch.float32, bn_group=None):
+                 dtype: torch.dtype = torch.float32, bn_group=None,
+                 residual_dtype: Any = None):
         super().__init__()
         self.conv2d = Dense(cin, features, dtype)
         self.bn = BatchNorm(features, bn_epsilon, bn_momentum, dtype, bn_group) \
             if use_bn else None
         self.activation = activation
+        self.residual_dtype = residual_dtype
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
-        x = self.conv2d(x)
+        squash = self.residual_dtype is not None and training
+        x = squash_residual(self.conv2d(x), self.residual_dtype, squash)
         if self.bn is not None:
-            x = self.bn(x, training)
+            x = self.bn(x, training, residual=squash)
         if self.activation is not None:
-            x = self.activation(x)
+            act = _Relu.apply if squash and self.activation is torch.relu else self.activation
+            x = squash_residual(act(x), self.residual_dtype, squash)
         return x
 
 

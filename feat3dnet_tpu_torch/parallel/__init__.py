@@ -8,7 +8,8 @@
   cloud split over a mesh of devices, the cloud copied to each;
 * meshes (mesh.py) and the multi-process glue (multihost.py).
 """
-from feat3dnet_tpu_torch.parallel.data_parallel import (make_dp_train_step,
+from feat3dnet_tpu_torch.parallel.data_parallel import (make_chained_dp_train_step,
+                                                        make_dp_train_step,
                                                         make_fused_dp_train_step, run_ranks,
                                                         shard_batch)
 from feat3dnet_tpu_torch.parallel.mesh import as_mesh, make_mesh
@@ -17,5 +18,6 @@ from feat3dnet_tpu_torch.parallel.point_parallel import (keypoint_sharded_attent
 
 __all__ = [
     "make_mesh", "as_mesh", "make_dp_train_step", "make_fused_dp_train_step",
+    "make_chained_dp_train_step",
     "shard_batch", "run_ranks", "keypoint_sharded_attention", "make_sharded_extract",
 ]

@@ -55,14 +55,16 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", dist.get_rank()))
 
 
-def shard_dataset(metadata_file: str, num_cols: int = 6, seed: int = 0, group=None):
+def shard_dataset(metadata_file: str, num_cols: int = 6, seed: int = 0, group=None,
+                  use_native="auto"):
     """This rank's TripletDataset slice of `group` (the default group; no
     group and no default group: the whole set): every rank computes the
     same epoch permutation and takes its rank's stride, with no traffic
-    (data/datagenerator.py epoch_order)."""
+    (data/datagenerator.py epoch_order). use_native: TripletDataset's."""
     from feat3dnet_tpu_torch.data.datagenerator import TripletDataset
 
     alone = group is None and not dist.is_initialized()
     return TripletDataset(metadata_file, num_cols=num_cols, seed=seed,
                           shard_index=0 if alone else dist.get_rank(group),
-                          num_shards=1 if alone else dist.get_world_size(group))
+                          num_shards=1 if alone else dist.get_world_size(group),
+                          use_native=use_native)

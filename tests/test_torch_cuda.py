@@ -36,7 +36,10 @@ bit on both detector routes. A data-parallel step over a one-rank nccl
 group (K7-K10 with their all-reduces on the fused route, and the autograd
 route) must equal the plain step bit for bit, and `extract` on a mesh
 that names the card twice must equal `extract` bit for bit on the
-default, fused and dense routes.
+default, fused and dense routes. The chained step (from an int16 upload)
+must run with no host sync and equal k fused calls bit for bit, and
+remat_towers and the trainer's remat must equal the plain step bit for
+bit.
 """
 import os
 import re
@@ -817,3 +820,73 @@ def test_mesh_of_one_card_twice_matches_extract(dev, rs, route):
     assert got.num_keypoints == want.num_keypoints > 0
     for f in ("keypoints", "attention", "features"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("route", ["fused", "autograd"])
+def test_chained_step_is_sync_free_and_equals_fused_calls(dev, rs, route):
+    """The chained step (k = 3, from an int16 upload) runs under sync debug
+    mode "error" and equals 3 fused calls bit for bit: params, BN buffers,
+    metrics; on the fused route K7 launches 3 times one step's count."""
+    from feat3dnet_tpu_torch.config import TrainConfig
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.train.trainer import (init_state, make_chained_train_step,
+                                                   make_fused_train_step, stack_chunk,
+                                                   stack_triplet)
+
+    cfg = ModelConfig(fused_towers=route == "fused")
+    triplets = []
+    for _ in range(3):
+        a = rs.randn(2, 4096, 3).astype(np.float32) * 6.0
+        triplets.append((a, a + 0.01 * rs.randn(*a.shape).astype(np.float32),
+                         a + 0.2 * rs.randn(*a.shape).astype(np.float32)))
+    states = [init_state(Feat3DNet(cfg), TrainConfig(), cfg,
+                         variables=init_variables(cfg, seed=0), device=dev) for _ in range(2)]
+    aug = dict(augmentations=("RotateSmall", "Jitter"), aug_seed=1)
+    single = make_fused_train_step(states[1].model, cfg.margin, cfg.attention, **aug)
+    tft.stats_pass.launches = 0
+    for t in triplets:
+        _, last = single(states[1], stack_triplet(t, dev, quant=True))
+    one = tft.stats_pass.launches
+    chunk = stack_chunk(triplets, dev, quant=True)
+    chained = make_chained_train_step(states[0].model, cfg.margin, cfg.attention, **aug)
+    tft.stats_pass.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, metrics = chained(states[0], chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tft.stats_pass.launches == one and (route == "autograd") == (one == 0)
+    m0, m1 = states[0].model, states[1].model
+    assert all(torch.equal(x, y) for x, y in zip(m0.parameters(), m1.parameters()))
+    assert all(torch.equal(x, y) for x, y in zip(m0.buffers(), m1.buffers()))
+    assert torch.equal(metrics["loss"][-1], last["loss"])
+    assert torch.equal(metrics["hist_det_cnt"]["counts"][-1], last["hist_det_cnt"]["counts"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_modes_equal_plain_on_the_card(dev, rs, dtype):
+    """remat_towers and the trainer's remat on the card's autograd route:
+    the loss, every gradient and the BN buffers after a step equal the
+    plain step's bit for bit (the recompute repeats the same kernels)."""
+    from feat3dnet_tpu_torch.config import TrainConfig
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.train.trainer import init_state, make_fused_train_step
+
+    a = rs.randn(2, 4096, 3).astype(np.float32) * 6.0
+    stacked = torch.from_numpy(np.concatenate([a, a + 0.01 * rs.randn(*a.shape),
+                                               a + 0.2 * rs.randn(*a.shape)]
+                                              ).astype(np.float32)).to(dev)
+    out = []
+    for towers, remat in ((False, False), (True, False), (False, True)):
+        cfg = ModelConfig(compute_dtype=dtype, remat_towers=towers)
+        state = init_state(Feat3DNet(cfg), TrainConfig(), cfg,
+                           variables=init_variables(cfg, seed=0), device=dev)
+        _, metrics = make_fused_train_step(state.model, cfg.margin, cfg.attention,
+                                           remat=remat)(state, stacked)
+        out.append((metrics["loss"], [p.grad for p in state.model.parameters()],
+                    list(state.model.buffers())))
+    for loss, grads, buffers in out[1:]:
+        assert torch.equal(loss, out[0][0])
+        assert all(torch.equal(x, y) for x, y in zip(grads, out[0][1]))
+        assert all(torch.equal(x, y) for x, y in zip(buffers, out[0][2]))

@@ -100,7 +100,8 @@ def _write_dataset(root, rs):
 @pytest.mark.parametrize("shard", [(0, 1), (1, 2)])
 def test_triplet_dataset_matches_jax(tmp_path, shard):
     meta = _write_dataset(str(tmp_path / "train"), np.random.RandomState(1))
-    ours = tdg.TripletDataset(meta, seed=4, shard_index=shard[0], num_shards=shard[1])
+    ours = tdg.TripletDataset(meta, seed=4, shard_index=shard[0], num_shards=shard[1],
+                              use_native="no")
     theirs = jdg.TripletDataset(meta, seed=4, shard_index=shard[0], num_shards=shard[1],
                                 use_native="no")
     assert ours.size == theirs.size == 6

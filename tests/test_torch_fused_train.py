@@ -303,14 +303,3 @@ def test_training_forward_matches_jax(rng, fused):
     for path, a in flat_t:
         np.testing.assert_allclose(a, np.asarray(flat_j[path]), rtol=1e-4, atol=1e-6,
                                    err_msg=jax.tree_util.keystr(path))
-
-
-def test_memory_modes_refused_in_training(rng):
-    cfg = ModelConfig(**SMALL, remat_towers=True)
-    model = Feat3DNet(cfg)
-    cloud = torch.from_numpy(rng.randn(1, 64, 3).astype(np.float32))
-    model(cloud, training=False)                   # eval ignores them
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(cloud, training=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Feat3DNet(ModelConfig(**SMALL, residual_dtype=torch.bfloat16))(cloud, training=True)
