@@ -283,6 +283,25 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
         alone), --remat_towers, --compute_dtype bfloat16 --residual_dtype
         bfloat16, each run's rows held to phase 20c's rules;
      the phase's wall time.
+  24. the accuracy programs (recipe_phase; feat3dnet_tpu_torch/examples/),
+     under build/chip_smoke_recipe/:
+     a. scaled_accuracy_run.main --places 48 --stage1_epochs 1
+        --stage2_epochs 4 --fused_towers --test_pairs 8 (32 + 128 steps; 8
+        held-out registration pairs keep the phase within 90 s): each stage ran
+        every step, stage 2's log names the restore of stage 1's last step
+        and the restore replayed (CheckpointManager, restore_exclude
+        detection) gives stage 1's weights and count outside `detection` and
+        the seeded init inside it; K1, K2, K7-K10 launched in training, K4,
+        K5 in the evaluation; every section of the JAX
+        examples/results/scaled_accuracy/summary.json present and finite;
+     b. the committed port-trained weights (examples/results/scaled_accuracy/
+        autograd_seed0/variables.npz under the port) at kp1024_ratio0_nms02
+        on the default and the fused route (K4, K5; K6, K3 on the fused),
+        each held to that run's committed summary at phase 18's limits
+        (precision@1m +- 1.0, putative and keypoints per cloud +- 1 %,
+        registration >= 20/24);
+     the phase's launches on a line of their own (not in the kernels line)
+     and its wall time.
 Option: --parent DIR also builds another tree's training kernels, K1-K6
 (its csrc/fused_train.cu, csrc/fps.cu, csrc/ball_query.cu,
 csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
@@ -4977,6 +4996,144 @@ def training_modes_phase(dev, card, workflow):
           "sub-phases (s): " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
 
 
+RECIPE_DIR = os.path.join(HERE, "feat3dnet_tpu_torch", "examples", "results", "scaled_accuracy",
+                          "autograd_seed0")   # the committed port-trained run
+RECIPE_PLACES, RECIPE_EPOCHS = 48, (1, 4)     # 32 + 128 steps of 6 triplets
+RECIPE_TEST_PAIRS = 8                         # held-out pairs of 24a (24b takes all 24)
+JAX_SUMMARY = os.path.join(HERE, "examples", "results", "scaled_accuracy", "summary.json")
+
+
+def recipe_phase(dev, card):
+    """Phase 24: the accuracy programs (feat3dnet_tpu_torch/examples/).
+    a. scaled_accuracy_run.main at smoke size on the fused route (8 held-out
+       pairs, so that the phase stays within 90 s): both stages
+       ran every step, stage 2 restored stage 1 minus `detection` at stage
+       1's count, K1, K2 and K7-K10 launched in training and K4, K5 in the
+       evaluation, and every section of the JAX summary.json present with
+       finite values;
+    b. the committed port-trained weights (RECIPE_DIR's variables.npz) at
+       kp1024_ratio0_nms02 on both extraction routes (K3 and K6 launched on
+       the fused one), held to that run's committed summary at phase 18's
+       limits."""
+    import shutil
+
+    import torch
+
+    from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig, TrainConfig
+    from feat3dnet_tpu_torch.eval.heldout import build_test_set, evaluate_setting
+    from feat3dnet_tpu_torch.examples import scaled_accuracy_run as sar
+    from feat3dnet_tpu_torch.inference import InferencePipeline
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.train.trainer import init_state
+    from feat3dnet_tpu_torch.utils import init_variables, load_variables_npz
+    from feat3dnet_tpu_torch.utils.checkpoint import CheckpointManager
+    from feat3dnet_tpu_torch.utils.convert import variables_from_module
+
+    root = os.path.join(HERE, "build", "chip_smoke_recipe")
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+
+    # ---- 24a. the recipe at smoke size through scaled_accuracy_run.main ------------------
+    data, res = os.path.join(root, "data"), os.path.join(root, "results")
+    s1_epochs, s2_epochs = RECIPE_EPOCHS
+    summary = sar.main(["--places", str(RECIPE_PLACES), "--stage1_epochs", str(s1_epochs),
+                        "--stage2_epochs", str(s2_epochs), "--fused_towers", "--device", str(dev),
+                        "--test_pairs", str(RECIPE_TEST_PAIRS), "--keep_dir", data,
+                        "--results_dir", res])
+    t_a = time.perf_counter() - t_phase
+    spe = RECIPE_PLACES * 4 // 6
+    s1, s2 = os.path.join(data, "run_stage1"), os.path.join(data, "run_stage2")
+    s1_ckpt = CheckpointManager(os.path.join(s1, "ckpt"))
+    require(s1_ckpt.latest_step() == spe * s1_epochs,
+            f"24a: stage 1 ended at step {s1_ckpt.latest_step()}, not {spe * s1_epochs}")
+    require(summary["final_step"] == summary["final_count"] == spe * (s1_epochs + s2_epochs),
+            f"24a: stage 2 ended at step {summary['final_step']}, count "
+            f"{summary['final_count']}, not {spe * (s1_epochs + s2_epochs)}")
+    with open(os.path.join(s2, "log.txt")) as f:
+        require(f"Restored checkpoint at step {spe * s1_epochs}" in f.read(),
+                "24a: stage 2's log names no restore of stage 1's last step")
+    # stage 2's restore, replayed as cli.train makes it: stage 1's weights and
+    # count outside `detection`, the seeded init inside it
+    mcfg = ModelConfig(num_clusters=256, num_samples=64, fused_towers=True)
+    state = init_state(Feat3DNet(mcfg), TrainConfig(batch_size=6, learning_rate=5e-5), mcfg,
+                       0, None, dev)
+    state = s1_ckpt.restore(state, restore_exclude=("detection",))
+    got = flat_tree(sar.host_variables(variables_from_module(state.model)))
+    ckpt = torch.load(os.path.join(s1, "ckpt", f"ckpt_{spe * s1_epochs}.pt"),
+                      map_location="cpu", weights_only=True)
+    stage1, fresh = flat_tree(ckpt["variables"]), flat_tree(init_variables(mcfg, seed=0))
+    det = [k for k in got if k.split("/")[1] == "detection"]
+    require(det and state.count == spe * s1_epochs == ckpt["count"],
+            f"24a: restored count {state.count}, stage 1's {ckpt['count']}")
+    for k, v in got.items():
+        want = fresh[k] if k in det else stage1[k]
+        require(np.array_equal(v, want),
+                f"24a: restored {k} is not {'the init' if k in det else 'stage 1'}'s")
+    train_k = ("fps", "ball_query", "train_stats", "train_final", "train_bwd_top", "train_bwd")
+    for k in train_k:
+        require(summary["launches"]["train"][k] > 0, f"24a: {k} not launched in training")
+    for k in ("sorted_ball_query", "ball_max"):
+        require(summary["launches"]["eval"][k] > 0, f"24a: {k} not launched in evaluation")
+    with open(JAX_SUMMARY) as f:
+        sections = sorted(json.load(f))
+    for k in sections:
+        require(k in summary and sar.finite(summary[k]), f"24a: summary section {k}: "
+                f"{json.dumps(summary.get(k))[:200]}")
+    mb = summary["matched_budget"]["kp1024_ratio0_nms02"]
+    print(f"[{card}] 24a. scaled_accuracy_run --places {RECIPE_PLACES} --stage1_epochs "
+          f"{s1_epochs} --stage2_epochs {s2_epochs} --fused_towers --test_pairs "
+          f"{RECIPE_TEST_PAIRS}: {summary['final_step']} "
+          f"steps (stage 1 {spe * s1_epochs}, restored minus detection at count "
+          f"{spe * s1_epochs}), train {summary['train_s']:.1f} s, ms a step "
+          f"{summary['ms_per_step']}, peak {summary['peak_gib']:.3f} GiB; held-out FPR@95 "
+          f"{summary['heldout_fpr95']:.4f}, default precision@1m "
+          f"{summary['fig4']['precision_at_1m']:.4f} % ({summary['keypoints_per_cloud']:.2f} "
+          f"kp a cloud), kp1024_ratio0_nms02 {mb['fig4']['precision_at_1m']:.4f} %, "
+          f"handcrafted {summary['handcrafted_baseline']['fig4']['precision_at_1m']:.4f} %; "
+          f"sections {sections} finite; {t_a:.1f} s")
+
+    # ---- 24b. the committed port-trained weights on both extraction routes --------------
+    with open(os.path.join(RECIPE_DIR, "summary.json")) as f:
+        record = json.load(f)["matched_budget"]["kp1024_ratio0_nms02"]
+    rec_p, rec_n = record["fig4"]["precision_at_1m"], record["fig4"]["total_putative"]
+    rec_k = record["keypoints_per_cloud"]
+    test_dir = build_test_set(os.path.join(root, "heldout"), ACC_PAIRS)
+    cfg = ModelConfig(num_clusters=256, num_samples=64)
+    variables = load_variables_npz(os.path.join(RECIPE_DIR, "variables.npz"))
+    before = sar.launch_counts()
+    eval_k = {"default": ("sorted_ball_query", "ball_max"),
+              "fused": ("sorted_ball_query", "ball_max", "fused_detect", "fused_describe")}
+    for route, fused in (("default", False), ("fused", True)):
+        t0 = time.perf_counter()
+        pipe = InferencePipeline(Feat3DNet(cfg), variables, cfg, InferenceConfig(
+            min_response_ratio=0.0, nms_radius=0.2, use_fused_detector=fused), device=dev)
+        ran = sar.launch_counts()
+        entry = evaluate_setting(pipe, test_dir, os.path.join(root, f"results_{route}"))
+        ran = {k: n - ran[k] for k, n in sar.launch_counts().items()}
+        f4, reg, kp = entry["fig4"], entry["registration"], entry["keypoints_per_cloud"]
+        print(f"[{card}] 24b. port-trained autograd_seed0 kp1024_ratio0_nms02 ({route} route; "
+              f"{time.perf_counter() - t0:.1f} s): precision@1m {f4['precision_at_1m']:.4f} % "
+              f"(its record {rec_p:.4f} +- 1.0), total putative {int(f4['total_putative'])} "
+              f"({int(rec_n)} +- 1 %), keypoints per cloud {kp:.4f} ({rec_k:.4f} +- 1 %), "
+              f"registration {round(reg['success_rate'] * ACC_PAIRS)}/{ACC_PAIRS} (>= 20)")
+        for k in eval_k[route]:
+            require(ran[k] > 0, f"24b: {k} not launched on the {route} route")
+        require(abs(f4["precision_at_1m"] - rec_p) <= 1.0,
+                f"24b {route}: precision@1m {f4['precision_at_1m']:.4f} off {rec_p:.4f}")
+        require(abs(f4["total_putative"] - rec_n) <= 0.01 * rec_n,
+                f"24b {route}: total putative {f4['total_putative']} off {rec_n}")
+        require(abs(kp - rec_k) <= 0.01 * rec_k,
+                f"24b {route}: keypoints per cloud {kp:.4f} off {rec_k:.4f}")
+        require(reg["success_rate"] >= ACC_MIN_SUCCESS - 1e-9,
+                f"24b {route}: registration success {reg['success_rate']:.4f} < 20/24")
+    ran = {k: n - before[k] for k, n in sar.launch_counts().items()}
+    print(f"phase 24 launches (24b): {json.dumps(ran)}; (24a): "
+          f"{json.dumps(summary['launches'])}")
+    print(f"[{card}] phase 24 (the accuracy programs) wall "
+          f"{time.perf_counter() - t_phase:.1f} s; a {t_a:.1f} s")
+    torch.cuda.synchronize()
+
+
 def main():
     import argparse
 
@@ -5395,6 +5552,9 @@ def main():
 
     # ---- 23. the training modes: native reader, chained step, int16 upload, memory modes ----
     training_modes_phase(dev, card, workflow)
+
+    # ---- 24. the accuracy programs: the recipe at smoke size, the port-trained weights ----
+    recipe_phase(dev, card)
 
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),

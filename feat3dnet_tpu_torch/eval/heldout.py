@@ -15,11 +15,12 @@ matching and RANSAC on the pipeline's device.
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from feat3dnet_tpu_torch.data.io import load_point_cloud
+from feat3dnet_tpu_torch.data.io import load_descriptors, load_point_cloud
 from feat3dnet_tpu_torch.eval.fig4 import read_groundtruths, rotmat_from_quat
 from feat3dnet_tpu_torch.eval.matching import match_descriptors, mutual_matches
 from feat3dnet_tpu_torch.eval.ransac import ransac_rigid
@@ -175,18 +176,29 @@ def build_test_set(root, test_pairs):
     return test
 
 
-def evaluate_registration(pipe, test_dir, out, seed=0):
+def _read_result(pipe, test_dir, result_dir, i, feature_dim):
+    """Cloud i's keypoints and features: read back from result_dir's
+    [xyz | descriptor] file when given, else extracted by `pipe`."""
+    if result_dir is not None:
+        kp, feats = load_descriptors(os.path.join(result_dir, f"{i}.bin"), feature_dim)
+        return SimpleNamespace(keypoints=kp, features=feats)
+    return pipe.extract(load_point_cloud(os.path.join(test_dir, f"{i}.bin"), 6))
+
+
+def evaluate_registration(pipe, test_dir, out, seed=0, result_dir=None, feature_dim=32):
     """Extract -> mutual matches -> RANSAC (1 024 hypotheses, 1 m) -> the
     error against the known SE3; writes out["registration"]. A pair
     succeeds at < 5 degrees and < 2 m. The matching and RANSAC run on the
     pipeline's device, RANSAC drawing from a generator seeded with `seed`
-    per pair."""
+    per pair. result_dir: the pipeline's outputs for test_dir
+    (`process_directory`'s files, the extraction's float32 keypoints and
+    features unchanged), read instead of extracting every cloud again."""
     dev = pipe.device
     pairs = read_groundtruths(os.path.join(test_dir, "groundtruths.txt"))
     rot_errs, trans_errs, inliers, successes = [], [], [], []
     for a, b, t_gt, q_gt in pairs:
-        ra = pipe.extract(load_point_cloud(os.path.join(test_dir, f"{a}.bin"), 6))
-        rb = pipe.extract(load_point_cloud(os.path.join(test_dir, f"{b}.bin"), 6))
+        ra = _read_result(pipe, test_dir, result_dir, a, feature_dim)
+        rb = _read_result(pipe, test_dir, result_dir, b, feature_dim)
         fa, fb = torch.from_numpy(ra.features).to(dev), torch.from_numpy(rb.features).to(dev)
         nn_in_a, _ = match_descriptors(fa, fb)     # per-B nearest in A
         sel = np.nonzero(mutual_matches(fa, fb).cpu().numpy())[0]
@@ -219,8 +231,9 @@ def evaluate_registration(pipe, test_dir, out, seed=0):
 def evaluate_setting(pipe, test_dir, result_dir, log=lambda *_: None):
     """One inference setting through the whole held-out protocol (the body of
     the inference sweep): `process_directory` into result_dir, fig4 over the
-    pairs, keypoints per cloud and registration. Matching runs on the
-    pipeline's device. Returns {"fig4": ..., "keypoints_per_cloud": ...,
+    pairs, keypoints per cloud and registration (on result_dir's outputs,
+    which equal a second extraction's). Matching runs on the pipeline's
+    device. Returns {"fig4": ..., "keypoints_per_cloud": ...,
     "registration": ...}."""
     from feat3dnet_tpu_torch.eval.fig4 import evaluate_dataset
 
@@ -230,5 +243,5 @@ def evaluate_setting(pipe, test_dir, result_dir, log=lambda *_: None):
              "keypoints_per_cloud": float(np.mean([
                  np.fromfile(os.path.join(result_dir, f), np.float32).reshape(-1, 35).shape[0]
                  for f in os.listdir(result_dir)]))}
-    evaluate_registration(pipe, test_dir, entry)
+    evaluate_registration(pipe, test_dir, entry, result_dir=result_dir)
     return entry

@@ -10,6 +10,14 @@ count as `opt_state/count`, and the train step as `step`
         --checkpoint examples/results/scaled_accuracy/ckpt \\
         --num_clusters 256 --out feat3dnet_tpu_torch/assets/ckpt4480_train_state.npz
 
+With --init_seed S it writes instead the weights that `feat3dnet_tpu.cli.
+train --seed S` starts from (init_state at PRNGKey(S), before any step) as
+a variables npz, e.g. for the port's recipe from JAX's initial weights
+(`feat3dnet_tpu_torch.examples.scaled_accuracy_run --init_variables`):
+
+    python scripts/export_jax_train_state.py --init_seed 0 --num_clusters 256 \
+        --out build/jax_init_seed0.npz
+
 The model widths and the optimiser's layout must be the run's
 (--feature_dim, --no_bn, --lr_schedule, --freeze_scopes): the restore
 takes its structure from a fresh init_state. Layouts: 'constant' (adam,
@@ -67,6 +75,21 @@ def _numpy_tree(tree):
     return out
 
 
+def init_variables_arrays(seed, num_clusters=512, num_samples=64, feature_dim=32,
+                          use_bn=True, num_points=4096):
+    """{params, batch_stats} of the JAX CLI's fresh init_state at
+    PRNGKey(seed) (its dummy batch: 3 clouds of num_points)."""
+    from feat3dnet_tpu.config import ModelConfig, TrainConfig
+    from feat3dnet_tpu.models import Feat3DNet
+    from feat3dnet_tpu.train.trainer import init_state
+
+    cfg = ModelConfig(num_clusters=num_clusters, num_samples=num_samples,
+                      feature_dim=feature_dim, use_bn=use_bn)
+    state, _ = init_state(Feat3DNet(cfg), TrainConfig(num_points=num_points), cfg,
+                          jax.random.PRNGKey(seed))
+    return {"params": _numpy_tree(state.params), "batch_stats": _numpy_tree(state.batch_stats)}
+
+
 def train_state_arrays(state):
     """(variables, adam {"mu", "nu", "count"}, step) of a JAX TrainState in
     any of make_optimizer's layouts."""
@@ -100,10 +123,20 @@ def main(argv=None):
     p.add_argument("--no_bn", action="store_true")
     p.add_argument("--lr_schedule", default="constant", choices=["constant", "cosine"])
     p.add_argument("--freeze_scopes", nargs="+", default=None)
+    p.add_argument("--init_seed", type=int, default=None,
+                   help="write the CLI's initial weights at this seed (no checkpoint)")
     args = p.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
 
-    from feat3dnet_tpu_torch.utils.convert import save_train_state_npz
+    from feat3dnet_tpu_torch.utils.convert import save_train_state_npz, save_variables_npz
+
+    if args.init_seed is not None:
+        save_variables_npz(args.out, init_variables_arrays(
+            args.init_seed, args.num_clusters, args.num_samples, args.feature_dim,
+            not args.no_bn))
+        print(f"{args.out}: the initial weights at seed {args.init_seed}, "
+              f"{os.path.getsize(args.out)} bytes")
+        return
 
     state = restore_train_state(args.checkpoint, args.step, args.num_clusters,
                                 args.num_samples, args.feature_dim, not args.no_bn,
