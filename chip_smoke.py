@@ -302,6 +302,23 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
         registration >= 20/24);
      the phase's launches on a line of their own (not in the kernels line)
      and its wall time.
+  25. the last public API (public_api_phase): with counters reset,
+     fused_describe_clusters on phase 1's 7 680 clusters (seeded weights,
+     f32 and bf16_act: K3) and convbn_maxpool_fused forward and backward on
+     phase 9's detector inputs (bf16 and f32 cotangents: K7-K10), every
+     kernel launched (a line of its own, not in the kernels line); then
+     a. fused_describe_clusters bit-equal to pack_clusters_lanes_torch +
+        fused_describe_clusters_t (f32, bf16_act, bf16_matmul), and per
+        mode its ms a call timed in turns against fused_describe_clusters_t
+        on clusters packed in advance (weights packed per call, and once);
+     b. convbn_maxpool_fused's pooled rows, moments and gradients bit-equal
+        to tower_prepool_fused on detector_plan, reference_convbn_maxpool
+        to reference_tower;
+     c. jitter, shift, rotate_z, rotate_y, rotate_small and scale on a CUDA
+        generator bit-equal to their draw + apply from a generator of the
+        same seed (default and other arguments), and to augment_clouds at
+        the defaults;
+     the phase's wall time.
 Option: --parent DIR also builds another tree's training kernels, K1-K6
 (its csrc/fused_train.cu, csrc/fps.cu, csrc/ball_query.cu,
 csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
@@ -5134,6 +5151,159 @@ def recipe_phase(dev, card):
     torch.cuda.synchronize()
 
 
+# the JAX package's one-step augmentations: name -> (chain key, non-default arguments)
+ONE_STEP_AUGMENT = {
+    "jitter": ("Jitter", {"sigma": 0.03, "clip": 0.04}),
+    "shift": ("Shift", {"shift_range": 0.3}),
+    "rotate_z": ("RotateZ", {}),
+    "rotate_y": ("RotateY", {}),
+    "rotate_small": ("RotateSmall", {"angle_sigma": 0.2, "angle_clip": 0.25}),
+    "scale": ("Scale", {"low": 0.5, "high": 2.0}),
+}
+ENTRY_REPS = 10        # calls a timing of phase 25a
+
+
+def public_api_phase(dev, card, clusters, variables):
+    """Phase 25: the JAX public entries that wrap kernels the port already
+    has. Counters from zero, the entries alone: fused_describe_clusters on
+    phase 1's serving clusters in f32 and bf16_act (K3), convbn_maxpool_fused
+    forward and backward on phase 9's detector inputs with bf16 and f32
+    cotangents (K7-K10); every kernel must launch. Then (a)
+    fused_describe_clusters bit-equal to pack_clusters_lanes_torch +
+    fused_describe_clusters_t in f32, bf16_act and bf16_matmul, and timed in
+    turns against fused_describe_clusters_t on clusters packed in advance
+    (with the weights packed per call, and packed once); (b)
+    convbn_maxpool_fused's pooled rows, moments and gradients bit-equal to
+    tower_prepool_fused on detector_plan, reference_convbn_maxpool to
+    reference_tower; (c) jitter, shift, rotate_z, rotate_y, rotate_small and
+    scale on a CUDA generator bit-equal to AUGMENTATIONS' draw + apply from
+    a generator of the same seed, at the default arguments and others."""
+    import torch
+
+    from feat3dnet_tpu_torch.config import ModelConfig
+    from feat3dnet_tpu_torch.data import augment
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.ops import fused_describe as fd
+    from feat3dnet_tpu_torch.ops import fused_train as ft
+    from feat3dnet_tpu_torch.utils import init_variables, load_variables
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()
+    weights = fd.folded_weights(variables, cfg)
+    k3 = fd.fused_describe_clusters_t
+    passes = {k: getattr(ft, k[6:] + "_pass") for k in TRAIN_KERNELS}
+    xyz = training_batch(dev, SEED)
+    model = load_variables(Feat3DNet(cfg), init_variables(cfg, seed=SEED, bn_perturb=0.1)).to(dev)
+    plan, flat = tower_params(model, cfg)["detector"]
+    widths = tuple(cfg.detector_mlp)
+    with torch.no_grad():
+        x = tower_inputs(cfg, xyz)[0]
+    ns, g_total = x.shape[0], x.shape[1]
+    lw = torch_from(np.random.RandomState(SEED + 60).randn(g_total, widths[-1]), dev)
+
+    def tower_grads(tower, cot):
+        """pooled, means, vars, dx, dW / db / dgamma / dbeta of `tower`
+        under the loss sum(pooled * lw)."""
+        xt = x.clone().requires_grad_(True)
+        fl = [t.clone().requires_grad_(True) for t in flat]
+        pooled, (means, vars_) = tower(xt, fl, cot)
+        (pooled * lw).sum().backward()
+        return [pooled.detach(), *means, *vars_, xt.grad, *[t.grad for t in fl]]
+
+    def entry(xt, fl, cot):
+        return ft.convbn_maxpool_fused(xt, fl, widths, ns, g_total, cfg.bn_epsilon, cot)
+
+    def tower(xt, fl, cot):
+        return ft.tower_prepool_fused(xt, fl, ft.detector_plan(len(widths)), widths, ns,
+                                      g_total, cfg.bn_epsilon, cot)
+
+    # the entries alone, counters from zero
+    k3.launches = 0
+    k3.mode_launches = dict.fromkeys(k3.mode_launches, 0)
+    for w in passes.values():
+        w.launches = 0
+    cots = {"bf16": torch.bfloat16, "f32": torch.float32}
+    with torch.no_grad():
+        desc = {mode: fd.fused_describe_clusters(weights, clusters, cfg, **kw)
+                for mode, kw in K3_MODES.items()}
+    train = {c: tower_grads(entry, cot) for c, cot in cots.items()}
+    torch.cuda.synchronize()
+    launches = {f"fused_describe_{m}": n for m, n in k3.mode_launches.items() if m in K3_MODES}
+    launches.update({k: w.launches for k, w in passes.items()})
+    print(f"phase 25 launches (fused_describe_clusters, convbn_maxpool_fused): "
+          f"{json.dumps(launches)}")
+    require(all(n > 0 for n in launches.values()),
+            "K3 (f32 and bf16) and K7-K10 must launch through the new entries")
+
+    # (a) fused_describe_clusters = pack + fused_describe_clusters_t
+    wt = [w.to(dev) for w in fd.transpose_folded_weights(weights)]
+    with torch.no_grad():
+        pk = fd.pack_clusters_lanes_torch(clusters)
+        for mode, kw in K3_MODES.items():
+            want = k3(wt, pk, cfg, **kw)
+            require(all(torch.equal(a, b) for a, b in zip(desc[mode], want)),
+                    f"fused_describe_clusters {mode} != pack + fused_describe_clusters_t")
+            if mode != "f32":
+                got = fd.fused_describe_clusters(weights, clusters, cfg, bf16_matmul=True)
+                require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                        "fused_describe_clusters bf16_matmul != bf16_act")
+        print(f"25a. fused_describe_clusters on {clusters.shape[0]} clusters: bit-equal to "
+              f"pack_clusters_lanes_torch + fused_describe_clusters_t in "
+              f"{', '.join(K3_MODES)} (bf16_matmul = bf16_act)")
+        for mode, kw in K3_MODES.items():
+            once = fd._describe_kernel_weights(wt, cfg, dev, "bf16" if kw else "f32")
+            ms = ms_in_turns({
+                "entry": lambda kw=kw: fd.fused_describe_clusters(weights, clusters, cfg, **kw),
+                "t_prepacked": lambda kw=kw: k3(wt, pk, cfg, **kw),
+                "t_packed_once": lambda kw=kw, once=once: k3(wt, pk, cfg, packed=once, **kw)},
+                ENTRY_REPS)
+            print(f"[{card}] 25a. {mode}: fused_describe_clusters {ms['entry']:.4f} ms a call, "
+                  f"fused_describe_clusters_t on clusters packed in advance "
+                  f"{ms['t_prepacked']:.4f} ms (the pack's share "
+                  f"{ms['entry'] - ms['t_prepacked']:.4f} ms), on weights packed once too "
+                  f"{ms['t_packed_once']:.4f} ms ({ENTRY_REPS} calls, in turns)")
+
+    # (b) convbn_maxpool_fused = tower_prepool_fused on the detector's plan
+    for c, cot in cots.items():
+        want = tower_grads(tower, cot)
+        require(all(torch.equal(a, b) for a, b in zip(train[c], want)),
+                f"convbn_maxpool_fused ({c} cotangents) != tower_prepool_fused(detector_plan)")
+    with torch.no_grad():
+        got = ft.reference_convbn_maxpool(x, flat, widths, ns, g_total, cfg.bn_epsilon)
+        want = ft.reference_tower(x, flat, ft.detector_plan(len(widths)), widths, ns, g_total,
+                                  cfg.bn_epsilon)
+        require(torch.equal(got[0], want[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1][0] + got[1][1], want[1][0] + want[1][1])),
+            "reference_convbn_maxpool != reference_tower(detector_plan)")
+    print(f"25b. convbn_maxpool_fused at (ns, G) = ({ns}, {g_total}), widths {widths}: pooled, "
+          f"moments, dx, dW, db, dgamma and dbeta bit-equal to tower_prepool_fused on "
+          f"detector_plan ({', '.join(cots)} cotangents); reference_convbn_maxpool bit-equal "
+          "to reference_tower")
+    del train
+    torch.cuda.empty_cache()
+
+    # (c) the one-step augmentations on a CUDA generator
+    for i, (fn, (key, other)) in enumerate(ONE_STEP_AUGMENT.items()):
+        draw, apply = augment.AUGMENTATIONS[key]
+        for kw in [{}] + ([other] if other else []):
+            seed = SEED + 70 + i
+
+            def gen(seed=seed):
+                return torch.Generator(device=dev).manual_seed(seed)
+
+            got = getattr(augment, fn)(gen(), xyz, **kw)
+            want = apply(xyz, draw(gen(), xyz, **kw))
+            require(got.is_cuda and torch.equal(got, want) and not torch.equal(got, xyz),
+                    f"{fn}({kw}) on the card != its draw + apply")
+            if not kw:
+                require(torch.equal(got, augment.augment_clouds(gen(), xyz, [key])),
+                        f"{fn} != augment_clouds(gen, xyz, [{key!r}])")
+    print(f"25c. {', '.join(ONE_STEP_AUGMENT)} on {tuple(xyz.shape)} with a CUDA generator: "
+          "bit-equal to draw + apply from a generator of the same seed (default and other "
+          "arguments) and, at the defaults, to augment_clouds")
+    print(f"[{card}] phase 25 (the last public API) wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import argparse
 
@@ -5555,6 +5725,9 @@ def main():
 
     # ---- 24. the accuracy programs: the recipe at smoke size, the port-trained weights ----
     recipe_phase(dev, card)
+
+    # ---- 25. the last public API: fused_describe_clusters, convbn_maxpool_fused, augment ----
+    public_api_phase(dev, card, clusters, variables)
 
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),

@@ -113,10 +113,8 @@ def main(argv=None) -> int:
             kp = torch.from_numpy(np.ascontiguousarray(res.keypoints[None])).to(device)
             idx, _ = ball_query(xyz, kp, cfg.base_scale, cfg.num_samples)
             clusters = (group_points(xyz, idx) - kp[:, :, None, :])[0]
-            weights_t = [w.to(device) for w in fd.transpose_folded_weights(
-                fd.folded_weights(variables, cfg))]
-            desc_fused, _ = fd.fused_describe_clusters_t(
-                weights_t, fd.pack_clusters_lanes_torch(clusters), cfg)
+            desc_fused, _ = fd.fused_describe_clusters(fd.folded_weights(variables, cfg),
+                                                       clusters, cfg)
         cos_int = np.sum(desc_fused.cpu().numpy() * res.features, axis=1)
         print(f"fused-vs-model cosine: min {cos_int.min():.6f} "
               f"median {np.median(cos_int):.6f}")

@@ -7,7 +7,9 @@ R = Rz Ry Rx; Scale uniform in [0.8, 1.25)) with the JAX package's matrix
 conventions (points @ R). Each is a `draw` from an explicit
 torch.Generator and an `apply` of the drawn values, so tests can give both
 frameworks the same numbers: a torch.Generator and jax.random draw
-different ones from the same seed.
+different ones from the same seed. `jitter`, `shift`, `rotate_z`,
+`rotate_y`, `rotate_small` and `scale` are the JAX package's one-step
+functions, each a draw and its apply.
 """
 from __future__ import annotations
 
@@ -90,6 +92,42 @@ AUGMENTATIONS: Dict[str, Tuple[Callable, Callable]] = {
     "RotateSmall": (draw_small_angles, lambda xyz, v: _rotate(xyz, small_rotation(v))),
     "Scale": (draw_scale, lambda xyz, v: xyz * v),
 }
+
+
+def _one(name: str, gen: torch.Generator, xyz: torch.Tensor, **kw) -> torch.Tensor:
+    draw, apply = AUGMENTATIONS[name]
+    return apply(xyz, draw(gen, xyz, **kw))
+
+
+# The JAX package's one-augmentation functions, a generator in place of its
+# key: each is AUGMENTATIONS[name]'s apply of its draw, so at the default
+# arguments it equals augment_clouds(gen, xyz, [name]) bit for bit.
+
+def jitter(gen: torch.Generator, xyz: torch.Tensor, sigma: float = 0.01,
+           clip: float = 0.05) -> torch.Tensor:
+    return _one("Jitter", gen, xyz, sigma=sigma, clip=clip)
+
+
+def shift(gen: torch.Generator, xyz: torch.Tensor, shift_range: float = 0.1) -> torch.Tensor:
+    return _one("Shift", gen, xyz, shift_range=shift_range)
+
+
+def rotate_z(gen: torch.Generator, xyz: torch.Tensor) -> torch.Tensor:
+    return _one("RotateZ", gen, xyz)
+
+
+def rotate_y(gen: torch.Generator, xyz: torch.Tensor) -> torch.Tensor:
+    return _one("RotateY", gen, xyz)
+
+
+def rotate_small(gen: torch.Generator, xyz: torch.Tensor, angle_sigma: float = 0.06,
+                 angle_clip: float = 0.18) -> torch.Tensor:
+    return _one("RotateSmall", gen, xyz, angle_sigma=angle_sigma, angle_clip=angle_clip)
+
+
+def scale(gen: torch.Generator, xyz: torch.Tensor, low: float = 0.8,
+          high: float = 1.25) -> torch.Tensor:
+    return _one("Scale", gen, xyz, low=low, high=high)
 
 
 def resolve_augmentations(names: Sequence[str], upright_axis: int = 2) -> Sequence[str]:

@@ -16,6 +16,8 @@ b' = (b−μ)·γ·rsqrt(σ²+ε)+β).
   (csrc/fused_describe.cu), the same modes. The JAX package's `_kernel_2d`
   and `_kernel` compute the same thing in other TPU layouts (their
   `bf16_matmul` equals `bf16_act`); the port has this one.
+* `fused_describe_clusters`: the JAX entry on (B, ns, 3) clusters and
+  untransposed weights; it packs both and calls `fused_describe_clusters_t`.
 * `detector_weights_unfolded` / `transpose_unfolded_detector`: the
   detector's weights with BN NOT folded (the extraction's attention pass
   must round like the model path), and `fused_detect_clusters`, the
@@ -398,6 +400,33 @@ def fused_describe_clusters_t(weights_t: List[torch.Tensor], clusters_p: torch.T
 fused_describe_clusters_t.launches = 0
 fused_describe_clusters_t.mode_launches = dict.fromkeys(kernels.DESCRIBE_MODES, 0)
 fused_describe_clusters_t.plain = fused_describe_clusters_t_plain
+
+
+def fused_describe_clusters(weights: List[torch.Tensor], clusters: torch.Tensor,
+                            cfg: ModelConfig, bf16_matmul: bool = False,
+                            bf16_act: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, ns, 3) origin-centred clusters + folded_weights() (untransposed)
+    -> (descriptors (B, D), attention (B,)), as the JAX package's entry of
+    the same name.
+
+    It packs the clusters (`pack_clusters_lanes_torch`), transposes the
+    weights and calls `fused_describe_clusters_t`: kernel K3 on a CUDA
+    tensor, its plain version on a CPU tensor. bf16_matmul and bf16_act
+    both select K3's bf16 mode: rounding each product's operands to bf16
+    gives the values that storing bf16 activations gives, since rounding
+    commutes with ReLU and max. JAX's `tile`, `lane_pack`, `vpu_k3` and
+    `interpret` schedule its kernel on the TPU (the clusters of a grid
+    step; clusters packed into one MXU pass, bit-exact with unpacked; the
+    K = 3 product on the VPU; Pallas interpret mode), so they are not
+    taken. A caller that serves often packs the weights once and calls
+    `fused_describe_clusters_t` with `packed=`.
+    """
+    if clusters.dim() != 3 or clusters.shape[1:] != (cfg.num_samples, 3):
+        raise ValueError(f"fused_describe_clusters: clusters {tuple(clusters.shape)} are not "
+                         f"(B, num_samples={cfg.num_samples}, 3)")
+    return fused_describe_clusters_t(transpose_folded_weights(weights),
+                                     pack_clusters_lanes_torch(clusters), cfg,
+                                     bf16_act=bf16_matmul or bf16_act)
 
 
 # ---- detector-only tower (kernel K6) -----------------------------------------

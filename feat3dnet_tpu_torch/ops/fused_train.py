@@ -20,6 +20,8 @@ pipeline that never keeps an inter-layer activation in device memory:
 `tower_prepool_fused` is a torch.autograd.Function playing the part of the
 JAX custom_vjp: it returns (pooled, (means, vars)), the moments
 non-differentiable, and its backward gives dx, dW, db, dgamma, dbeta.
+`convbn_maxpool_fused` and `reference_convbn_maxpool` are it and
+`reference_tower` on the detector's plan, as in the JAX package.
 
 Each pass is a wrapper with a launch counter and `.plain`: CPU tensors take
 the plain version (which materialises the activations); CUDA tensors launch
@@ -508,6 +510,18 @@ def tower_prepool_fused(x_sm: torch.Tensor, flat_params: Sequence[torch.Tensor],
     return out[0], (tuple(out[1:1 + n]), tuple(out[1 + n:]))
 
 
+def convbn_maxpool_fused(x_sm: torch.Tensor, flat_params: Sequence[torch.Tensor],
+                         widths: Sequence[int], ns: int, g_total: int, eps: float = 1e-3,
+                         cot_dtype: torch.dtype = torch.bfloat16, group=None):
+    """The detector's pre-pool segment (a chain of ReLU ConvBNs, then the
+    slot max-pool): `tower_prepool_fused` on `detector_plan(len(widths))`.
+    JAX's `ct` and `interpret` schedule its kernels on the TPU, and its
+    `x_layout` and `cin` select the TPU's t8 layout, which is not ported;
+    none of them is taken."""
+    return tower_prepool_fused(x_sm, flat_params, detector_plan(len(widths)), widths, ns,
+                               g_total, eps, cot_dtype, group)
+
+
 def reference_tower(x_sm, flat_params, plan: Plan, widths, ns: int, g_total: int,
                     eps: float = 1e-3):
     """Plain torch reference with flax's math, differentiable by autograd:
@@ -528,3 +542,10 @@ def reference_tower(x_sm, flat_params, plan: Plan, widths, ns: int, g_total: int
         vars_.append(var)
         j += 1
     return torch.amax(h, dim=0), (tuple(means), tuple(vars_))
+
+
+def reference_convbn_maxpool(x_sm, flat_params, widths, ns: int, g_total: int,
+                             eps: float = 1e-3):
+    """`reference_tower` on `detector_plan(len(widths))`."""
+    return reference_tower(x_sm, flat_params, detector_plan(len(widths)), widths, ns,
+                           g_total, eps)

@@ -3,7 +3,8 @@
 Augmentations: a torch.Generator and jax.random draw different numbers
 from one seed, so both frameworks get the same numpy draws injected (the
 JAX module's jax.random calls and the port's draw helpers are patched) and
-must agree to rtol 1e-5 / atol 1e-6; the port's own draws are held to the
+must agree to rtol 1e-5 / atol 1e-6, the chain and the one-step functions
+(`jitter`, ..., `scale`) alike; the port's own draws are held to the
 distributions' bounds and moments. The triplet loader's batches must be
 bit-equal to the JAX numpy branch.
 """
@@ -24,8 +25,9 @@ from feat3dnet_tpu_torch.data import datagenerator as tdg
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("name", sorted(taug.AUGMENTATIONS))
-def test_augmentation_matches_jax_on_injected_draws(rng, monkeypatch, name):
+def _inject_draws(rng, monkeypatch):
+    """A (3, 50, 3) cloud batch; jax.random and the port's draw helpers
+    patched to hand out the same numpy draws, picked by shape."""
     xyz = rng.randn(3, 50, 3).astype(np.float32) * 5.0
     normals = [rng.randn(*s).astype(np.float32) for s in ((3, 50, 3), (3, 3))]
     uniforms = [rng.rand(*s).astype(np.float32) for s in ((3, 1, 3), (3,), (3, 1, 1))]
@@ -42,9 +44,49 @@ def test_augmentation_matches_jax_on_injected_draws(rng, monkeypatch, name):
                         lambda gen, shape, device: torch.from_numpy(pick(normals, shape)))
     monkeypatch.setattr(taug, "_rand",
                         lambda gen, shape, device: torch.from_numpy(pick(uniforms, shape)))
+    return xyz
+
+
+@pytest.mark.parametrize("name", sorted(taug.AUGMENTATIONS))
+def test_augmentation_matches_jax_on_injected_draws(rng, monkeypatch, name):
+    xyz = _inject_draws(rng, monkeypatch)
     want = jaug.AUGMENTATIONS[name](jax.random.PRNGKey(0), jnp.asarray(xyz))
     got = taug.augment_clouds(torch.Generator(), torch.from_numpy(xyz), [name])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+# the JAX package's one-step functions: name -> (chain key, non-default kwargs)
+ONE_STEP = {
+    "jitter": ("Jitter", dict(sigma=0.03, clip=0.04)),
+    "shift": ("Shift", dict(shift_range=0.3)),
+    "rotate_z": ("RotateZ", None),
+    "rotate_y": ("RotateY", None),
+    "rotate_small": ("RotateSmall", dict(angle_sigma=0.2, angle_clip=0.25)),
+    "scale": ("Scale", dict(low=0.5, high=2.0)),
+}
+
+
+@pytest.mark.parametrize("fn,kwargs", [(fn, kw) for fn, (_, other) in sorted(ONE_STEP.items())
+                                       for kw in ({}, other) if kw is not None])
+def test_one_step_augmentation_matches_jax_on_injected_draws(rng, monkeypatch, fn, kwargs):
+    """`jitter`, `shift`, `rotate_z`, `rotate_y`, `rotate_small` and
+    `scale` against the JAX functions of the same name, at the default
+    arguments and at others (rtol 1e-5 / atol 1e-6)."""
+    xyz = _inject_draws(rng, monkeypatch)
+    want = getattr(jaug, fn)(jax.random.PRNGKey(0), jnp.asarray(xyz), **kwargs)
+    got = getattr(taug, fn)(torch.Generator(), torch.from_numpy(xyz), **kwargs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fn", sorted(ONE_STEP))
+def test_one_step_augmentation_equals_the_chain(fn):
+    """At the default arguments each one-step function is the chain of its
+    one augmentation, bit for bit, from generators of the same seed."""
+    xyz = torch.from_numpy(np.random.RandomState(5).randn(4, 40, 3).astype(np.float32))
+    got = getattr(taug, fn)(torch.Generator().manual_seed(11), xyz)
+    want = taug.augment_clouds(torch.Generator().manual_seed(11), xyz, [ONE_STEP[fn][0]])
+    assert torch.equal(got, want)
+    assert not torch.equal(got, xyz)
 
 
 def test_augmentation_distributions():

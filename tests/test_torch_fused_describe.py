@@ -2,7 +2,10 @@
 
 The plain version of kernel K3 is held against the JAX `_kernel_t` run in
 Pallas interpret mode (rtol 1e-4 / atol 1e-5: the products are summed in
-another order); the weight lists to rtol 1e-6; packing must be equal.
+another order), and the (B, ns, 3) entry `fused_describe_clusters`
+against JAX's (its `_kernel`) at the same limits in f32 and at
+test_torch_modes.py's in bf16; the weight lists to rtol 1e-6; packing must
+be equal.
 The kernel itself is held against its plain version in test_torch_cuda.py.
 """
 import numpy as np
@@ -88,6 +91,54 @@ def test_plain_k3_matches_jax_kernel_t(rng, kw):
     assert tfd.fused_describe_clusters_t.launches == n0        # CPU: plain version
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-4, atol=1e-5)
+
+
+def _close_bf16(td, ta, jd, ja):
+    """K3's bf16 limits against JAX (test_torch_modes.py): descriptors within
+    1e-5 and cosine >= 0.99999, attention rtol 1e-5 / atol 1e-7."""
+    jd, ja = np.asarray(jd), np.asarray(ja)
+    assert np.abs(td.numpy() - jd).max() <= 1e-5
+    cos = (td.numpy() * jd).sum(1) / np.linalg.norm(jd, axis=1) / np.linalg.norm(td.numpy(), axis=1)
+    assert cos.min() >= 0.99999
+    np.testing.assert_allclose(ta.numpy(), ja, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("flag", [None, "bf16_matmul", "bf16_act"])
+def test_fused_describe_clusters_matches_jax(rng, flag):
+    """The (B, ns, 3) entry against JAX's `fused_describe_clusters` (its
+    `_kernel`, interpret mode) on mixed clusters at a batch (21) off the JAX
+    tile (8): f32 at rtol 1e-4 / atol 1e-5, bf16_matmul and bf16_act (both
+    K3's bf16 mode) at the bf16 limits. On the CPU it is the plain K3 on
+    the packed clusters, bit for bit."""
+    _, v, clusters = _setup(rng, SMALL)
+    jcfg, tcfg = JaxModelConfig(**SMALL), ModelConfig(**SMALL)
+    kw = {} if flag is None else {flag: True}
+    with pltpu.force_tpu_interpret_mode():
+        jd, ja = jfd.fused_describe_clusters(jfd.folded_weights(v, jcfg),
+                                             jnp.asarray(clusters), jcfg, tile=8, **kw)
+    weights = tfd.folded_weights(v, tcfg)
+    n0 = tfd.fused_describe_clusters_t.launches
+    td, ta = tfd.fused_describe_clusters(weights, torch.from_numpy(clusters), tcfg, **kw)
+    assert tfd.fused_describe_clusters_t.launches == n0        # CPU: plain version
+    assert td.shape == (21, SMALL["feature_dim"]) and ta.shape == (21,)
+    if flag is None:
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-4, atol=1e-5)
+    else:
+        _close_bf16(td, ta, jd, ja)
+    pd, pa = tfd.fused_describe_clusters_t(
+        tfd.transpose_folded_weights(weights),
+        torch.from_numpy(tfd.pack_clusters_lanes(clusters)), tcfg, bf16_act=flag is not None)
+    assert torch.equal(td, pd) and torch.equal(ta, pa)
+
+
+def test_fused_describe_clusters_checks_its_input(rng):
+    cfg = ModelConfig(**SMALL)
+    weights = tfd.folded_weights(init_variables(cfg, seed=1), cfg)
+    with pytest.raises(ValueError, match="num_samples=8"):
+        tfd.fused_describe_clusters(weights, torch.zeros(4, 16, 3), cfg)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfd.fused_describe_clusters(weights, torch.empty(4, 8, 3, device="meta"), cfg)
 
 
 def test_kernel_weight_table_layout(rng):

@@ -50,11 +50,17 @@ def _case(rng, plan, widths, g_total, gp, repeat):
     return x, flat, lw
 
 
-def _port_grads(x, flat, lw, plan, widths, g_total, cot):
+def _port_grads(x, flat, lw, plan, widths, g_total, cot, tower=None):
+    """The port's tower (`tower(x, flat)`, by default tower_prepool_fused on
+    `plan` with `cot` cotangents) and its gradients under the loss
+    sum(pooled * lw)."""
     xt = torch.from_numpy(x).requires_grad_(True)
     ft = [torch.from_numpy(f).requires_grad_(True) for f in flat]
-    pooled, (means, vars_) = tft.tower_prepool_fused(xt, ft, plan, widths, NS, g_total,
-                                                     1e-3, cot)
+    if tower is None:
+        pooled, (means, vars_) = tft.tower_prepool_fused(xt, ft, plan, widths, NS, g_total,
+                                                         1e-3, cot)
+    else:
+        pooled, (means, vars_) = tower(xt, ft)
     loss = (pooled[:g_total] * torch.from_numpy(lw)).sum()
     loss.backward()
     return (pooled[:g_total].detach().numpy(), [m.numpy() for m in means],
@@ -145,6 +151,44 @@ def test_tower_matches_jax_fused_interpret(rng, kind, cot):
         x, flat, lw, g_total)
     _assert_matches(_port_grads(x, flat, lw, plan, widths, g_total, getattr(torch, cot)),
                     want, g_total, lw, bf16=cot == "bfloat16")
+
+
+@pytest.mark.parametrize("cot", ["bfloat16", "float32"])
+def test_convbn_maxpool_fused_matches_jax_interpret(rng, cot):
+    """`convbn_maxpool_fused` (tower_prepool_fused on the detector's plan)
+    against JAX's `convbn_maxpool_fused` in Pallas interpret mode, padded
+    clusters and pool ties, at the limits of the fused tower test."""
+    plan, widths = _plan("detector")
+    g_total, gp = 80, 96
+    x, flat, lw = _case(rng, plan, widths, g_total, gp, True)
+    want = _jax_grads(lambda x, fl: jft.convbn_maxpool_fused(
+        x, fl, widths, NS, g_total, 1e-3, CT, True, getattr(jnp, cot)), x, flat, lw, g_total)
+    got = _port_grads(x, flat, lw, plan, widths, g_total, None, tower=lambda x, fl:
+                      tft.convbn_maxpool_fused(x, fl, widths, NS, g_total,
+                                               cot_dtype=getattr(torch, cot)))
+    _assert_matches(got, want, g_total, lw, bf16=cot == "bfloat16")
+
+
+def test_reference_convbn_maxpool_matches_jax(rng):
+    """`reference_convbn_maxpool` against JAX's: pooled within 1e-4, means
+    rtol 1e-5 / atol 1e-6, vars rtol 1e-4 / atol 1e-6; and it is
+    reference_tower on the detector's plan."""
+    plan, widths = _plan("detector")
+    g_total, gp = 80, 96
+    x, flat, _ = _case(rng, plan, widths, g_total, gp, True)
+    wp, (wm, wv) = jft.reference_convbn_maxpool(jnp.asarray(x), [jnp.asarray(f) for f in flat],
+                                                widths, NS, g_total)
+    xt, ft = torch.from_numpy(x), [torch.from_numpy(f) for f in flat]
+    pooled, (means, vars_) = tft.reference_convbn_maxpool(xt, ft, widths, NS, g_total)
+    assert pooled.shape == (g_total, widths[-1])
+    assert np.abs(pooled.numpy() - np.asarray(wp)).max() <= 1e-4
+    for a, b in zip(means, wm):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+    for a, b in zip(vars_, wv):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-6)
+    rp, (rm, rv) = tft.reference_tower(xt, ft, plan, widths, NS, g_total)
+    assert torch.equal(pooled, rp)
+    assert all(torch.equal(a, b) for a, b in zip(means + vars_, rm + rv))
 
 
 def _jax_pool_passes(x, folded, mu, isig, dpool, plan, ns):

@@ -32,7 +32,7 @@ from feat3dnet_tpu_torch.inference import ClusterDescriptorServer
 from feat3dnet_tpu_torch.models import Feat3DNet
 from feat3dnet_tpu_torch.ops import fused_describe as tfd
 from feat3dnet_tpu_torch.utils import init_variables, load_variables, profiling
-from tests.test_torch_fused_describe import SMALL, _mixed_clusters, _setup
+from tests.test_torch_fused_describe import SMALL, _close_bf16, _mixed_clusters, _setup
 
 torch.set_num_threads(2)
 
@@ -43,14 +43,6 @@ def _k3_case(rng, kw):
     packed = jfd.pack_clusters_lanes(clusters)
     wt = tfd.transpose_folded_weights(tfd.folded_weights(v, tcfg))
     return v, clusters, jcfg, tcfg, packed, wt
-
-
-def _close_bf16(td, ta, jd, ja):
-    jd, ja = np.asarray(jd), np.asarray(ja)
-    assert np.abs(td.numpy() - jd).max() <= 1e-5
-    cos = (td.numpy() * jd).sum(1) / np.linalg.norm(jd, axis=1) / np.linalg.norm(td.numpy(), axis=1)
-    assert cos.min() >= 0.99999
-    np.testing.assert_allclose(ta.numpy(), ja, rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("kw", [SMALL, dict(SMALL, num_samples=16, base_scale=1.7)])

@@ -8,6 +8,9 @@
   counts its scalar and per-centre launches apart.
 * `feat3dnet_tpu_torch.ops` exports what JAX's `ops` exports, but for the
   CSR entry points (TPU layouts of K4's and K5's computations).
+* Every public function, class and method of the JAX package has a
+  counterpart in the port module of the same path, or a reason in
+  NOT_PORTED.
 * The kernel sources exist, carry their note, and nothing builds at import.
 """
 import ast
@@ -102,6 +105,104 @@ def test_ops_exports_jax_names():
         assert callable(getattr(ops, name)), name
 
 
+# Public names of feat3dnet_tpu/ with no counterpart in the port, on purpose:
+# "<module path>:<name>" (or the module path alone) -> the reason. ROADMAP's
+# "Not ported, on purpose" names the same entries.
+NOT_PORTED = {
+    "inference/pipeline.py:InferencePipeline.packed_offsets":
+        "offsets of the TPU's packed upload buffer; the port uploads tensors",
+    "models/feat3dnet.py:Feat3DNet.setup": "flax's constructor; the port's is __init__",
+    "models/layers.py:ConvBNParams":
+        "flax's parameter surface for the fused kernels; the port's ConvBN holds the tree",
+    "models/layers.py:residual_save_policy":
+        "a jax.checkpoint policy; the port's form is residual_saving",
+    "ops/batch_group.py:use_fused_ball_query":
+        "the TPU's opt-in switch; on the card K2 is always the ball query",
+    "ops/fps.py:farthest_point_sample_pallas": "on the card farthest_point_sample is K1",
+    "ops/fused_describe.py:fused_describe_clusters_2d": "a TPU layout of K3's computation",
+    "ops/fused_describe.py:fused_detect_clusters_2d":
+        "a TPU layout of K6's computation (fused_detect_clusters)",
+    "ops/fused_describe.py:fused_detect_planes_t": "the TPU planes layout of K6's computation",
+    "ops/fused_describe.py:pack_clusters_lanes_jnp":
+        "the jnp packer; the port's is pack_clusters_lanes_torch",
+    "ops/fused_describe.py:pack_planes_keypoints_t": "the TPU planes layout's packer",
+    "ops/fused_describe.py:pack_weights_for_plan": "the TPU's MXU lane packing (lane_pack)",
+    "ops/fused_train.py:pack_x_t8": "the fused towers' t8 layout: TPU lane padding",
+    "ops/fused_train.py:unpack_dx_t8": "the fused towers' t8 layout: TPU lane padding",
+    "ops/hash_grid.py:ball_max_csr": "a CSR layout of K5's computation (ball_max_sorted)",
+    "ops/hash_grid.py:ball_query_grouped_csr":
+        "a CSR layout of K4's computation (ball_query_grouped_sorted)",
+    "ops/hash_grid.py:ball_query_planes_sorted": "a planes layout of K4's computation",
+    "ops/hash_grid.py:build_hit_csr_host": "builds the CSR layout on the host",
+    "ops/hash_grid.py:finish_planes": "a helper of the planes layout",
+    "ops/hash_grid.py:planes_cnt_rows": "a helper of the planes layout",
+    "ops/hash_grid.py:unplane": "a helper of the planes layout",
+    "parallel/data_parallel.py:make_chained_shardmap_dp_train_step":
+        "JAX's second sharding mechanism; torch.distributed has one",
+    "parallel/data_parallel.py:make_shardmap_fused_dp_train_step":
+        "JAX's second sharding mechanism; torch.distributed has one",
+    "parallel/mesh.py:data_sharding": "a jax.sharding object",
+    "parallel/mesh.py:replicated_sharding": "a jax.sharding object",
+    "parallel/multihost.py:global_mesh": "a jax.sharding mesh",
+    "utils/cache.py": "XLA's persistent compile cache: TPU-only",
+    "utils/native.py:get_lib": "the port's loader is library()",
+    "utils/native.py:morton_pack": "it went with the host Morton layout",
+    "utils/tf1_loader.py:jax_to_numpy": "the port's is to_numpy",
+}
+
+
+def _jax_public_names():
+    """module path -> the public top-level functions and classes of each
+    feat3dnet_tpu/**/*.py and the public methods of its public classes
+    ("Class.method"), read with ast, nothing imported."""
+    jax_pkg = os.path.join(ROOT, "feat3dnet_tpu")
+    out = {}
+    for d, _, files in os.walk(jax_pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(d, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            names = []
+            for node in tree.body:
+                if (isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+                        and not node.name.startswith("_")):
+                    names.append(node.name)
+                    if isinstance(node, ast.ClassDef):
+                        names += [f"{node.name}.{m.name}" for m in node.body
+                                  if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+                                  and not m.name.startswith("_")]
+            out[os.path.relpath(path, jax_pkg).replace(os.sep, "/")] = names
+    return out
+
+
+def test_every_jax_public_name_has_a_counterpart():
+    """Each public name of the JAX package is defined or imported in the
+    port module of the same path, or stands in NOT_PORTED; and no
+    NOT_PORTED entry has gained a counterpart, so the list cannot go
+    stale."""
+    import importlib.util
+
+    missing = set()
+    for rel, names in sorted(_jax_public_names().items()):
+        modname = "feat3dnet_tpu_torch." + rel[:-3].replace("/", ".")
+        modname = modname[:-len(".__init__")] if modname.endswith(".__init__") else modname
+        if importlib.util.find_spec(modname) is None:
+            missing.add(rel)
+            continue
+        mod = importlib.import_module(modname)
+        for name in names:
+            obj = mod
+            for part in name.split("."):
+                obj = getattr(obj, part, None)
+            if obj is None:
+                missing.add(f"{rel}:{name}")
+    assert not missing - set(NOT_PORTED), "no counterpart and not listed"
+    assert not set(NOT_PORTED) - missing, "listed in NOT_PORTED but ported (or gone)"
+    assert all(NOT_PORTED.values())
+
+
 def test_wrappers_refuse_other_devices():
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -113,6 +214,9 @@ def test_wrappers_refuse_other_devices():
         fused_describe.fused_describe_clusters_t(
             [], torch.empty(512, 4, device=meta), ModelConfig())
     with pytest.raises(ValueError, match="unsupported device"):
+        fused_describe.fused_describe_clusters(
+            [], torch.empty(4, ModelConfig().num_samples, 3, device=meta), ModelConfig())
+    with pytest.raises(ValueError, match="unsupported device"):
         fused_describe.fused_detect_clusters([], torch.empty(4, 64, 3, device=meta),
                                              ModelConfig())
     x = torch.empty(8, 16, 3, device=meta)
@@ -122,6 +226,8 @@ def test_wrappers_refuse_other_devices():
         fused_train.stats_pass(x, plan, [], w, b, 16)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_train.final_pass(x, plan, [(w, b, b, b)])
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_train.convbn_maxpool_fused(x, [w, b, b, b], (8,), 8, 16)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_train.bwd_top_pass(x, plan, [(w, b, b, b)], b, b, torch.empty(16, 8, device=meta))
     with pytest.raises(ValueError, match="unsupported device"):

@@ -19,6 +19,7 @@ those leaves are held to atol 2 lr per step + 1e-7, every other leaf to
 """
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -76,20 +77,32 @@ def _port_grads(model):
 
 CASES = {
     "default": (dict(), dict(), 3),
-    "fused": (dict(fused_towers=True), dict(), 1),
+    "fused": (dict(fused_towers=True, fused_cot_dtype="float32"), dict(), 1),
+    "fused_bf16": (dict(fused_towers=True, fused_cot_dtype="bfloat16"), dict(), 3),
     "stage1": (dict(attention=False, regress_orientation=False), dict(), 1),
     "freeze": (dict(), dict(freeze_scopes=("detection",)), 1),
     "cosine": (dict(), dict(lr_schedule="cosine", warmup_steps=2, decay_steps=6), 3),
 }
 
 
+# the fused towers' leaves: the detector's and descriptor's pre-pool convs
+TOWER_LEAF = re.compile(r"(detection|description)/conv(\d+|_mid_\d+)/")
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_train_steps_match_jax(rng, case):
+    """Each case's steps against the JAX package's. `fused` streams f32
+    cotangents through the fused towers; `fused_bf16` takes both packages'
+    default, bf16, for 3 steps. There a value that lands on the other side
+    of a bf16 rounding boundary moves by one bf16 step and carries it into
+    the layers below (tests/test_torch_fused_train.py), so each tower
+    leaf's first-step gradient is held to a relative L2 error of 2^-8
+    instead of elementwise; the noise leaves, the other leaves, the losses,
+    sums and batch statistics keep the limits above."""
     mkw, tkw, steps = CASES[case]
-    jkw = dict(mkw, fused_cot_dtype=jnp.float32) if mkw.get("fused_towers") else mkw
-    jcfg = JaxModelConfig(**CFG, **jkw)
-    cfg = ModelConfig(**CFG, **dict(mkw, fused_cot_dtype=torch.float32)
-                      if mkw.get("fused_towers") else mkw)
+    cot = mkw.get("fused_cot_dtype")
+    jcfg = JaxModelConfig(**CFG, **dict(mkw, fused_cot_dtype=getattr(jnp, cot)) if cot else mkw)
+    cfg = ModelConfig(**CFG, **dict(mkw, fused_cot_dtype=getattr(torch, cot)) if cot else mkw)
     jmodel = JaxFeat3DNet(jcfg)
     tx = jtr.make_optimizer(LR, tkw.get("freeze_scopes"), tkw.get("lr_schedule", "constant"),
                             tkw.get("warmup_steps", 0), tkw.get("decay_steps", 0))
@@ -134,6 +147,9 @@ def test_train_steps_match_jax(rng, case):
             w = want_grads[path]
             if path in noise:
                 np.testing.assert_allclose(g, w, atol=1e-3, err_msg=path)
+            elif cot == "bfloat16" and TOWER_LEAF.match(path):
+                err = np.linalg.norm(g - w) / np.linalg.norm(w)
+                assert err <= 2.0 ** -8, (path, err)
             else:
                 np.testing.assert_allclose(g, w, rtol=5e-3,
                                            atol=5e-4 * max(np.abs(w).max(), 1e-3), err_msg=path)
