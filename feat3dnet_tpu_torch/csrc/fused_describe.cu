@@ -23,15 +23,16 @@
 //              orientation, the final product and the L2 norm stay f32.
 //              Activations are stored in shared memory as f32 holding bf16
 //              values (the layout of kF32).
-//   kStream    reads the coordinates, writes desc[b, :] = x of slot 0 and
-//              att[b] = y of slot 0: the launch and input floor. Both
-//              _ablate_kernel_t and _ablate_kernel_2d compute this.
+//   kStream    reads the coordinates as the forward loads them and writes
+//              desc[b, :] = x of slot 0 and att[b] = y of slot 0: the launch
+//              and input floor. Both _ablate_kernel_t and _ablate_kernel_2d
+//              compute this.
 //   kMatmul    _ablate_kernel_t's body: every product of the forward at its
 //              shapes without the elementwise stream: raw coordinates into
 //              both towers, no membership, ReLU, mask or rotation, pools as
-//              sums over the ns slots, desc = kp (sum_s (km [d_s ; sum_s
-//              d_s] + bm)) + bp unnormalised, att = (ka g + ba) + (ko g +
-//              bo)[0] * 1e-30.
+//              sums over the ns slots (each slot's bias counted), desc = kp
+//              (sum_s (km [d_s ; sum_s d_s] + bm)) + bp unnormalised, att =
+//              (ka g + ba) + (ko g + bo)[0] * 1e-30.
 //   kMatmul2d  _ablate_kernel_2d's body: the same products, but each pool
 //              is slot 0's row (g = h_0, m = km [d_0 ; d_0] + bm) and the
 //              mid conv's input is [d_s ; d_s].
@@ -83,9 +84,14 @@
 //   and 128 x 132 floats, that the per-slot convs ping-pong through; each
 //   pooled conv keeps its pool, the single-row vectors, its input's row
 //   norms and its candidate marks in the buffer it does not read.
-// The decomposition bodies keep the previous design's one cluster a block
-// of FFMA tiles (decompose_kernel): their pools are sums, so no row of
-// them can be picked.
+// The decomposition bodies (kStream, kMatmul, kMatmul2d) are modes of the
+// same kernel, so they differ from the f32 forward only by the work they
+// leave out: the same launch, shared-memory layout and input load; the
+// same per-slot convs on slot_layer (no ReLU); the two pooled convs on the
+// same 1xTF32 tiles (tf32_tile_product), each tile's rows summed straight
+// from its accumulators (sum_pool_layer: no row norms, marks or re-sums);
+// the same single-row chains. Their time split of the forward (ms of
+// stream <= matmul <= f32) is then one of the forward's own work.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -97,10 +103,8 @@ namespace {
 
 using f3d::BiasAct;
 using f3d::kNoPool;
-using f3d::kPoolSum;
 using namespace f3d::tower;
 
-constexpr int kVec = 256;           // widest pooled / single-row vector
 constexpr int kMaxLayers = 16;
 
 enum Mode { kF32 = 0, kBf16 = 1, kStream = 2, kMatmul = 3, kMatmul2d = 4 };
@@ -108,9 +112,8 @@ enum Mode { kF32 = 0, kBf16 = 1, kStream = 2, kMatmul = 3, kMatmul2d = 4 };
 struct Tower {
   int n_det, n_det2, n_desc, ns, batch;
   float r2, inv_r;
-  int x_off, mask_off, dup_off, head_off, buf_off[2];   // describe_kernel's shared memory
-  int smem_floats;                      // describe_kernel's shared memory
-  int buf_width;                        // decompose_kernel's widest stored activation
+  int x_off, mask_off, dup_off, head_off, buf_off[2];   // shared memory, in floats
+  int smem_floats;
   Layer l[kMaxLayers];                  // detector convs, post convs, attention,
                                         // orientation, descriptor convs, mid, post
 };
@@ -153,6 +156,50 @@ __device__ __noinline__ void pool_layer(const Layer& L, const float* __restrict_
   if (phase == 1 && threadIdx.x == 0) desc[blockIdx.x] = static_cast<float>(*room.count);
 }
 
+// A decomposition body's pooled conv L on the block's rows of `in` (row
+// stride ld) into pooled[cluster * kMaxC + n]: the forward's 1xTF32 warp
+// tiles (64 rows of one cluster by 16 channels), and per tile and channel
+// the sum of (product + bias) over the rows whose keep flag is set, taken
+// from the accumulators: each lane sums its eight rows (i, then r), then
+// shuffles add the tile's eight row groups. Out of line, as pool_layer.
+// Ends synced.
+__device__ __noinline__ void sum_pool_layer(const Layer& L, const float* __restrict__ wts,
+                                            const float* in, int ld, const float* keep,
+                                            float* pooled) {
+  constexpr int NT = 8 / kMT;
+  constexpr int kTilesM = kRows / (16 * kMT);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int tiles = kTilesM * (L.cout / (8 * NT));
+  for (int tile = threadIdx.x >> 5; tile < tiles; tile += kWarps) {
+    const int m0 = tile % kTilesM * 16 * kMT, n0 = tile / kTilesM * 8 * NT;
+    float acc[kMT][NT][4];
+    tf32_tile_product<NT>(L, wts, in, ld, m0, n0, acc);
+    // column 2 q + e is channel n0 + 8 q + 2 t + e, its rows m0 + 16 i + 8 r + g
+    bool kept[kMT][2];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) kept[i][r] = keep[m0 + 16 * i + 8 * r + g] > 0.5f;
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 8 * q + 2 * t + e;
+        const float b = __ldg(wts + L.b + n);
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (kept[i][r]) sum += acc[i][q][2 * r + e] + b;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (g == 0) pooled[m0 / kSlots * kMaxC + n] = sum;
+      }
+  }
+  __syncthreads();
+}
+
 // out[c * kMaxC + n] = epi(sum_k x[c * kMaxC + k] W[k][n]) for the block's
 // clusters: a thread per channel keeping the kC clusters' fmaf chains in k
 // order; epi rounds as BiasAct does. Ends synced.
@@ -172,22 +219,25 @@ __device__ __forceinline__ void row_layer(const Layer& L, const float* __restric
   __syncthreads();
 }
 
-// The forward, kC clusters a block; `stop` (the time split) leaves after a
-// stage: 1 input and membership, 2 + l detector conv l below the top one,
-// then from s = n_det + 1 on: s the top conv's products, s + 1 its pool,
-// s + 2 the post convs and heads, s + 3 the rotation, s + 4 the descriptor
-// convs, s + 5 the mid conv's products, s + 6 its pool; s + 7 and s + 8
-// the top and the mid conv's candidates marked, their count in
-// desc[block]; 0 runs everything.
-template <bool kBf16>
+// K3 in mode kMode, kC clusters a block. The forward modes (kF32, kBf16):
+// `stop` (the time split) leaves after a stage: 1 input and membership, 2 +
+// l detector conv l below the top one, then from s = n_det + 1 on: s the
+// top conv's products, s + 1 its pool, s + 2 the post convs and heads, s +
+// 3 the rotation, s + 4 the descriptor convs, s + 5 the mid conv's
+// products, s + 6 its pool; s + 7 and s + 8 the top and the mid conv's
+// candidates marked, their count in desc[block]; 0 runs everything. The
+// decomposition bodies (kStream, kMatmul, kMatmul2d) run with stop 0.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
 describe_kernel(const float* __restrict__ packed, const float* __restrict__ wts,
                 const __grid_constant__ Tower T, float* __restrict__ desc,
                 float* __restrict__ att, int stop) {
+  constexpr bool kRound = kMode == kBf16;    // bf16_act's roundings
+  constexpr bool kBody = kMode >= kStream;   // a decomposition body
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* xin = sm + T.x_off;                           // kRows x 4: x, y, z, 0 (scaled)
-  float* mask = sm + T.mask_off;                       // kRows
+  float* mask = sm + T.mask_off;                       // kRows (a body's: the rows pooled)
   int* dup = reinterpret_cast<int*>(sm + T.dup_off);   // kRows (first the distances)
   float* head = sm + T.head_off;                       // kC x 4: attention, c, s, -
   float* buf[2] = {sm + T.buf_off[0], sm + T.buf_off[1]};
@@ -195,14 +245,16 @@ describe_kernel(const float* __restrict__ packed, const float* __restrict__ wts,
   const int b0 = blockIdx.x * kC, batch = T.batch;
   const int top = T.n_det - 1, d0 = T.n_det + T.n_det2 + 2, mid = d0 + T.n_desc;
   const int s = T.n_det + 1;
-  const auto act = [](float v) { return kBf16 ? f3d::round_bf16(v) : v; };
+  const auto act = [](float v) { return kRound ? f3d::round_bf16(v) : v; };
   const auto coord = [&](int slot, int j, int b) {
     return packed[static_cast<size_t>(8 * slot + j) * batch + b];
   };
 
   // ---- coordinates and membership; then, per slot, whether its
   // coordinates repeat its cluster's slot 0 (a ball query's padding: every
-  // value of the row is slot 0's, and so is its membership)
+  // value of the row is slot 0's, and so is its membership). A body keeps
+  // the raw coordinates and flags the rows its pools sum: the ns slots
+  // (kMatmul) or slot 0 (kMatmul2d).
   float* d2s = reinterpret_cast<float*>(dup);
   for (int row = tid; row < kRows; row += kThreads) {
     const int slot = row % kSlots, b = b0 + row / kSlots;
@@ -213,24 +265,43 @@ describe_kernel(const float* __restrict__ packed, const float* __restrict__ wts,
       z = coord(slot, 2, b);
       d2 = f3d::sqdist3(x, y, z);
     }
-    xin[4 * row + 0] = act(__fmul_rn(x, T.inv_r));
-    xin[4 * row + 1] = act(__fmul_rn(y, T.inv_r));
-    xin[4 * row + 2] = act(__fmul_rn(z, T.inv_r));
-    xin[4 * row + 3] = 0.f;
-    d2s[row] = d2;
+    if constexpr (kBody) {
+      xin[4 * row + 0] = x;
+      xin[4 * row + 1] = y;
+      xin[4 * row + 2] = z;
+      xin[4 * row + 3] = 0.f;
+      mask[row] = (kMode == kMatmul ? slot < T.ns : slot == 0) ? 1.f : 0.f;
+    } else {
+      xin[4 * row + 0] = act(__fmul_rn(x, T.inv_r));
+      xin[4 * row + 1] = act(__fmul_rn(y, T.inv_r));
+      xin[4 * row + 2] = act(__fmul_rn(z, T.inv_r));
+      xin[4 * row + 3] = 0.f;
+      d2s[row] = d2;
+    }
   }
   __syncthreads();
-  for (int c = warp; c < kC; c += kWarps)
-    membership(d2s + c * kSlots, T.r2, mask + c * kSlots, lane);
-  __syncthreads();
-  for (int row = tid; row < kRows; row += kThreads) {
-    const int slot = row % kSlots, b = b0 + row / kSlots;
-    bool rep = b < batch && slot > 0 && slot < T.ns;
-    for (int j = 0; j < 3 && rep; ++j)
-      rep = __float_as_uint(coord(slot, j, b)) == __float_as_uint(coord(0, j, b));
-    dup[row] = rep;
+  if constexpr (kMode == kStream) {
+    const int D = T.l[mid + 1].cout;
+    for (int e = tid; e < kC * D; e += kThreads) {
+      const int c = e / D;
+      if (b0 + c < batch) desc[static_cast<size_t>(b0 + c) * D + e - c * D] = xin[4 * c * kSlots];
+    }
+    if (tid < kC && b0 + tid < batch) att[b0 + tid] = xin[4 * tid * kSlots + 1];
+    return;
   }
-  if (stop == 1) return;
+  if constexpr (!kBody) {
+    for (int c = warp; c < kC; c += kWarps)
+      membership(d2s + c * kSlots, T.r2, mask + c * kSlots, lane);
+    __syncthreads();
+    for (int row = tid; row < kRows; row += kThreads) {
+      const int slot = row % kSlots, b = b0 + row / kSlots;
+      bool rep = b < batch && slot > 0 && slot < T.ns;
+      for (int j = 0; j < 3 && rep; ++j)
+        rep = __float_as_uint(coord(slot, j, b)) == __float_as_uint(coord(0, j, b));
+      dup[row] = rep;
+    }
+    if (stop == 1) return;
+  }
 
   // ---- detector convs below the top one: CUDA cores, k order, per cluster
   const float* in = xin;
@@ -241,24 +312,29 @@ describe_kernel(const float* __restrict__ packed, const float* __restrict__ wts,
     const int out_ld = L.cout + 4;
     for (int c = 0; c < kC; ++c)
       f3d::slot_layer_any(L.cout, in + c * kSlots * ld, L.cin, ld, wts + L.w,
-                          BiasAct<kBf16>{wts + L.b, true}, out + c * kSlots * out_ld, out_ld,
-                          kNoPool, mask + c * kSlots, nullptr, nullptr);
+                          BiasAct<kRound>{wts + L.b, !kBody}, out + c * kSlots * out_ld,
+                          out_ld, kNoPool, mask + c * kSlots, nullptr, nullptr);
     in = out;
     ld = out_ld;
     if (stop == 2 + l) return;
   }
 
-  // ---- the top conv on the tensor cores, its pool re-summed in k order
+  // ---- the top conv on the tensor cores: its max pool re-summed in k
+  // order, or a body's sum pool
   const PoolRoom det(buf[top & 1]);
-  pool_layer<kBf16, true>(T.l[top], wts, in, ld, mask, dup, det,
-                          stop == s ? 0 : stop == s + 7 ? 1 : 2, desc);
-  if (stop == s || stop == s + 1 || stop == s + 7) return;
+  if constexpr (kBody) {
+    sum_pool_layer(T.l[top], wts, in, ld, mask, det.pooled);
+  } else {
+    pool_layer<kRound, true>(T.l[top], wts, in, ld, mask, dup, det,
+                             stop == s ? 0 : stop == s + 7 ? 1 : 2, desc);
+    if (stop == s || stop == s + 1 || stop == s + 7) return;
+  }
 
-  // ---- post convs (ReLU), then the heads: attention (cin -> 1) and
-  // orientation (cin -> 2), a thread per cluster and output, k order
+  // ---- post convs (ReLU but in a body), then the heads: attention (cin ->
+  // 1) and orientation (cin -> 2), a thread per cluster and output, k order
   const float* g = det.pooled;
   for (int i = 0; i < T.n_det2; ++i) {
-    row_layer<kBf16>(T.l[T.n_det + i], wts, g, true, det.vec[i & 1]);
+    row_layer<kRound>(T.l[T.n_det + i], wts, g, !kBody, det.vec[i & 1]);
     g = det.vec[i & 1];
   }
   {
@@ -274,33 +350,38 @@ describe_kernel(const float* __restrict__ packed, const float* __restrict__ wts,
     }
   }
   __syncthreads();
-  if (tid < kC) {
-    const float a = head[tid * 4], oc = head[tid * 4 + 1], os = head[tid * 4 + 2];
-    head[tid * 4] = fmaxf(a, 0.f) + log1pf(expf(-fabsf(a)));   // logaddexp(a, 0)
-    const float inv = 1.f / sqrtf(fmaxf(__fadd_rn(__fmul_rn(oc, oc), __fmul_rn(os, os)), 1e-8f));
-    head[tid * 4 + 1] = __fmul_rn(oc, inv);
-    head[tid * 4 + 2] = __fmul_rn(os, inv);
-  }
-  __syncthreads();
-  if (stop == s + 2) return;
-
-  // ---- rotate into the canonical orientation (from the unrounded x / r)
-  for (int row = tid; row < kRows; row += kThreads) {
-    const int slot = row % kSlots, c = row / kSlots, b = b0 + c;
-    const float co = head[c * 4 + 1], si = head[c * 4 + 2];
-    float x = 0.f, y = 0.f;
-    if (b < batch && slot < T.ns) {
-      x = __fmul_rn(coord(slot, 0, b), T.inv_r);
-      y = __fmul_rn(coord(slot, 1, b), T.inv_r);
+  if constexpr (!kBody) {
+    if (tid < kC) {
+      const float a = head[tid * 4], oc = head[tid * 4 + 1], os = head[tid * 4 + 2];
+      head[tid * 4] = fmaxf(a, 0.f) + log1pf(expf(-fabsf(a)));   // logaddexp(a, 0)
+      const float inv =
+          1.f / sqrtf(fmaxf(__fadd_rn(__fmul_rn(oc, oc), __fmul_rn(os, os)), 1e-8f));
+      head[tid * 4 + 1] = __fmul_rn(oc, inv);
+      head[tid * 4 + 2] = __fmul_rn(os, inv);
     }
-    xin[4 * row] = act(__fsub_rn(__fmul_rn(x, co), __fmul_rn(y, si)));
-    xin[4 * row + 1] = act(__fadd_rn(__fmul_rn(x, si), __fmul_rn(y, co)));
+    __syncthreads();
+    if (stop == s + 2) return;
+
+    // ---- rotate into the canonical orientation (from the unrounded x / r)
+    for (int row = tid; row < kRows; row += kThreads) {
+      const int slot = row % kSlots, c = row / kSlots, b = b0 + c;
+      const float co = head[c * 4 + 1], si = head[c * 4 + 2];
+      float x = 0.f, y = 0.f;
+      if (b < batch && slot < T.ns) {
+        x = __fmul_rn(coord(slot, 0, b), T.inv_r);
+        y = __fmul_rn(coord(slot, 1, b), T.inv_r);
+      }
+      xin[4 * row] = act(__fsub_rn(__fmul_rn(x, co), __fmul_rn(y, si)));
+      xin[4 * row + 1] = act(__fadd_rn(__fmul_rn(x, si), __fmul_rn(y, co)));
+    }
+    __syncthreads();
+    if (stop == s + 3) return;
   }
-  __syncthreads();
-  if (stop == s + 3) return;
 
   // ---- descriptor convs on the CUDA cores; the last one stored into the
-  // left half of [h | pool], then its masked max pool into the right half
+  // left half of [h | pool], then the right half: its masked max pool, a
+  // body's sum over the ns slots (kMatmul, in slot order) or the row's own
+  // left half (kMatmul2d)
   in = xin;
   ld = 4;
   int c_last = 0;
@@ -311,8 +392,8 @@ describe_kernel(const float* __restrict__ packed, const float* __restrict__ wts,
     const int out_ld = (last ? 2 * L.cout : L.cout) + 4;
     for (int c = 0; c < kC; ++c)
       f3d::slot_layer_any(L.cout, in + c * kSlots * ld, L.cin, ld, wts + L.w,
-                          BiasAct<kBf16>{wts + L.b, true}, out + c * kSlots * out_ld, out_ld,
-                          kNoPool, mask + c * kSlots, nullptr, nullptr);
+                          BiasAct<kRound>{wts + L.b, !kBody}, out + c * kSlots * out_ld,
+                          out_ld, kNoPool, mask + c * kSlots, nullptr, nullptr);
     in = out;
     ld = out_ld;
     c_last = L.cout;
@@ -321,145 +402,58 @@ describe_kernel(const float* __restrict__ packed, const float* __restrict__ wts,
   for (int e = tid; e < kC * c_last; e += kThreads) {
     const int c = e / c_last, k = e - c * c_last;
     float* col = cat + c * kSlots * ld + k;
-    float p = 0.f;                      // ReLU values: the max of mask * v is exact
-    for (int r = 0; r < kSlots; ++r) p = fmaxf(p, col[r * ld] * mask[c * kSlots + r]);
-    for (int r = 0; r < kSlots; ++r) col[r * ld + c_last] = p;
+    if constexpr (kMode == kMatmul2d) {
+      for (int r = 0; r < kSlots; ++r) col[r * ld + c_last] = col[r * ld];
+    } else {
+      float p = 0.f;
+      for (int r = 0; r < kSlots; ++r)   // ReLU values: the max of mask * v is exact
+        p = kBody ? p + col[r * ld] * mask[c * kSlots + r]
+                  : fmaxf(p, col[r * ld] * mask[c * kSlots + r]);
+      for (int r = 0; r < kSlots; ++r) col[r * ld + c_last] = p;
+    }
   }
   __syncthreads();
   if (stop == s + 4) return;
 
-  // ---- the mid conv (no ReLU) on the tensor cores, its masked pool
-  // re-summed in k order; the post conv; L2
+  // ---- the mid conv (no ReLU) on the tensor cores: its masked max pool
+  // re-summed in k order, or a body's sum pool; the post conv; L2 (a body's
+  // output unnormalised, its orientation kept live)
   const PoolRoom dsc(buf[T.n_desc & 1]);
-  pool_layer<kBf16, false>(T.l[mid], wts, cat, ld, mask, dup, dsc,
-                           stop == s + 5 ? 0 : stop == s + 8 ? 1 : 2, desc);
-  if (stop == s + 5 || stop == s + 6 || stop == s + 8) return;
+  if constexpr (kBody) {
+    sum_pool_layer(T.l[mid], wts, cat, ld, mask, dsc.pooled);
+  } else {
+    pool_layer<kRound, false>(T.l[mid], wts, cat, ld, mask, dup, dsc,
+                              stop == s + 5 ? 0 : stop == s + 8 ? 1 : 2, desc);
+    if (stop == s + 5 || stop == s + 6 || stop == s + 8) return;
+  }
   const Layer& P = T.l[mid + 1];
   row_layer<false>(P, wts, dsc.pooled, false, dsc.vec[0]);
   if (warp < kC && b0 + warp < batch) {
     const float* v = dsc.vec[0] + warp * kMaxC;
-    float sq = 0.f;
-    for (int c = lane; c < P.cout; c += 32) sq = fmaf(v[c], v[c], sq);
-    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    const float inv = 1.f / sqrtf(fmaxf(sq, 1e-8f));
-    const size_t b = b0 + warp;
-    for (int c = lane; c < P.cout; c += 32) desc[b * P.cout + c] = v[c] * inv;
-    if (lane == 0) att[b] = head[warp * 4];
-  }
-}
-
-// The decomposition bodies (kStream, kMatmul, kMatmul2d), one cluster a
-// block: per-slot layers on f3d::slot_layer (pooled as sums, or as slot
-// 0's row), single-row layers on f3d::vec_layer, all FFMA in k order.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads, 2)
-decompose_kernel(const float* __restrict__ packed, const float* __restrict__ wts,
-                 const __grid_constant__ Tower T, float* __restrict__ desc,
-                 float* __restrict__ att) {
-  extern __shared__ float4 smem4[];
-  float* xin = reinterpret_cast<float*>(smem4);  // kSlots x 4: x, y, z, 0
-  float* mask = xin + kSlots * 4;                // kSlots
-  float* red = mask + kSlots;                    // kWarps x kVec
-  float* v0 = red + kWarps * kVec;               // kVec
-  float* v1 = v0 + kVec;                         // kVec
-  float* head = v1 + kVec;                       // 4: att, orientation
-  float* buf[2] = {head + 4, head + 4 + kSlots * T.buf_width};
-
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const auto dense = [&](const Layer& L) { return BiasAct<false>{wts + L.b, false}; };
-  const Layer& P = T.l[T.n_det + T.n_det2 + 2 + T.n_desc + 1];   // post conv
-
-  if (t < kSlots) {
-    float x = 0.f, y = 0.f, z = 0.f;
-    if (t < T.ns) {
-      x = packed[static_cast<size_t>(8 * t + 0) * T.batch + b];
-      y = packed[static_cast<size_t>(8 * t + 1) * T.batch + b];
-      z = packed[static_cast<size_t>(8 * t + 2) * T.batch + b];
+    if constexpr (kBody) {
+      const size_t b = b0 + warp;
+      for (int c = lane; c < P.cout; c += 32) desc[b * P.cout + c] = v[c];
+      if (lane == 0) att[b] = __fadd_rn(head[warp * 4], __fmul_rn(head[warp * 4 + 1], 1e-30f));
+    } else {
+      float sq = 0.f;
+      for (int c = lane; c < P.cout; c += 32) sq = fmaf(v[c], v[c], sq);
+      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      const float inv = 1.f / sqrtf(fmaxf(sq, 1e-8f));
+      const size_t b = b0 + warp;
+      for (int c = lane; c < P.cout; c += 32) desc[b * P.cout + c] = v[c] * inv;
+      if (lane == 0) att[b] = head[warp * 4];
     }
-    xin[4 * t + 0] = x;
-    xin[4 * t + 1] = y;
-    xin[4 * t + 2] = z;
-    xin[4 * t + 3] = 0.f;
-    if constexpr (kMode == kMatmul) mask[t] = t < T.ns ? 1.f : 0.f;   // sum every slot
-    if constexpr (kMode == kMatmul2d) mask[t] = t == 0 ? 1.f : 0.f;   // "sum" = slot 0
-  }
-  __syncthreads();
-  if constexpr (kMode == kStream) {
-    for (int c = t; c < P.cout; c += kThreads)
-      desc[static_cast<size_t>(b) * P.cout + c] = xin[0];
-    if (t == 0) att[b] = xin[1];
-    return;
-  }
-
-  // ---- detector: per-slot convs, the last one pooled ---------------------
-  int li = 0;
-  const float* in = xin;
-  int cin_stride = 4;
-  int nb = 0;
-  for (int i = 0; i < T.n_det; ++i, ++li) {
-    const Layer& L = T.l[li];
-    const bool last = i == T.n_det - 1;
-    float* out = last ? nullptr : buf[nb];
-    f3d::slot_layer_any(L.cout, in, L.cin, cin_stride, wts + L.w, dense(L), out, L.cout,
-                        last ? kPoolSum : kNoPool, mask, red, v0);
-    if (!last) { in = out; cin_stride = L.cout; nb ^= 1; }
-  }
-  float* g = v0;
-  float* g2 = v1;
-  for (int i = 0; i < T.n_det2; ++i, ++li) {
-    const Layer& L = T.l[li];
-    f3d::vec_layer(g, L.cin, L.cout, wts + L.w, dense(L), g2);
-    float* tmp = g; g = g2; g2 = tmp;
-  }
-  for (int h = 0; h < 2; ++h, ++li) {          // attention -> head[0], orientation -> head[1:3]
-    const Layer& L = T.l[li];
-    f3d::vec_layer(g, L.cin, L.cout, wts + L.w, dense(L), head + h);
-  }
-
-  // ---- descriptor: per-slot convs; the last stored into [h | pool] -------
-  in = xin;
-  cin_stride = 4;
-  int c_last = 0;
-  float* cat = nullptr;
-  for (int i = 0; i < T.n_desc; ++i, ++li) {
-    const Layer& L = T.l[li];
-    const bool last = i == T.n_desc - 1;
-    float* out = buf[nb];
-    const int stride = last ? 2 * L.cout : L.cout;
-    f3d::slot_layer_any(L.cout, in, L.cin, cin_stride, wts + L.w, dense(L), out, stride,
-                        last ? kPoolSum : kNoPool, mask, red, v0);
-    if (last) { cat = out; c_last = L.cout; }
-    in = out; cin_stride = stride; nb ^= 1;
-  }
-  for (int e = t; e < kSlots * c_last; e += kThreads) {
-    const int r = e / c_last, k = e - r * c_last;
-    cat[r * 2 * c_last + c_last + k] = kMode == kMatmul2d ? cat[r * 2 * c_last + k] : v0[k];
-  }
-  __syncthreads();
-
-  // ---- mid conv, pooled as a sum; post conv ------------------------------
-  {
-    const Layer& L = T.l[li++];
-    f3d::slot_layer_any(L.cout, cat, L.cin, 2 * c_last, wts + L.w, dense(L), nullptr, 0,
-                        kPoolSum, mask, red, v1);
-  }
-  f3d::vec_layer(v1, P.cin, P.cout, wts + P.w, dense(P), v0);
-  if (t < 32) {
-    for (int c = t; c < P.cout; c += 32) desc[static_cast<size_t>(b) * P.cout + c] = v0[c];
-    if (t == 0) att[b] = __fadd_rn(head[0], __fmul_rn(head[1], 1e-30f));
   }
 }
 
 // Host: the tower from the (n, 4) layer table and the (n, 2) offsets of the
-// pooled convs' W fragments and column norms (extra: NULL for the
-// decomposition bodies and the occupancy query), with the forward's and
-// the decomposition kernel's shared-memory layouts. Returns false for a
-// tower the kernels do not take.
+// pooled convs' W fragments and column norms (extra: NULL for the occupancy
+// query), with the kernel's shared-memory layout. Returns false for a tower
+// the kernel does not take.
 bool slot_width(int c) { return c == 32 || c == 64 || c == 128 || c == 256; }
 
 bool make_tower(Tower* T, int ns, int batch, const int* layers, const int* extra, int n_det,
-                int n_det2, int n_desc, bool forward) {
+                int n_det2, int n_desc) {
   const int n_layers = n_det + n_det2 + 2 + n_desc + 2;
   if (ns < 1 || ns > kSlots || batch < 0 || n_det < 1 || n_det2 < 0 || n_desc < 1 ||
       n_layers > kMaxLayers)
@@ -477,24 +471,13 @@ bool make_tower(Tower* T, int ns, int batch, const int* layers, const int* extra
     L = Layer{q[0], q[1], q[2], q[3], -1, -1, -1, extra ? extra[2 * i] : -1,
               extra ? extra[2 * i + 1] : -1};
     const bool slot = i < n_det || (i >= d0 && i < mid);
-    if (L.cin < 1 || L.cout < 1 || L.cout > kVec || (slot && (!slot_width(L.cout) || L.cin % 4)))
+    if (L.cin < 1 || L.cin > kMaxC || L.cout < 1 || L.cout > kMaxC ||
+        (slot && (!slot_width(L.cout) || L.cin % 4)))
       return false;
   }
   if (T->l[0].cin != 4 || T->l[d0].cin != 4) return false;
-  if (forward)
-    for (int i = 0; i < n_layers; ++i)
-      if (T->l[i].cin > kMaxC) return false;
-  if (!forward) {
-    for (int i = 0; i < n_det - 1; ++i)
-      T->buf_width = T->buf_width > T->l[i].cout ? T->buf_width : T->l[i].cout;
-    for (int i = 0; i < n_desc; ++i) {
-      const int w = i == n_desc - 1 ? 2 * T->l[d0 + i].cout : T->l[d0 + i].cout;
-      T->buf_width = T->buf_width > w ? T->buf_width : w;
-    }
-    return true;
-  }
-  // the forward: the two pooled convs on the tensor cores (16-channel warp
-  // tiles, 32-deep re-sum slices), the heads 1 and 2 wide
+  // the two pooled convs on the tensor cores (16-channel warp tiles, 32-deep
+  // re-sum slices), the heads 1 and 2 wide
   const Layer& top = T->l[n_det - 1];
   const Layer& m = T->l[mid];
   if (n_det < 2 || top.cin % 32 || top.cout % 16 || m.cin != 2 * T->l[mid - 1].cout ||
@@ -550,31 +533,22 @@ int describe(const float* packed, int ns, int batch, const float* weights, const
              float inv_r, float* desc, float* att, int stop, cudaStream_t stream, int* occ) {
   const bool forward = mode == kF32 || mode == kBf16;
   if (mode < kF32 || mode > kMatmul2d || stop < 0 || (!forward && stop) ||
-      stop > n_det + 9 || (forward && !extra && !occ))
+      stop > n_det + 9 || (!extra && !occ))
     return cudaErrorInvalidValue;
   Tower T;
-  if (!make_tower(&T, ns, batch, layers, extra, n_det, n_det2, n_desc, forward))
+  if (!make_tower(&T, ns, batch, layers, extra, n_det, n_det2, n_desc))
     return cudaErrorInvalidValue;
   T.r2 = r2;
   T.inv_r = inv_r;
-  if (forward) {
-    const auto kernel = mode == kF32 ? describe_kernel<false> : describe_kernel<true>;
-    const size_t smem = sizeof(float) * static_cast<size_t>(T.smem_floats);
-    const cudaError_t err = prepare(kernel, smem, occ);
-    if (err != cudaSuccess || occ || batch == 0) return err;
-    kernel<<<(batch + kC - 1) / kC, kThreads, smem, stream>>>(packed, weights, T, desc, att,
-                                                              stop);
-    return cudaGetLastError();
-  }
-  const auto kernel = mode == kStream ? decompose_kernel<kStream>
-                      : mode == kMatmul ? decompose_kernel<kMatmul>
-                                        : decompose_kernel<kMatmul2d>;
-  const size_t smem = sizeof(float) *
-      (kSlots * 4 + kSlots + kWarps * kVec + 2 * kVec + 4 +
-       2 * static_cast<size_t>(kSlots) * T.buf_width);
+  const auto kernel = mode == kF32      ? describe_kernel<kF32>
+                      : mode == kBf16   ? describe_kernel<kBf16>
+                      : mode == kStream ? describe_kernel<kStream>
+                      : mode == kMatmul ? describe_kernel<kMatmul>
+                                        : describe_kernel<kMatmul2d>;
+  const size_t smem = sizeof(float) * static_cast<size_t>(T.smem_floats);
   const cudaError_t err = prepare(kernel, smem, occ);
   if (err != cudaSuccess || occ || batch == 0) return err;
-  kernel<<<batch, kThreads, smem, stream>>>(packed, weights, T, desc, att);
+  kernel<<<(batch + kC - 1) / kC, kThreads, smem, stream>>>(packed, weights, T, desc, att, stop);
   return cudaGetLastError();
 }
 
@@ -587,7 +561,7 @@ int describe(const float* packed, int ns, int batch, const float* weights, const
 // conv; extra: host int32 (n, 2), per layer the offsets of its W fragments
 // for the tensor cores (TF32 values, bf16 pairs in mode 1) and of its
 // column 2-norms (rounded up), -1 where it has none (all but the detector's
-// top conv and the mid conv); NULL in modes 2-4; mode: 0 f32, 1 bf16
+// top conv and the mid conv), in every mode; mode: 0 f32, 1 bf16
 // activations, 2 stream, 3 matmul, 4 matmul_2d; desc (batch, D) f32; att
 // (batch,) f32.
 F3D_EXPORT int f3d_fused_describe(const float* packed, int ns, int batch,

@@ -1,11 +1,12 @@
 // The per-slot layer of the cluster towers, shared by K3 (fused_describe.cu)
-// and K6 (fused_detect.cu), with the membership mask both derive and the
-// bf16 rounding of their reduced-precision modes.
+// and K6 (fused_detect.cu), with the bf16 rounding of their reduced-precision
+// modes.
 //
-// Layout, in both kernels: one block of kTowerThreads threads per cluster;
-// the kTowerSlots (padded) slots' activations in shared memory, row r =
-// slot r. A per-slot layer is a register-tiled product: each warp owns 8
-// slots and each lane Cout/32 channels, in groups of kV consecutive
+// Layout: a block of kTowerThreads threads runs one cluster's layer (the
+// kernels call it once per cluster of the block); the kTowerSlots (padded)
+// slots' activations in shared memory, row r = slot r. A per-slot layer is
+// a register-tiled product: each warp owns 8 slots and each lane Cout/32
+// channels, in groups of kV consecutive
 // channels 32 * kV apart, so a k step costs one float4 broadcast read of a
 // slot's activations per 4 k and one coalesced vector read of W per group:
 // 8 x Cout/32 FMAs per k on 8 + Cout/32 values. Cout is a template so the
@@ -71,26 +72,6 @@ struct BiasAct {
     return kRound ? round_bf16(v) : v;
   }
 };
-
-// Ball membership of the kTowerSlots slots from their squared distances
-// d2s (INFINITY past ns): d2 < r2, and an empty ball keeps the FIRST slot
-// at the minimum distance (the reference ball query's tie order). Run by
-// the 32 threads of warp 0; writes mask[0..63] as 0/1.
-__device__ __forceinline__ void tower_membership(const float* d2s, float r2, float* mask) {
-  const int t = threadIdx.x;
-  const float da = d2s[t], db = d2s[t + 32];
-  const bool ia = da < r2, ib = db < r2;
-  const int count = __popc(__ballot_sync(0xffffffffu, ia)) +
-                    __popc(__ballot_sync(0xffffffffu, ib));
-  float dmin = fminf(da, db);
-  for (int off = 16; off > 0; off >>= 1)
-    dmin = fminf(dmin, __shfl_xor_sync(0xffffffffu, dmin, off));
-  const unsigned lo = __ballot_sync(0xffffffffu, da <= dmin);
-  const unsigned hi = __ballot_sync(0xffffffffu, db <= dmin);
-  const int first = lo ? __ffs(lo) - 1 : 32 + __ffs(hi) - 1;
-  mask[t] = (ia || (count == 0 && first == t)) ? 1.f : 0.f;
-  mask[t + 32] = (ib || (count == 0 && first == t + 32)) ? 1.f : 0.f;
-}
 
 // One per-slot layer: out[r][c] = epi(sum_k in[r][k] * W[k][c]) for the 64
 // (padded) slots, W stored (Cin, Cout) and 16-byte aligned, Cin % 4 == 0.
@@ -182,18 +163,6 @@ __device__ void slot_layer_any(int cout, const float* in, int cin, int in_stride
     case 128: slot_layer<128>(in, cin, in_stride, W, epi, out, out_stride, pool, mask, red, pooled); break;
     default: slot_layer<256>(in, cin, in_stride, W, epi, out, out_stride, pool, mask, red, pooled); break;
   }
-}
-
-// One single-row layer (after a pool): out[c] = epi(sum_k in[k] W[k][c]).
-template <class Epi>
-__device__ void vec_layer(const float* in, int cin, int cout, const float* W, const Epi& epi,
-                          float* out) {
-  for (int c = threadIdx.x; c < cout; c += kTowerThreads) {
-    float acc = 0.f;
-    for (int k = 0; k < cin; ++k) acc = fmaf(in[k], __ldg(W + k * cout + c), acc);
-    out[c] = epi.apply(acc, epi.chan(c));
-  }
-  __syncthreads();
 }
 
 }  // namespace f3d

@@ -22,7 +22,9 @@
 // and the pool is the largest. The value of a max pool is the value of one
 // row, so it equals the chain's pool bit for bit. Rows repeating slot 0 of
 // their cluster (a ball query's padding) are never marked: their sums are
-// slot 0's.
+// slot 0's. K3's decomposition bodies, whose pools are sums, take the same
+// 1xTF32 warp tiles' products (tf32_tile_product) and sum them in their
+// epilogue.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,9 +49,10 @@ constexpr int kRows = kC * kSlots;
 // and the column 2-norms; -1 = none.
 struct Layer { int cin, cout, w, b, mu, mul, beta, frag, wnorm; };
 
-// Ball membership of one cluster's 64 slots, as f3d::tower_membership, for
-// the warp whose lane is `lane`: d2 < r2, and an empty ball keeps the FIRST
-// slot at the minimum distance. Writes mask[0..63] as 0/1.
+// Ball membership of one cluster's 64 slots, for the warp whose lane is
+// `lane`: d2 < r2, and an empty ball keeps the FIRST slot at the minimum
+// distance (the reference ball query's tie order). Writes mask[0..63] as
+// 0/1.
 __device__ __forceinline__ void membership(const float* d2s, float r2, float* mask, int lane) {
   const float da = d2s[lane], db = d2s[lane + 32];
   const bool ia = da < r2, ib = db < r2;
@@ -251,6 +254,39 @@ __device__ __forceinline__ void pool_sum(const Layer& L, const float* __restrict
         if (r[j] >= 0 && r[j] / kSlots == c)
           pooled[c] = fmaxf(pooled[c], pool_value<kBf16, kRelu>(y[j], ch, bn));
   }
+}
+
+// One warp tile of a pooled conv's product on pooled_conv's 1xTF32 tiles,
+// for K3's decomposition bodies: rows m0 .. m0 + 16 kMT - 1 of `in` (row
+// stride in_ld; 64 rows, one cluster) by columns n0 .. n0 + 8 NT - 1 of
+// L's W (its TF32 fragments at L.frag), into acc in m16n8's C layout.
+// pooled_conv keeps its own copy of these lines: calling this from it
+// changes K3's and K6's register allocation.
+template <int NT>
+__device__ __forceinline__ void tf32_tile_product(const Layer& L, const float* __restrict__ wts,
+                                                  const float* in, int in_ld, int m0, int n0,
+                                                  float (&acc)[kMT][NT][4]) {
+  const int lane = threadIdx.x & 31;
+  const int cin = L.cin, nb_n = L.cout / 8;
+  // B: one 8-byte fragment per lane per mma (8 x 8 block), the blocks k
+  // major; the next k step's loaded while this one's products run
+  const uint2* F = reinterpret_cast<const uint2*>(wts + L.frag) + (n0 / 8) * 32 + lane;
+  uint2 nxt[NT];
+#pragma unroll
+  for (int q = 0; q < NT; ++q) nxt[q] = __ldg(F + q * 32);
+  const auto fb = [&](int k0, uint32_t (&b)[NT][2]) {
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      b[q][0] = nxt[q].x;
+      b[q][1] = nxt[q].y;
+    }
+    if (k0 + 8 < cin)
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+        nxt[q] = __ldg(F + (static_cast<size_t>(k0 / 8 + 1) * nb_n + q) * 32);
+  };
+  // + half a TF32 ulp: the tensor cores' truncation then rounds
+  tc_tile_tf32<kMT, NT>(in, in_ld, m0, cin, [](uint32_t v) { return v + 0x1000u; }, fb, acc);
 }
 
 // The pooled per-slot conv L over the block's kC * 64 rows (in, row stride

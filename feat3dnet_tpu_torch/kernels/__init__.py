@@ -299,7 +299,7 @@ def launch_fused_describe(packed, ns, weights, layers, extra, n_det, n_det2, n_d
                           r2, inv_r, desc, att, stop: Optional[str] = None) -> None:
     """layers: host int32 tensor of (cin, cout, w_offset, b_offset) rows;
     extra: host int32 (n, 2) tensor of the layers' fragment and column-norm
-    offsets (modes 'f32' and 'bf16'), or None; mode: a key of
+    offsets; mode: a key of
     DESCRIBE_MODES; stop: a key of describe_stops(n_det) for the time split
     of those two modes (desc and att not written)."""
     batch = packed.shape[1]

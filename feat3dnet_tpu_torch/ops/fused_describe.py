@@ -147,7 +147,8 @@ def fused_describe_clusters_t_plain(weights_t: List[torch.Tensor],
     bf16_act). ablate: the time-decomposition bodies, whose outputs are not
     descriptors: 'stream' (what `_ablate_kernel_t` and `_ablate_kernel_2d`
     both compute), 'matmul' (`_ablate_kernel_t`'s) and 'matmul_2d'
-    (`_ablate_kernel_2d`'s).
+    (`_ablate_kernel_2d`'s), their two pooled convs on TF32-rounded
+    operands as the kernel runs them (`_describe_ablate_plain`).
     """
     mode = _describe_mode(bf16_act, ablate)
     rows, b = clusters_p.shape
@@ -212,27 +213,45 @@ def fused_describe_clusters_t_plain(weights_t: List[torch.Tensor],
     return out.t().contiguous(), att[0]
 
 
+# The matmul bodies against the same function in f32 (`_describe_ablate_plain`
+# with tf32=False, what the JAX bodies compute on the CPU), as a share of
+# max|ref| over each output: a product of two TF32-rounded operands lies
+# within 2^-10 of the exact product, every output of a body passes through
+# one pooled conv, and the factor 2 leaves room for cancellation. On the
+# CPU, seeded weights at the paper widths and at the tests' small widths
+# read 2.2e-4 - 7.1e-4; the trained weights, on which no check runs the
+# bodies, cancel more (4.5e-3).
+ABLATE_F32_LIMIT = 2.0 ** -9
+
+
 def _describe_ablate_plain(weights_t: List[torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-                           mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                           mode: str, tf32: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decomposition bodies on (ns, 8, B) slot blocks. 'stream': desc[b,
     :] = x of slot 0, att[b] = y of slot 0. 'matmul' (`_ablate_kernel_t`):
     every product of the forward on the raw coordinates, with no
     membership, ReLU, mask or rotation and the pools as sums over the
-    slots. 'matmul_2d' (`_ablate_kernel_2d`): the same products, each pool
-    taken as slot 0's row and the mid conv fed [d_s ; d_s]."""
+    slots (each slot's bias counted); the descriptor's pool is summed in
+    slot order, as the kernel sums it. 'matmul_2d' (`_ablate_kernel_2d`):
+    the same products, each pool taken as slot 0's row and the mid conv fed
+    [d_s ; d_s].
+    tf32: both operands of the two pooled convs (the detector's top conv,
+    the mid conv) rounded to TF32 (`_tf32_rna`) and summed in f32, as the
+    kernel runs them on the forward's 1xTF32 tensor-core tiles; False: all
+    f32 (what the JAX bodies compute on the CPU)."""
     b = x.shape[2]
     if mode == "stream":
         return x[0, 0][:, None].expand(b, cfg.feature_dim).contiguous(), x[0, 1].clone()
     ws = iter(weights_t)
+    rnd = _tf32_rna if tf32 else _identity
 
     def next_w():
         return next(ws), next(ws)
 
     n_det, n_det2, n_desc = _n_layers(cfg)
     h = x
-    for _ in range(n_det):
+    for i in range(n_det):
         k, bias = next_w()
-        h = torch.matmul(k, h) + bias
+        h = (torch.matmul(rnd(k), rnd(h)) if i == n_det - 1 else torch.matmul(k, h)) + bias
     g = h[0] if mode == "matmul_2d" else h.sum(0)                # (C, B)
     for _ in range(n_det2):
         k, bias = next_w()
@@ -247,10 +266,13 @@ def _describe_ablate_plain(weights_t: List[torch.Tensor], x: torch.Tensor, cfg: 
         d = torch.matmul(k, d) + bias
     km, bm = next_w()
     if mode == "matmul_2d":
-        m = (torch.matmul(km, torch.cat([d, d], dim=1)) + bm)[0]
+        m = (torch.matmul(rnd(km), rnd(torch.cat([d[:1], d[:1]], dim=1))) + bm)[0]
     else:
-        dpool = d.sum(0, keepdim=True)
-        m = (torch.matmul(km, torch.cat([d, dpool.expand_as(d)], dim=1)) + bm).sum(0)
+        dpool = d[0]
+        for s in range(1, d.shape[0]):
+            dpool = dpool + d[s]
+        cat = torch.cat([d, dpool.expand_as(d)], dim=1)
+        m = (torch.matmul(rnd(km), rnd(cat)) + bm).sum(0)
     kp, bp = next_w()
     out = kp @ m + bp                                            # (D, B), unnormalised
     return out.t().contiguous(), (att + ori[0:1] * 1e-30)[0]
@@ -298,20 +320,19 @@ def _describe_kernel_weights(weights_t: List[torch.Tensor], cfg: ModelConfig, de
                              mode: str = "f32") -> tuple:
     """Kernel K3's weights for `mode` (a key of kernels.DESCRIBE_MODES):
     `_kernel_weights`' buffer (kernel matrices as bf16 values in 'bf16') and
-    table, and in the forward modes ('f32', 'bf16') per layer the offsets of
-    its W fragments for the tensor cores and of its column norms, (n, 2), -1
-    where it has none (None in the other modes). The buffer then also holds,
-    for the two max-pooled convs (the detector's top conv and the mid conv),
-    their fragments (`_tf32_fragments`, or `_bf16_fragments` in 'bf16') and
-    their column 2-norms rounded up (the slack of their pools' candidates),
-    the mid conv's followed by those of its rows below cin / 2 (the rows
-    that multiply the [h | pool] input's h).
+    table, and per layer the offsets of its W fragments for the tensor cores
+    and of its column norms, (n, 2), -1 where it has none. The buffer then
+    also holds, for the two pooled convs (the detector's top conv and the
+    mid conv), their fragments (`_tf32_fragments`, or `_bf16_fragments` in
+    'bf16') and their column 2-norms rounded up (the slack of the forward's
+    max-pool candidates), the mid conv's followed by those of its rows below
+    cin / 2 (the rows that multiply the [h | pool] input's h). Every mode
+    but 'bf16' takes the 'f32' buffers (the decomposition bodies run the
+    pooled convs on the f32 forward's TF32 tiles).
     A caller that launches K3 often makes this once and passes it to
     `fused_describe_clusters_t` (the server and the pipeline do)."""
     bf16 = mode == "bf16"
     flat, table = _kernel_weights(weights_t, cfg, device, bf16=bf16)
-    if mode not in ("f32", "bf16"):
-        return flat, table, None
     n_det, n_det2, n_desc = _n_layers(cfg)
     pooled = (n_det - 1, n_det + n_det2 + 2 + n_desc)
     extra = torch.full((table.shape[0], 2), -1, dtype=torch.int32)

@@ -219,7 +219,7 @@ def test_k3_fragments_follow_the_mma_layout(mode):
     bf16_act), 8 bytes a lane; the offsets point at them and at the column
     norms (rounded up; the mid conv's followed by those of its rows below
     cin / 2); every other layer has none, and the decomposition bodies get
-    no fragments."""
+    the f32 mode's buffers (they run its TF32 tiles)."""
     cfg = ModelConfig()
     wt = tfd.transpose_folded_weights(
         tfd.folded_weights(init_variables(cfg, seed=3, bn_perturb=0.1), cfg))
@@ -257,4 +257,7 @@ def test_k3_fragments_follow_the_mma_layout(mode):
     # the buffer and table ahead of the fragments are _kernel_weights'
     f, tab = tfd._kernel_weights(wt, cfg, "cpu", bf16=mode == "bf16")
     assert torch.equal(table, tab) and torch.equal(flat[:f.numel()], f)
-    assert tfd._describe_kernel_weights(wt, cfg, "cpu", "matmul")[2] is None
+    if mode == "f32":
+        for body in ("stream", "matmul", "matmul_2d"):
+            got = tfd._describe_kernel_weights(wt, cfg, "cpu", body)
+            assert all(torch.equal(a, b) for a, b in zip(got, (flat, table, extra)))

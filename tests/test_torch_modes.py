@@ -9,8 +9,11 @@ a bf16 rounding of an activation the result moves by about one bf16 step
 (2^-8). At these sizes no rounding flips (measured: descriptors within
 9e-8, attention 1.1e-7 relative), so the tolerances are 1e-5 for both and
 cosine >= 0.99999. The decomposition bodies (`_ablate_kernel_t` and
-`_ablate_kernel_2d`): `stream` exact, `matmul` and `matmul_2d` within 1e-5
-max|ref| (measured 8.6e-7 for `matmul`, 6.9e-7 for `matmul_2d`). K6 folded and bf16_operands:
+`_ablate_kernel_2d`): `stream` exact; `matmul` and `matmul_2d` round their
+pooled convs' operands to TF32, as the kernel does, so they are held to
+JAX's f32 bodies within `ABLATE_F32_LIMIT` (2^-9) of max|ref| (measured
+2.9e-4 - 7.1e-4; in f32 they read 8.6e-7 and 6.9e-7, and
+tests/test_torch_k3_bodies.py holds the rounding's placement to 1e-5). K6 folded and bf16_operands:
 attention rtol 1e-5, orientation 1e-5 rad, K6's f32 tolerances (measured
 4.7e-7 / 4.8e-7 rad folded, 1.3e-7 / 2.4e-7 rad bf16_operands). The
 kernels themselves are held against these plain versions in
@@ -95,7 +98,9 @@ def test_plain_k3_ablate_matches_jax(rng, layout, ablate, ours):
     `_ablate_kernel_2d`. Both stream bodies compute desc = x, att = y of
     slot 0 (exact). `_ablate_kernel_2d`'s matmul body, K3's 'matmul_2d',
     takes each pool as slot 0's row and feeds the mid conv [d | d], another
-    function than 'matmul'. Within 1e-5 max|ref|."""
+    function than 'matmul'. The matmul bodies take TF32-rounded operands in
+    their two pooled convs (the kernel's tiles) and JAX's sum in f32: within
+    ABLATE_F32_LIMIT of max|ref|, the rounding's bound (tfd.ABLATE_F32_LIMIT)."""
     v, clusters, jcfg, tcfg, packed, wt = _k3_case(rng, dict(SMALL, num_samples=16))
     with pltpu.force_tpu_interpret_mode():
         if layout == "t":
@@ -114,8 +119,9 @@ def test_plain_k3_ablate_matches_jax(rng, layout, ablate, ours):
         np.testing.assert_array_equal(td.numpy(), jd)
         np.testing.assert_array_equal(ta.numpy(), ja)
     else:
-        assert np.abs(td.numpy() - jd).max() <= 1e-5 * np.abs(jd).max()
-        assert np.abs(ta.numpy() - ja).max() <= 1e-5 * np.abs(ja).max()
+        limit = tfd.ABLATE_F32_LIMIT
+        assert np.abs(td.numpy() - jd).max() <= limit * np.abs(jd).max()
+        assert np.abs(ta.numpy() - ja).max() <= limit * np.abs(ja).max()
     if ours == "matmul_2d":
         md, _ = tfd.fused_describe_clusters_t_plain(wt, x, tcfg, ablate="matmul")
         assert np.abs(md.numpy() - jd).max() > 1e-2 * np.abs(jd).max()

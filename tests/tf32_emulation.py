@@ -24,7 +24,8 @@ them, then truncates the sum toward zero to f32.
 The pooled convs of K6 and K3 (csrc/tower_pool.cuh): `chain_matmul` sums
 each output as one fmaf chain in k order; `pooled_conv` picks a pool's
 candidate rows from a tensor-core product and the slack (`tower_rel`,
-`pool_slack`) and re-sums them as chains.
+`pool_slack`) and re-sums them as chains. K3's decomposition bodies sum a
+pool straight from the product's warp tiles (`tile_row_sums`).
 """
 import functools
 
@@ -221,3 +222,21 @@ def pooled_conv(h, w, layer, mask, dup, product, relu=True, shared_from=None):
     out = torch.full((nb * w.shape[1],), 0.0 if relu else -1.0e30)
     pool = out.scatter_reduce(0, ci * w.shape[1] + ni, v, "amax", include_self=True)
     return pool.reshape(nb, -1), u_t, cand, slack
+
+
+def tile_row_sums(v, keep):
+    """The sum pool of csrc/fused_describe.cu:sum_pool_layer: v (nb * 64,
+    C), the product plus the bias per row, summed over the rows whose keep
+    (nb, 64) is set, in the order of a warp tile's m16n8 accumulators. Lane
+    (g, t) holds rows 16 i + 8 r + g of the cluster: it sums its eight (i,
+    then r), then shuffles add lanes g ^ 1, g ^ 2, g ^ 4. Returns (nb, C)."""
+    nb = keep.shape[0]
+    v = torch.where(keep.reshape(-1, 1), v, torch.zeros(())).reshape(nb, 4, 2, 8, -1)
+    s = torch.zeros((nb, 8, v.shape[-1]))
+    for i in range(4):
+        for r in range(2):
+            s = s + v[:, i, r]
+    g = torch.arange(8)
+    for bit in (1, 2, 4):
+        s = s + s[:, g ^ bit]
+    return s[:, 0]
