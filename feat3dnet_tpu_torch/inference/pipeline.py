@@ -29,6 +29,12 @@ the card before the first is read back; `warmup` builds the kernels and
 pays the first calls at start-up. A unit is queued without a host sync
 (`_enqueue`: pinned uploads, every device op, the outputs copied into
 pinned host buffers behind a CUDA event) and read back by `_finish`.
+Under a profiler each unit's stages show as spans (utils/profiling.py):
+`f3d.extract.prep#<unit>` (in the prep thread), `f3d.extract.wait_prep`,
+`f3d.extract.enqueue#<unit>` around `f3d.extract.layout`, `.group`,
+`.detect`, `.ballmax`, `.select`, `.describe` and `.to_host`, then
+`f3d.extract.finish#<unit>` (the wait for the read-back and the cut);
+`f3d.extract.many` spans a whole `extract_many` call.
 Meshes (the JAX pipeline's two modes; a mesh is a tuple of devices,
 parallel/mesh.py, and each distinct device gets its own copy of the model
 and of K6's and K3's packed weights at first use):
@@ -51,6 +57,7 @@ executable caches) are not part of this port.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
 from collections import deque
@@ -75,6 +82,11 @@ from feat3dnet_tpu_torch.parallel.point_parallel import (keypoint_sharded_attent
                                                          replicas)
 from feat3dnet_tpu_torch.utils.convert import load_variables, variables_from_module
 from feat3dnet_tpu_torch.utils.device import resolve_device
+from feat3dnet_tpu_torch.utils.profiling import span, spanned
+
+# the id of each unit of extraction, shared by its spans on every thread;
+# process-wide, so that the units of a cloud mesh's per-device pipelines never share one
+_UNIT_IDS = itertools.count()
 
 
 @dataclasses.dataclass
@@ -201,25 +213,28 @@ class InferencePipeline:
         route, layout (the smallest `_layout_for`), padding with a validity
         mask into host buffers (pinned on the card, so the upload is
         asynchronous) and their upload, queued without waiting. Safe in a
-        worker thread."""
-        if self.icfg.num_points > 0:
-            clouds = [c[:self.icfg.num_points] for c in clouds]
-        buckets = tuple(bucket_for(c.shape[0]) for c in clouds)
-        nb = max(buckets)
-        layout = None
-        if self._use_hashed():
-            if nb >= (1 << 24):
-                raise ValueError(f"extract: keys ride f32, exact only below 2^24 points per "
-                                 f"cloud; bucket {nb}")
-            layout = min(self._layout_for(c[:, :3]) for c in clouds)
-        pin = self.device.type == "cuda"
-        xyz = torch.zeros((len(clouds), nb, 3), pin_memory=pin)
-        valid = torch.zeros((len(clouds), nb), dtype=torch.bool, pin_memory=pin)
-        for i, c in enumerate(clouds):
-            xyz.numpy()[i, :c.shape[0]] = c[:, :3]
-            valid[i, :c.shape[0]] = True
-        return _Prepped(xyz.to(self.device, non_blocking=True),
-                        valid.to(self.device, non_blocking=True), layout, buckets)
+        worker thread; the unit takes its id here."""
+        uid = next(_UNIT_IDS)
+        with span("f3d.extract.prep", uid):
+            if self.icfg.num_points > 0:
+                clouds = [c[:self.icfg.num_points] for c in clouds]
+            buckets = tuple(bucket_for(c.shape[0]) for c in clouds)
+            nb = max(buckets)
+            layout = None
+            if self._use_hashed():
+                if nb >= (1 << 24):
+                    raise ValueError(f"extract: keys ride f32, exact only below 2^24 points per "
+                                     f"cloud; bucket {nb}")
+                layout = min(self._layout_for(c[:, :3]) for c in clouds)
+            pin = self.device.type == "cuda"
+            xyz = torch.zeros((len(clouds), nb, 3), pin_memory=pin)
+            valid = torch.zeros((len(clouds), nb), dtype=torch.bool, pin_memory=pin)
+            for i, c in enumerate(clouds):
+                xyz.numpy()[i, :c.shape[0]] = c[:, :3]
+                valid[i, :c.shape[0]] = True
+            return _Prepped(xyz.to(self.device, non_blocking=True),
+                            valid.to(self.device, non_blocking=True), layout, buckets,
+                            uid)
 
     def _chunked_attention(self, cloud: torch.Tensor, valid: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -305,28 +320,36 @@ class InferencePipeline:
         icfg, r, ns = self.icfg, float(self.mcfg.base_scale), self.mcfg.num_samples
         L, tc = prep.layout
         b = prep.xyz.shape[0]
-        t0 = time.perf_counter()
-        sc = build_sorted_cloud_batch(prep.xyz, prep.valid, cell_size=r, block_size=L)
-        self.timings["layout_s"] = time.perf_counter() - t0
+        with span("f3d.extract.layout"):
+            t0 = time.perf_counter()
+            sc = build_sorted_cloud_batch(prep.xyz, prep.valid, cell_size=r, block_size=L)
+            self.timings["layout_s"] = time.perf_counter() - t0
         pts4, blk_bbox = sc.pts4, sc.blk_bbox
         np_ = pts4.shape[0] // b
         centers = pts4[:, :3]
-        grouped, _, _ = ball_query_grouped_sorted(
-            SortedCloud(pts4, blk_bbox, None, None, L), centers, r, ns, tile=tc, segment=np_)
-        att_s, ori_s = self._detect_sorted(grouped, centers, prep.buckets)
+        with span("f3d.extract.group"):
+            grouped, _, _ = ball_query_grouped_sorted(
+                SortedCloud(pts4, blk_bbox, None, None, L), centers, r, ns, tile=tc,
+                segment=np_)
+        with span("f3d.extract.detect"):
+            att_s, ori_s = self._detect_sorted(grouped, centers, prep.buckets)
         # a point survives iff its attention ties its ball max; invalid points
         # sit at +1e9 and never enter a real ball
-        ballmax = ball_max_sorted(pts4, blk_bbox, att_s, float(icfg.nms_radius), segment=np_)
-        # each cloud's sorted rows in its original order: inv_perm is local
-        rows = sc.inv_perm.long() + torch.arange(b, device=pts4.device)[:, None] * np_
-        cloud = pts4[rows, :3]                     # invalid at +1e9
-        kp, kp_att, num, kp_idx = select_keypoints(
-            cloud, att_s[rows], (att_s >= ballmax)[rows], icfg.max_keypoints,
-            icfg.min_response_ratio, valid_mask=cloud[..., 0] < 5.0e8, return_indices=True)
-        # descriptors from the attention pass's neighbourhoods
-        kp_s = torch.gather(rows, 1, kp_idx.long())
-        offs = grouped[kp_s] - centers[kp_s][:, :, None, :]
-        feats = self._describe_at_keypoints(offs, ori_s[kp_s])
+        with span("f3d.extract.ballmax"):
+            ballmax = ball_max_sorted(pts4, blk_bbox, att_s, float(icfg.nms_radius),
+                                      segment=np_)
+        with span("f3d.extract.select"):
+            # each cloud's sorted rows in its original order: inv_perm is local
+            rows = sc.inv_perm.long() + torch.arange(b, device=pts4.device)[:, None] * np_
+            cloud = pts4[rows, :3]                     # invalid at +1e9
+            kp, kp_att, num, kp_idx = select_keypoints(
+                cloud, att_s[rows], (att_s >= ballmax)[rows], icfg.max_keypoints,
+                icfg.min_response_ratio, valid_mask=cloud[..., 0] < 5.0e8, return_indices=True)
+        with span("f3d.extract.describe"):
+            # descriptors from the attention pass's neighbourhoods
+            kp_s = torch.gather(rows, 1, kp_idx.long())
+            offs = grouped[kp_s] - centers[kp_s][:, :, None, :]
+            feats = self._describe_at_keypoints(offs, ori_s[kp_s])
         return kp, feats, kp_att, num
 
     @torch.no_grad()
@@ -334,34 +357,36 @@ class InferencePipeline:
         """Queue the hashed route on one prepped unit and the copy of its
         outputs into (pinned) host buffers behind a CUDA event; no host
         sync."""
-        outs = self._extract_hashed(prep)
-        return self._to_host(outs)
+        with span("f3d.extract.enqueue", prep.uid):
+            return self._to_host(self._extract_hashed(prep), prep.uid)
 
-    def _to_host(self, outs) -> "_Pending":
-        if self.device.type != "cuda":
-            return _Pending(*(o.detach() for o in outs), None)
-        host = []
-        for o in outs:
-            h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-            h.copy_(o, non_blocking=True)
-            host.append(h)
-        event = torch.cuda.Event()
-        event.record()
-        return _Pending(*host, event)
+    def _to_host(self, outs, uid: int) -> "_Pending":
+        with span("f3d.extract.to_host"):
+            if self.device.type != "cuda":
+                return _Pending(*(o.detach() for o in outs), None, uid)
+            host = []
+            for o in outs:
+                h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                h.copy_(o, non_blocking=True)
+                host.append(h)
+            event = torch.cuda.Event()
+            event.record()
+            return _Pending(*host, event, uid)
 
     @staticmethod
     def _finish(unit: "_Pending") -> List["InferenceResult"]:
         """Wait for a queued unit's read-back and cut each cloud's rows by
         its keypoint count."""
-        if unit.event is not None:
-            unit.event.synchronize()
-        kp, feats, att = unit.kp.numpy(), unit.feats.numpy(), unit.att.numpy()
-        out = []
-        for i, k in enumerate(unit.num.numpy().tolist()):
-            out.append(InferenceResult(keypoints=np.array(kp[i, :k]),
-                                       features=np.array(feats[i, :k]),
-                                       attention=np.array(att[i, :k]), num_keypoints=int(k)))
-        return out
+        with span("f3d.extract.finish", unit.uid):
+            if unit.event is not None:
+                unit.event.synchronize()
+            kp, feats, att = unit.kp.numpy(), unit.feats.numpy(), unit.att.numpy()
+            out = []
+            for i, k in enumerate(unit.num.numpy().tolist()):
+                out.append(InferenceResult(keypoints=np.array(kp[i, :k]),
+                                           features=np.array(feats[i, :k]),
+                                           attention=np.array(att[i, :k]), num_keypoints=int(k)))
+            return out
 
     # -- public API -------------------------------------------------------------
 
@@ -385,7 +410,7 @@ class InferencePipeline:
             with torch.no_grad():
                 outs = self._mesh_extract_fn(prep.xyz.shape[1])(prep.xyz, prep.valid,
                                                                  prep.layout)
-            pending = self._to_host(outs)
+            pending = self._to_host(outs, prep.uid)
         elif keypoints is None and self._use_hashed():
             pending = self._enqueue(prep)
         else:
@@ -397,7 +422,7 @@ class InferencePipeline:
                 out = self.model(prep.xyz, keypoints=kp, valid_mask=prep.valid)
                 outs = (kp, out.features, out.end_points["attention"],
                         torch.full((1,), kp.shape[1], dtype=torch.int32))
-            pending = self._to_host(outs)
+            pending = self._to_host(outs, prep.uid)
         result = self._finish(pending)[0]
         self.timings["extract_s"] = time.perf_counter() - t0
         return result
@@ -437,6 +462,7 @@ class InferencePipeline:
             out.extend(self._finish(unit))
         return out[:n]
 
+    @spanned("f3d.extract.many")
     @torch.no_grad()
     def extract_many(self, clouds, rng: Optional[np.random.RandomState] = None,
                      depth: int = 2, prep_workers: int = 1, batch_size: int = 1
@@ -488,7 +514,8 @@ class InferencePipeline:
                 submit_next()
             while futs:
                 p, fut = futs.popleft()
-                prep = fut.result()
+                with span("f3d.extract.wait_prep"):
+                    prep = fut.result()
                 submit_next()
                 with on_device(p.device):
                     inflight.append(p._enqueue(prep))
@@ -575,19 +602,23 @@ class InferencePipeline:
 class _Prepped:
     """One unit's clouds on the device: (B, nb, 3) padded points, (B, nb)
     validity (uploads queued), on the hashed route the Morton layout
-    (block, tile), and each cloud's own bucket (nb is the largest)."""
+    (block, tile), each cloud's own bucket (nb is the largest) and the
+    unit's id."""
     xyz: torch.Tensor
     valid: torch.Tensor
     layout: Optional[Tuple[int, int]]
     buckets: Tuple[int, ...]
+    uid: int
 
 
 @dataclasses.dataclass
 class _Pending:
     """One queued unit's outputs in host buffers, (B, K, ...) and num (B,),
-    valid once `event` has passed (None: already on the host)."""
+    valid once `event` has passed (None: already on the host), and the
+    unit's id."""
     kp: torch.Tensor
     feats: torch.Tensor
     att: torch.Tensor
     num: torch.Tensor
     event: Optional[Any]
+    uid: int

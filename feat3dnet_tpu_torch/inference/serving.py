@@ -5,9 +5,13 @@ and attention. On CUDA, clusters of `num_samples` points from a BN model
 go through kernel K3 (ops/fused_describe.py), in f32 or, with
 `bf16_act=True`, with bf16 activations; everything else (CPU tensors,
 other cluster sizes, models without BN) takes the model path, in f32.
+Under a profiler each request shows the host's copy of its clusters to
+the device as the span `f3d.serve.h2d#<request>` and, on K3's route, their
+packing as `f3d.serve.pack#<request>` (utils/profiling.py).
 """
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -21,6 +25,7 @@ from feat3dnet_tpu_torch.ops.fused_describe import (_describe_kernel_weights, fo
                                                     transpose_folded_weights)
 from feat3dnet_tpu_torch.utils.convert import variables_from_module
 from feat3dnet_tpu_torch.utils.device import resolve_device
+from feat3dnet_tpu_torch.utils.profiling import span
 
 
 class ClusterDescriptorServer:
@@ -43,6 +48,7 @@ class ClusterDescriptorServer:
         self.bf16_act = bf16_act
         self._weights_t: Optional[List[torch.Tensor]] = None
         self._packed: Optional[tuple] = None      # K3's weight buffers, made once
+        self._requests = itertools.count()        # the id of each call's spans
 
     def _kernel_weights_t(self) -> List[torch.Tensor]:
         if self._weights_t is None:
@@ -63,6 +69,9 @@ class ClusterDescriptorServer:
         # model path
         return ns == self.cfg.num_samples and self.cfg.use_bn
 
+    def _kernel_route(self, clusters: torch.Tensor) -> bool:
+        return clusters.device.type == "cuda" and self._fused_ok(clusters.shape[1])
+
     @torch.no_grad()
     def _model_path(self, clusters: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         keypoints = torch.zeros((clusters.shape[0], 1, 3), dtype=torch.float32,
@@ -74,11 +83,15 @@ class ClusterDescriptorServer:
     def __call__(self, clusters: Union[np.ndarray, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, P, 3) origin-centred clusters -> (descriptors (B, D), attention (B,))."""
-        clusters = torch.as_tensor(clusters, dtype=torch.float32, device=self.device)
-        if clusters.device.type == "cuda" and self._fused_ok(clusters.shape[1]):
+        rid = next(self._requests)
+        with span("f3d.serve.h2d", rid):
+            clusters = torch.as_tensor(clusters, dtype=torch.float32, device=self.device)
+        if self._kernel_route(clusters):
+            with span("f3d.serve.pack", rid):
+                clusters_p = pack_clusters_lanes_torch(clusters)
             return fused_describe_clusters_t(
-                self._kernel_weights_t(), pack_clusters_lanes_torch(clusters), self.cfg,
-                bf16_act=self.bf16_act, packed=self._kernel_packed())
+                self._kernel_weights_t(), clusters_p, self.cfg, bf16_act=self.bf16_act,
+                packed=self._kernel_packed())
         return self._model_path(clusters)
 
     @staticmethod

@@ -17,6 +17,7 @@ import torch
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.ops.neighborhoods import (Radius, ball_query_plain,
                                                    per_centre_radius)
+from feat3dnet_tpu_torch.utils.profiling import spanned
 
 
 def ball_query_cluster_size(b: int, m: int, n: int, shape: Tuple[int, int, int],
@@ -50,6 +51,7 @@ def k2_cluster_size(b: int, m: int, n: int, device: torch.device) -> int:
     return ball_query_cluster_size(b, m, n, kernels.ball_query_shape(), _sm_count(device))
 
 
+@spanned("f3d.k2.ball_query")
 def ball_query_fused(xyz: torch.Tensor, centers: torch.Tensor, radius: Radius,
                      nsample: int, valid_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

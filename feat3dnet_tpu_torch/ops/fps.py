@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from feat3dnet_tpu_torch import kernels
+from feat3dnet_tpu_torch.utils.profiling import spanned
 
 _INIT_DIST = 1e38
 # points a block of K1's cluster takes before the cluster doubles (at most
@@ -62,6 +63,7 @@ def farthest_point_sample_scan(xyz: torch.Tensor, npoint: int,
     return out
 
 
+@spanned("f3d.k1.fps")
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           valid_mask: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:

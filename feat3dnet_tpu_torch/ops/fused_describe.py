@@ -34,6 +34,7 @@ import torch
 
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.config import ModelConfig
+from feat3dnet_tpu_torch.utils.profiling import spanned
 
 
 def _f32(x) -> torch.Tensor:
@@ -371,6 +372,7 @@ def _launch_describe(clusters_p: torch.Tensor, packed: tuple, cfg: ModelConfig, 
                                   stop=stop)
 
 
+@spanned("f3d.k3.describe")
 def fused_describe_clusters_t(weights_t: List[torch.Tensor], clusters_p: torch.Tensor,
                               cfg: ModelConfig, bf16_act: bool = False,
                               ablate: Optional[str] = None, packed: Optional[tuple] = None
@@ -684,6 +686,7 @@ def _launch_detect(clusters: torch.Tensor, packed, cfg: ModelConfig, unfolded: b
                                 float(r * r), out, stop=stop)
 
 
+@spanned("f3d.k6.detect")
 def fused_detect_clusters(weights_t: List[torch.Tensor], clusters: torch.Tensor,
                           cfg: ModelConfig, unfolded: bool = False,
                           bf16_operands: bool = False, packed: Optional[tuple] = None

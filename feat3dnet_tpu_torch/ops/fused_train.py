@@ -57,6 +57,7 @@ import torch.distributed as dist
 
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.utils.collectives import all_reduce_
+from feat3dnet_tpu_torch.utils.profiling import spanned
 
 Plan = Tuple[Tuple, ...]
 # blocks of a pass (each walks its share of the clusters); the per-block
@@ -293,6 +294,7 @@ def _blocks(gp: int) -> int:
     return max(1, min(gp, GRID_BLOCKS))
 
 
+@spanned("f3d.k7.stats")
 def stats_pass(x_sm, plan, prefix, w, b, g_total):
     """K7: masked (sum y, sum y^2) of conv j after the folded prefix ->
     (2, C_j). prefix: folded (W, b, a, c) of convs < j."""
@@ -307,6 +309,7 @@ def stats_pass(x_sm, plan, prefix, w, b, g_total):
     return part.sum(dim=0)
 
 
+@spanned("f3d.k8.final")
 def final_pass(x_sm, plan, convs, stop=None):
     """K8: full folded recompute + slot max-pool -> pooled (Gp, C_top).
     stop (CUDA only, for the time split): a stage of kernels.FINAL_STOPS
@@ -323,6 +326,7 @@ def final_pass(x_sm, plan, convs, stop=None):
     return pooled
 
 
+@spanned("f3d.k9.bwd_top")
 def bwd_top_pass(x_sm, plan, convs, mu, isig, dpooled):
     """K9: dpooled (Gp, C_top) through the final pool's ties -> the top conv's
     (sum dz, sum dz * xhat), (2, C_top)."""
@@ -343,6 +347,7 @@ def bwd_top_pass(x_sm, plan, convs, mu, isig, dpooled):
     return part.sum(dim=0)
 
 
+@spanned("f3d.k10.bwd")
 def bwd_pass(x_sm, plan, convs, mu, isig, src, m1, m2, ga_sig, mu_p, isig_p,
              g_total, cot_dtype=torch.bfloat16, stop=None):
     """K10: the backward of conv j = len(convs) - 1 (see bwd_pass_plain).

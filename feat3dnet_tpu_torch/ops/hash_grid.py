@@ -44,6 +44,7 @@ import torch
 
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.ops.neighborhoods import pairwise_sqdist
+from feat3dnet_tpu_torch.utils.profiling import spanned
 
 _FAR = 1.0e9          # coordinate of invalid points
 _FAR_CENTER = 2.0e9   # coordinate of invalid / padding centres (never 0 away from _FAR)
@@ -410,6 +411,7 @@ def sorted_ball_query_plain(pts4: torch.Tensor, centers: torch.Tensor, radius: f
     return top, cnt
 
 
+@spanned("f3d.k4.sorted_ball_query")
 def sorted_ball_query(pts4: torch.Tensor, blk_bbox: torch.Tensor, centers: torch.Tensor,
                       radius: float, nsample: int, tile: int = 128,
                       segment: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -519,6 +521,7 @@ def ball_max_plain(pts4: torch.Tensor, values: torch.Tensor, radius: float,
     return out
 
 
+@spanned("f3d.k5.ball_max")
 def ball_max_sorted(pts4: torch.Tensor, blk_bbox: torch.Tensor, values: torch.Tensor,
                     radius: float, tile: int = 512,
                     centers: Optional[torch.Tensor] = None,

@@ -25,7 +25,10 @@ Everything runs where the state's model lies; `Trainer` and `init_state`
 put it on `cuda` unless the caller names another device. A step's metrics
 are device tensors: loss, sum_positive, sum_negative and the histograms
 `hist_det_cnt` (and with attention `hist_normalized_attention`), as in the
-JAX step. The fused step reads nothing back to the host.
+JAX step. The fused step reads nothing back to the host. Under a profiler
+each step shows as the span `f3d.train.step#<step>` around
+`f3d.train.augment` (fused step), `.forward`, `.loss`, `.backward`,
+`.adam` and `.metrics` (utils/profiling.py).
 
 Data parallelism (`group=`, a torch.distributed process group; the JAX
 step's `grad_reduce_axis`): each rank holds its role-aligned share of the
@@ -60,6 +63,7 @@ from feat3dnet_tpu_torch.utils.convert import load_variables
 from feat3dnet_tpu_torch.utils.device import resolve_device
 from feat3dnet_tpu_torch.utils.init import init_variables
 from feat3dnet_tpu_torch.utils.metrics_writer import device_histogram
+from feat3dnet_tpu_torch.utils.profiling import span
 
 Schedule = Callable[[int], float]
 
@@ -183,33 +187,40 @@ def _train_core(state: TrainState, clouds: torch.Tensor, margin: float,
                 use_attention: bool, group=None, remat: bool = False
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     model = state.model
-    model.zero_grad(set_to_none=True)
-    if remat:
-        out = remat_segment(lambda c: model(c, training=True), clouds)
-    else:
-        out = model(clouds, training=True)
-    a_feat, p_feat, n_feat = torch.chunk(out.features, 3, dim=0)
-    a_att = torch.chunk(out.attention, 3, dim=0)[0] if use_attention else None
-    loss, aux = alignment_triplet_loss(a_feat, p_feat, n_feat, a_att, margin)
-    loss.backward()
-    scalars = [loss.detach(), aux["sum_positive"].mean().detach(),
-               aux["sum_negative"].mean().detach()]
-    det_cnt = out.end_points["det_cnt"].detach().float()
-    norm_att = aux["normalized_attention"].detach() if "normalized_attention" in aux else None
-    if group is not None:
-        scalars = _average_grads(state.optimizer, scalars, group)
-        det_cnt, norm_att = _gather_histogram_inputs(det_cnt, norm_att, group)
-    for pg in state.optimizer.param_groups:
-        pg["lr"] = state.schedule(state.count)
-    state.optimizer.step()
-    state.count += 1
-    state.step += 1
-    # the reference's TensorBoard histograms (pts_cnt, normalized_attention),
-    # on the device
-    metrics = {"loss": scalars[0], "sum_positive": scalars[1], "sum_negative": scalars[2],
-               "hist_det_cnt": device_histogram(det_cnt)}
-    if norm_att is not None:
-        metrics["hist_normalized_attention"] = device_histogram(norm_att)
+    with span("f3d.train.forward"):
+        model.zero_grad(set_to_none=True)
+        if remat:
+            out = remat_segment(lambda c: model(c, training=True), clouds)
+        else:
+            out = model(clouds, training=True)
+    with span("f3d.train.loss"):
+        a_feat, p_feat, n_feat = torch.chunk(out.features, 3, dim=0)
+        a_att = torch.chunk(out.attention, 3, dim=0)[0] if use_attention else None
+        loss, aux = alignment_triplet_loss(a_feat, p_feat, n_feat, a_att, margin)
+    with span("f3d.train.backward"):
+        loss.backward()
+        scalars = [loss.detach(), aux["sum_positive"].mean().detach(),
+                   aux["sum_negative"].mean().detach()]
+        if group is not None:
+            scalars = _average_grads(state.optimizer, scalars, group)
+    with span("f3d.train.adam"):
+        for pg in state.optimizer.param_groups:
+            pg["lr"] = state.schedule(state.count)
+        state.optimizer.step()
+        state.count += 1
+        state.step += 1
+    with span("f3d.train.metrics"):
+        # the reference's TensorBoard histograms (pts_cnt, normalized_attention),
+        # on the device
+        det_cnt = out.end_points["det_cnt"].detach().float()
+        norm_att = (aux["normalized_attention"].detach() if "normalized_attention" in aux
+                    else None)
+        if group is not None:
+            det_cnt, norm_att = _gather_histogram_inputs(det_cnt, norm_att, group)
+        metrics = {"loss": scalars[0], "sum_positive": scalars[1], "sum_negative": scalars[2],
+                   "hist_det_cnt": device_histogram(det_cnt)}
+        if norm_att is not None:
+            metrics["hist_normalized_attention"] = device_histogram(norm_att)
     return state, metrics
 
 
@@ -232,8 +243,10 @@ def make_train_step(model: Feat3DNet, margin: float, use_attention: bool,
     def step(state: TrainState, anchors, positives, negatives):
         if state.model is not model:
             raise ValueError("train step: the state holds another model")
-        clouds = torch.cat([anchors, positives, negatives], dim=0)[..., :3]
-        return _train_core(state, clouds.contiguous(), margin, use_attention, group, remat)
+        with span("f3d.train.step", state.step):
+            clouds = torch.cat([anchors, positives, negatives], dim=0)[..., :3]
+            return _train_core(state, clouds.contiguous(), margin, use_attention, group,
+                               remat)
 
     return step
 
@@ -271,16 +284,21 @@ def make_fused_train_step(model: Feat3DNet, margin: float, use_attention: bool,
     def step(state: TrainState, clouds):
         if state.model is not model:
             raise ValueError("train step: the state holds another model")
-        clouds = dequantize(clouds)[..., :3]
-        if augmentations:
-            gen = aug_generator(clouds.device, aug_seed, state.step)
-            if group is None:
-                clouds = augment_clouds(gen, clouds, augmentations)
-            else:
-                w = dist.get_world_size(group)
-                rows = role_rows(clouds.shape[0] // 3, dist.get_rank(group), w, clouds.device)
-                clouds = augment_rows(gen, clouds, augmentations, rows, clouds.shape[0] * w)
-        return _train_core(state, clouds.contiguous(), margin, use_attention, group, remat)
+        with span("f3d.train.step", state.step):
+            with span("f3d.train.augment"):
+                clouds = dequantize(clouds)[..., :3]
+                if augmentations:
+                    gen = aug_generator(clouds.device, aug_seed, state.step)
+                    if group is None:
+                        clouds = augment_clouds(gen, clouds, augmentations)
+                    else:
+                        w = dist.get_world_size(group)
+                        rows = role_rows(clouds.shape[0] // 3, dist.get_rank(group), w,
+                                         clouds.device)
+                        clouds = augment_rows(gen, clouds, augmentations, rows,
+                                              clouds.shape[0] * w)
+            return _train_core(state, clouds.contiguous(), margin, use_attention, group,
+                               remat)
 
     return step
 

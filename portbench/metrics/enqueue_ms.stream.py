@@ -1,0 +1,9 @@
+"""Entry (extraction): the host's milliseconds to queue one unit of
+`extract_many` (the span `f3d.extract.enqueue`: every device op of the
+unit and the copy of its outputs queued, no wait), their mean over the
+traced window."""
+from portbench import spans
+
+
+def read(r):
+    return spans.mean_ms(r.trace, "f3d.extract.enqueue")

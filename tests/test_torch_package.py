@@ -147,6 +147,9 @@ NOT_PORTED = {
     "utils/cache.py": "XLA's persistent compile cache: TPU-only",
     "utils/native.py:get_lib": "the port's loader is library()",
     "utils/native.py:morton_pack": "it went with the host Morton layout",
+    "utils/profiling.py:time_function":
+        "a logging decorator nothing called (the reference's was unused); the port's "
+        "stages are profiler spans (span, spanned)",
     "utils/tf1_loader.py:jax_to_numpy": "the port's is to_numpy",
 }
 
