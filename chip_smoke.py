@@ -328,8 +328,9 @@ csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
 csrc/fused_detect.cu and the headers it has; DIR a checkout, e.g. a parent
 commit unpacked with git archive, or its csrc/; its K5 is called with
 the arguments of one cloud, as before K5 took a union). It prints the parent's
-ptxas lines and SASS counts for K1-K6 and whether K4's, K6's and K3's
-forward modes' SASS equals this tree's, instruction for instruction; in
+ptxas lines and SASS counts for K1-K6 and whether K4's, K6's, K3's
+forward modes' and K7-K10's SASS equals this tree's, instruction for
+instruction; in
 phase 1 it holds the parent's K1 index-exact to this one on k1_cases, in
 phase 4 on every vendored cloud and the training batch,
 timed in turns (k1_step); in phase 1 it holds the parent's K2 index-exact
@@ -342,10 +343,10 @@ that has it, and in phase 15 its stream body equal to this one's and its
 matmul bodies within ABLATE_F32_LIMIT (an FFMA-era parent sums them in
 f32); in phase 5 it holds the parent's K4 and K5 bit-equal to
 this one on every centre of every cloud, padding centres included, and
-times both in turns (the split of each), and holds the parent's K6 to
-this one in each mode (within 1e-5; bf16_operands >= 99.9 % within 1e-4),
-each tree on the weights it packs itself, timed in turns with the split of
-each tree that has it; at the end of phase
+times both in turns (the split of each), and holds the parent's K6
+bit-equal to this one in each mode, each tree on the weights it packs
+itself, timed in turns with the split of each tree that has it; at the end
+of phase
 12 it holds K7-K10 against the parent's on phase 9's inputs (parent_ab:
 ptxas lines of both; K8's pooled and K9's sums equal to the parent's, K7
 and K10 at phase 9's tolerances; each timed in turns; and, where the
@@ -1653,13 +1654,6 @@ K6_MODES = {"unfolded": {"unfolded": True}, "folded": {},
             "bf16_operands": {"unfolded": True, "bf16_operands": True}}
 
 
-def k6_share_within(att, ori, att_p, ori_p, tol):
-    """Share of centres whose attention (relative) and orientation (rad)
-    lie within tol of (att_p, ori_p)."""
-    rel = (att - att_p).abs() / att_p.abs().clamp(min=1e-6)
-    return ((rel <= tol) & (_wrapped(ori - ori_p).abs() <= tol)).float().mean().item()
-
-
 def tower_bound(cfg, m, moved, bf16, descriptor=False):
     """K6's (descriptor False) or K3's bound on m clusters, priced by the
     function and not by the kernel's choice of unit: in f32 the per-slot
@@ -1695,10 +1689,8 @@ def k6_step(card, name, offs, weights, cfg, parent):
     against it, in each mode: each tree's occupancy line, the time split of
     each tree in turns (fused_detect_time_split: the parent's and this
     kernel alone in turns), the pool's candidates this tree's kernel
-    re-sums, and the parent's outputs (on the weights it packs itself) held
-    to this tree's within the mode's limit (f32 modes: attention relative
-    and orientation 1e-5 on every centre; bf16_operands: >= 99.9 % of
-    centres within 1e-4)."""
+    re-sums, and the parent's outputs (on the weights it packs itself)
+    equal to this tree's bit for bit in every mode."""
     import torch
 
     from feat3dnet_tpu_torch.ops import fused_describe as fd
@@ -1727,21 +1719,13 @@ def k6_step(card, name, offs, weights, cfg, parent):
         with kernels_from(parent):
             att_p, ori_p = fd.fused_detect_clusters(
                 w, offs, cfg, packed=detect_pack(parent, w, cfg, offs.device, unf, bf16), **kw)
-        same = bool(torch.equal(att, att_p) and torch.equal(ori, ori_p))
-        if mode == "bf16_operands":
-            share = k6_share_within(att, ori, att_p, ori_p, 1e-4)
-            require(share >= 0.999, f"K6 {mode} vs parent on {name}: {100 * share:.3f} % "
-                                    "within 1e-4")
-            held = f"{100 * share:.3f} % of centres within 1e-4 of the parent (>= 99.9 %)"
-        else:
-            a_rel = ((att - att_p).abs() / att_p.abs().clamp(min=1e-6)).max().item()
-            o_err = _wrapped(ori - ori_p).abs().max().item()
-            require(a_rel <= 1e-5 and o_err <= 1e-5, f"K6 {mode} vs parent on {name}: att rel "
-                                                     f"{a_rel:.3e}, ori {o_err:.3e} rad")
-            held = f"att rel {a_rel:.3e}, ori {o_err:.3e} rad to the parent (<= 1e-5)"
+        require(torch.equal(att, att_p) and torch.equal(ori, ori_p),
+                f"K6 {mode} vs parent on {name}: not bit-equal (att max|d| "
+                f"{(att - att_p).abs().max().item():.3e}, ori max|d| "
+                f"{_wrapped(ori - ori_p).abs().max().item():.3e})")
         print(f"[{card}] fused_detect {mode} {name} M={offs.shape[0]}: parent "
               f"{sp['parent kernel']:.4f} ms, this {sp['this kernel']:.4f} ms (kernels alone, "
-              f"in turns); {held}; bit-equal to the parent: {same}")
+              f"in turns); bit-equal to the parent")
 
 
 def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib=None,
@@ -5389,8 +5373,10 @@ def main():
             tower_build_report("parent", parent_build(parent), marker)
         for marker in WALK_MARKERS:
             tower_build_report("parent", parent_build(parent), marker, WALK_SASS_OPS)
-        # K4's, K6's and K3's forward modes (describe_kernel<0>, <1>) against the parent's
-        for marker in ("sorted_ball_query", "fused_detect", r"describe_kernelIL[bi][01]E"):
+        # K4's, K6's, K3's forward modes (describe_kernel<0>, <1>) and K7-K10
+        # against the parent's
+        for marker in ("sorted_ball_query", "fused_detect", r"describe_kernelIL[bi][01]E",
+                       "train_"):
             sass_equal("parent", info, parent_build(parent), marker)
         parent_lib = parent_cdll(parent)
     clouds = {n: torch.from_numpy(

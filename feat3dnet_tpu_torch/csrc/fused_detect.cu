@@ -64,12 +64,20 @@
 // - W's fragments are laid out by the wrapper once per weight list,
 //   rounded to TF32 (or as bf16 pairs): one 8-byte load per lane per mma's
 //   B operand, the next k step's loaded while this one's products run.
-// - The post convs and heads run once over the block's clusters: a thread
-//   per channel keeps the kC clusters' fmaf chains (W loaded once for all,
-//   32 deep ahead); a head output is one thread's chain.
+// - The post convs and heads run in a second kernel
+//   (fused_detect_kernel_post, kPost = 16 clusters a block), fed the pooled
+//   vectors through a stream-ordered scratch buffer: in a block of kC = 2
+//   clusters they are chains 256 deep on half the threads with only kC-way
+//   independence (~2.2 of 24 ms on a stream unit); there a thread keeps
+//   kPostN = 8 clusters' chains of one channel, W's column read once for
+//   the 8, the pooled rows read as float4 broadcasts (0.7 ms). Each output
+//   is still one k-order fmaf chain from 0.
 // - Conv inputs keep a row stride of cin + 4 floats, so a fragment's eight
 //   rows fall in eight bank groups.
 #include <cuda_bf16.h>
+
+#include <cstdint>
+#include <mutex>
 
 #include "common.cuh"
 #include "slot_layer.cuh"
@@ -84,6 +92,7 @@ constexpr int kMaxLayers = 12;
 
 struct Tower {
   int n_det, n_det2, ns, batch, folded;
+  float* pooled_out;   // (batch, the top conv's cout): fused_detect_kernel_post's input
   float r, inv_r, r2;
   int x_off, mask_off, d2_off, vec_off;   // shared memory, in floats
   int buf_off[2], buf_ld[2];              // per-slot activations
@@ -121,13 +130,11 @@ fused_detect_kernel(const float* __restrict__ clusters, const float* __restrict_
   float* mask = sm + T.mask_off;      // kRows
   float* d2s = sm + T.d2_off;         // kRows (then the repeat flags)
   float* buf[2] = {sm + T.buf_off[0], sm + T.buf_off[1]};
-  // in the buffer the top conv would write: pooled, two post vectors (kC x
-  // kMaxC each), the heads (kC x 4), the top conv input's row norms (kRows),
-  // the pool's candidate marks (kC x kMaxC x 2 words) and their count
+  // in the buffer the top conv would write: pooled (kC x kMaxC), the top
+  // conv input's row norms (kRows), the pool's candidate marks (kC x kMaxC x
+  // 2 words) and their count
   float* pooled = sm + T.vec_off;
-  float* vec[2] = {pooled + kC * kMaxC, pooled + 2 * kC * kMaxC};
-  float* head = pooled + 3 * kC * kMaxC;
-  float* hnorm = head + 4 * kC;
+  float* hnorm = pooled + kC * kMaxC;
   unsigned* rowmask = reinterpret_cast<unsigned*>(hnorm + kRows);
   int* count = reinterpret_cast<int*>(rowmask + 2 * kC * kMaxC);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -226,33 +233,95 @@ fused_detect_kernel(const float* __restrict__ clusters, const float* __restrict_
     if (stop >= 2 + l && stop <= 4 + l) return;
   }
 
-  // ---- post convs: one product over the block's clusters, a thread per
-  // channel keeping the kC clusters' sums, each an fmaf chain in k order
-  const float* g = pooled;
+  // ---- the pooled vectors out, for fused_detect_kernel_post
+  {
+    const int cout = T.l[T.n_det - 1].cout;
+    for (int i = tid; i < kC * cout; i += kThreads) {
+      const int c = i / cout, n = i % cout;
+      if (b0 + c < T.batch)
+        T.pooled_out[static_cast<size_t>(b0 + c) * cout + n] = pooled[c * kMaxC + n];
+    }
+  }
+}
+
+// The post convs and heads over kPost clusters a block, from the pooled
+// vectors fused_detect_kernel wrote: a thread per channel and group of
+// kPostN clusters keeps their fmaf chains in k order (post_chains), then the
+// attention and the normalised orientation.
+constexpr int kPost = 16;
+constexpr int kPostN = 8;
+
+// acc[c] += sum_k x[c * kMaxC + k] W[k * stride] (c < kPostN) over k < cin,
+// one fmaf chain in k order per c (column_chains' sums): W's column read
+// 32 deep ahead of its products, x as float4 (the warp's lanes read the same
+// rows: broadcasts).
+__device__ __forceinline__ void post_chains(const float* x, const float* __restrict__ W,
+                                            int stride, int cin, float (&acc)[kPostN]) {
+  int k0 = 0;
+  for (; k0 + 32 <= cin; k0 += 32) {
+    float w[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) w[q] = __ldg(W + (k0 + q) * stride);
+#pragma unroll
+    for (int q = 0; q < 32; q += 4)
+#pragma unroll
+      for (int c = 0; c < kPostN; ++c) {
+        const float4 a = *reinterpret_cast<const float4*>(x + c * kMaxC + k0 + q);
+        acc[c] = fmaf(a.x, w[q], acc[c]);
+        acc[c] = fmaf(a.y, w[q + 1], acc[c]);
+        acc[c] = fmaf(a.z, w[q + 2], acc[c]);
+        acc[c] = fmaf(a.w, w[q + 3], acc[c]);
+      }
+  }
+  for (; k0 < cin; ++k0) {
+    const float wv = __ldg(W + k0 * stride);
+#pragma unroll
+    for (int c = 0; c < kPostN; ++c) acc[c] = fmaf(x[c * kMaxC + k0], wv, acc[c]);
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+fused_detect_kernel_post(const float* __restrict__ wts, const __grid_constant__ Tower T,
+                         float* __restrict__ out) {
+  __shared__ __align__(16) float buf[2][kPost * kMaxC];
+  __shared__ float head[kPost * 4];
+  const int tid = threadIdx.x, b0 = blockIdx.x * kPost;
+  {
+    const int cout = T.l[T.n_det - 1].cout;
+    for (int i = tid; i < kPost * cout; i += kThreads) {
+      const int c = i / cout, n = i % cout;
+      buf[0][c * kMaxC + n] =
+          b0 + c < T.batch ? T.pooled_out[static_cast<size_t>(b0 + c) * cout + n] : 0.f;
+    }
+  }
+  __syncthreads();
   for (int i = 0; i < T.n_det2; ++i) {
     const Layer& L = T.l[T.n_det + i];
     const int cin = L.cin, cout = L.cout;
     const bool bn = L.mu >= 0;
-    float* o = vec[i & 1];
-    for (int n = tid; n < cout; n += kThreads) {
-      float acc[kC];
+    const float* g = buf[i & 1];
+    float* o = buf[(i + 1) & 1];
+    for (int j = tid; j < cout * (kPost / kPostN); j += kThreads) {
+      const int n = j % cout, c0 = j / cout * kPostN;
+      float acc[kPostN];
 #pragma unroll
-      for (int c = 0; c < kC; ++c) acc[c] = 0.f;
-      column_chains<kC>(g, wts + L.w + n, cout, cin, acc);
+      for (int c = 0; c < kPostN; ++c) acc[c] = 0.f;
+      post_chains(g + c0 * kMaxC, wts + L.w + n, cout, cin, acc);
       const Chan ch = chan(L, wts, n);
 #pragma unroll
-      for (int c = 0; c < kC; ++c) o[c * kMaxC + n] = bn_relu<kBf16>(acc[c], ch, bn);
+      for (int c = 0; c < kPostN; ++c) o[(c0 + c) * kMaxC + n] = bn_relu<kBf16>(acc[c], ch, bn);
     }
     __syncthreads();
-    g = o;
   }
 
   // ---- heads: attention (cin -> 1), orientation (cin -> 2); a thread per
   // cluster and output, an fmaf chain in k order
   {
+    const float* g = buf[T.n_det2 & 1];
     const int li = T.n_det + T.n_det2;
     const int cin = T.l[li].cin;
-    for (int o = tid; o < 3 * kC; o += kThreads) {
+    for (int o = tid; o < 3 * kPost; o += kThreads) {
       const int c = o / 3, j = o % 3;
       const Layer& H = T.l[li + (j > 0)];
       const int col = j > 0 ? j - 1 : 0;
@@ -262,7 +331,7 @@ fused_detect_kernel(const float* __restrict__ clusters, const float* __restrict_
     }
   }
   __syncthreads();
-  if (tid < kC && b0 + tid < T.batch) {
+  if (tid < kPost && b0 + tid < T.batch) {
     const float a = head[tid * 4], oc = head[tid * 4 + 1], os = head[tid * 4 + 2];
     const float inv = 1.f / sqrtf(fmaxf(__fadd_rn(__fmul_rn(oc, oc), __fmul_rn(os, os)), 1e-8f));
     float* po = out + static_cast<size_t>(b0 + tid) * 3;
@@ -305,7 +374,7 @@ size_t make_tower(Tower* T, int ns, int batch, const int* layers, const int* ext
     T->buf_ld[l & 1] = ld > T->buf_ld[l & 1] ? ld : T->buf_ld[l & 1];
   }
   for (int j = 0; j < 2; ++j) bytes[j] = sizeof(float) * rows * T->buf_ld[j];
-  const size_t vec = sizeof(float) * ((5 * kC * kMaxC + 4 * kC + rows + 1 + 3) / 4 * 4);
+  const size_t vec = sizeof(float) * ((3 * kC * kMaxC + rows + 1 + 3) / 4 * 4);
   const int dead = (n_det - 1) & 1;
   bytes[dead] = bytes[dead] > vec ? bytes[dead] : vec;
   int off = 0;
@@ -323,8 +392,23 @@ size_t make_tower(Tower* T, int ns, int batch, const int* layers, const int* ext
   return static_cast<size_t>(off) * sizeof(float);
 }
 
+// The pooled vectors' scratch comes from the device's stream-ordered pool,
+// which is told once to keep what is freed (a stream unit's 128 MiB would
+// otherwise go back to the driver at every synchronisation).
+void keep_pool_memory() {
+  static std::once_flag once[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return;
+  std::call_once(once[dev], [dev] {
+    cudaMemPool_t pool;
+    if (cudaDeviceGetDefaultMemPool(&pool, dev) != cudaSuccess) return;
+    uint64_t keep = UINT64_MAX;
+    cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &keep);
+  });
+}
+
 template <bool kBf16>
-cudaError_t launch(const float* clusters, const float* weights, const Tower& T, size_t smem,
+cudaError_t launch(const float* clusters, const float* weights, Tower T, size_t smem,
                    float* out, int stop, cudaStream_t stream, int* occ) {
   auto kernel = fused_detect_kernel<kBf16>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -335,8 +419,23 @@ cudaError_t launch(const float* clusters, const float* weights, const Tower& T, 
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ + 1, kernel, kThreads, smem);
   }
   if (T.batch == 0) return cudaSuccess;
-  kernel<<<(T.batch + kC - 1) / kC, kThreads, smem, stream>>>(clusters, weights, T, out, stop);
-  return cudaGetLastError();
+  if (stop != 0) {   // the time split: the block leaves before the pooled vectors go out
+    kernel<<<(T.batch + kC - 1) / kC, kThreads, smem, stream>>>(clusters, weights, T, out, stop);
+    return cudaGetLastError();
+  }
+  keep_pool_memory();
+  const size_t bytes = sizeof(float) * T.batch * T.l[T.n_det - 1].cout;
+  err = cudaMallocAsync(reinterpret_cast<void**>(&T.pooled_out), bytes, stream);
+  if (err != cudaSuccess) return err;
+  kernel<<<(T.batch + kC - 1) / kC, kThreads, smem, stream>>>(clusters, weights, T, out, 0);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    fused_detect_kernel_post<kBf16><<<(T.batch + kPost - 1) / kPost, kThreads, 0, stream>>>(
+        weights, T, out);
+    err = cudaGetLastError();
+  }
+  const cudaError_t freed = cudaFreeAsync(T.pooled_out, stream);
+  return err != cudaSuccess ? err : freed;
 }
 
 // One entry for the launch, the time split and the occupancy query (occ

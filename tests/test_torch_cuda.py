@@ -19,8 +19,9 @@ and attention relative 1e-4 (also at batches of 1 and of an odd size, its
 2 clusters a block, and 32 samples, two runs bit-equal), the
 detector-only kernel (K6) within attention
 relative 1e-5 and orientation 1e-5 rad (also at batches that are not a
-multiple of its 2 clusters a block, batch 0 and 16 samples, two runs
-bit-equal); their bf16 modes within one bf16 step,
+multiple of its 2 clusters a block or of its post kernel's 16, batch 0 and
+16 samples, two runs bit-equal, a cluster's bits the same wherever it sits
+in the batch and on a side stream); their bf16 modes within one bf16 step,
 as stated at each test; K3's stream body exact and its matmul bodies within
 1e-5 max|ref| of their plain versions (TF32 operands in the pooled convs)
 and within ABLATE_F32_LIMIT of the all-f32 ones; the training passes K7-K10 within the
@@ -527,11 +528,12 @@ def _k6_held(mode, got, want):
 
 
 @pytest.mark.parametrize("mode", ["unfolded", "folded", "bf16_operands"])
-@pytest.mark.parametrize("batch", [0, 1, 3, 129, 300])
+@pytest.mark.parametrize("batch", [0, 1, 3, 15, 16, 17, 33, 129, 300])
 def test_fused_detect_block_shapes(dev, rs, mode, batch):
-    """K6 runs 2 clusters a block: batches that are not a multiple of that,
-    and batch 0, give the plain version's outputs at the mode's limit, and
-    two runs give the same bits."""
+    """K6 runs 2 clusters a block, then its post convs and heads 16 clusters
+    a block: batches that are not a multiple of either, and batch 0, give
+    the plain version's outputs at the mode's limit, and two runs give the
+    same bits."""
     cfg = ModelConfig()
     c = (rs.randn(max(batch, 10), cfg.num_samples, 3) * 1.6).astype(np.float32)
     c[5] += 30.0                                   # empty ball -> nearest fallback
@@ -546,6 +548,29 @@ def test_fused_detect_block_shapes(dev, rs, mode, batch):
     assert got[0].shape == (batch,) and got[1].shape == (batch,)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     _k6_held(mode, got, want)
+
+
+@pytest.mark.parametrize("mode", ["unfolded", "folded", "bf16_operands"])
+def test_fused_detect_outputs_do_not_depend_on_the_batch(dev, rs, mode):
+    """A cluster's outputs are the same bits wherever it sits in the batch
+    and on whichever stream K6 runs (its pooled vectors pass through a
+    stream-ordered scratch buffer between its two kernels): a batch of 300
+    against its first 37 and its last 263 clusters, on a side stream."""
+    cfg = ModelConfig()
+    c = (rs.randn(300, cfg.num_samples, 3) * 1.6).astype(np.float32)
+    c[5] += 30.0
+    c[7, 32:] = c[7, :32]
+    x = torch.from_numpy(c).to(dev)
+    wt, kw = _k6_weights(cfg, mode, dev)
+    whole = tfd.fused_detect_clusters(wt, x, cfg, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        head = tfd.fused_detect_clusters(wt, x[:37].contiguous(), cfg, **kw)
+        tail = tfd.fused_detect_clusters(wt, x[37:].contiguous(), cfg, **kw)
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert torch.equal(torch.cat([head[i], tail[i]]), whole[i])
 
 
 @pytest.mark.parametrize("mode", ["unfolded", "folded", "bf16_operands"])
