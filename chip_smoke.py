@@ -322,6 +322,15 @@ feat3dnet_tpu_torch/csrc with nvcc (one process per source), then:
         same seed (default and other arguments), and to augment_clouds at
         the defaults;
      the phase's wall time.
+  26. K11 (three_interp_phase) at PointNet++'s four FP levels of a
+     segment-kitti-16k unit (8 KITTI frames sampled to 16 384 points, the
+     coarser levels by K1): index-exact against its plain twin, weights
+     and sums within 1e-6 relative; its ms, the twin's and the bound; then
+     K2's work at every SA level and radius (k2_counts at each nsample);
+     then one 8-frame unit through SegmentationPipeline.segment_many
+     (step graphs captured by a call before it), with the K1, K2 and K11
+     counters set to 0 just before: K1 x4, K2 x8 and K11 x4, K11's count
+     the kernels line's launches.
 Option: --parent DIR also builds another tree's training kernels, K1-K6
 (its csrc/fused_train.cu, csrc/fps.cu, csrc/ball_query.cu,
 csrc/fused_describe.cu, csrc/sorted_ball_query.cu, csrc/ball_max.cu,
@@ -352,8 +361,8 @@ ptxas lines of both; K8's pooled and K9's sums equal to the parent's, K7
 and K10 at phase 9's tolerances; each timed in turns; and, where the
 parent has the split build, K8's split of both trees in turns).
 It writes only under build/ in the checkout.
-The line before last is a JSON summary of the seventeen kernel entries
-(K1-K10, K2's per-centre form and K3's and K6's extra modes: times, their bounds from this run's shapes at
+The line before last is a JSON summary of the eighteen kernel entries
+(K1-K11, K2's per-centre form and K3's and K6's extra modes: times, their bounds from this run's shapes at
 the H100's f32 (bf16 modes: bf16 tensor-core; K7-K10's products and K3's
 and K6's per-slot convs at least 8 wide: TF32 tensor-core; K6
 bf16_operands: all bf16 tensor-core) and HBM peaks,
@@ -1451,8 +1460,8 @@ def k2_occupancy(lib, cluster):
     return tuple(int(v) for v in out)
 
 
-def k2_counts(xyz, ik, ck, cluster):
-    """What K2 must do on one call (r RADIUS, ns NS), counted on the card
+def k2_counts(xyz, ik, ck, cluster, ns=NS):
+    """What K2 must do on one call (r RADIUS, ns NS or `ns`), counted on the card
     from its output: per centre the points scanned up to its ns-th hit (all
     N when it has fewer), their mean and max, the share of balls with >= ns
     hits; the pairs tested and the longest dependent chain of K2's first
@@ -1470,8 +1479,8 @@ def k2_counts(xyz, ik, ck, cluster):
 
     b, n, _ = xyz.shape
     m = ik.shape[1]
-    sat = ck >= NS
-    scanned = torch.where(sat, ik[..., NS - 1].long() + 1, torch.full_like(ck, n).long())
+    sat = ck >= ns
+    scanned = torch.where(sat, ik[..., ns - 1].long() + 1, torch.full_like(ck, n).long())
     w, k, _ = kernels.ball_query_shape()
     v = cluster * w
     per_round = v * k * 32
@@ -5316,6 +5325,139 @@ def public_api_phase(dev, card, clusters, variables):
     print(f"[{card}] phase 25 (the last public API) wall {time.perf_counter() - t_phase:.1f} s")
 
 
+SEG_BATCH = 8          # clouds a unit of the segment-kitti-16k cell
+SEG_POINTS = 16384
+
+
+def seg_levels(dev, batch=SEG_BATCH):
+    """PointNet++'s five levels of `batch` KITTI frames (the two vendored
+    scans in turn, each sampled to SEG_POINTS points without replacement
+    from a seeded generator), the coarser ones by K1 from the finer:
+    [(B, n_k, 3)] for n_k = 16 384, 4 096, 1 024, 256, 64."""
+    import torch
+
+    from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+    from feat3dnet_tpu_torch.ops import fps
+    from feat3dnet_tpu_torch.ops.neighborhoods import gather_points
+
+    rs = np.random.RandomState(SEED + 26)
+    scans = [load_point_cloud(example_cloud_path(n))[:, :3]
+             for n in ("kitti_00_001554.bin", "kitti_00_004534.bin")]
+    xyz = np.stack([scans[i % 2][rs.choice(len(scans[i % 2]), SEG_POINTS, replace=False)]
+                    for i in range(batch)]).astype(np.float32)
+    levels = [torch.from_numpy(xyz).to(dev)]
+    for npoint in (4096, 1024, 256, 64):
+        levels.append(gather_points(levels[-1],
+                                    fps.farthest_point_sample(levels[-1], npoint)).contiguous())
+    return levels
+
+
+def three_interp_phase(dev, card):
+    """Phase 26: K11 (csrc/three_interp.cu) at the FP levels of a
+    segment-kitti-16k unit (8 frames of 16 384 points, FP4 to FP1, seeded
+    known features of each level's width): index-exact against its plain
+    twin, its weights and sum against the twin's, then ms of the kernel
+    (CUDA events, 50 calls), the plain twin (5) and the bound (8 flop a
+    pair + 6 C a point at f32's peak, or the bytes); then K2's work at
+    each SA level and radius (k2_counts: how many balls reach nsample hits,
+    so how often its early exit fires); then one unit of 8 frames through
+    the main path, SegmentationPipeline.segment_many on PointNet2MSG at the
+    published widths (its step graphs captured by a call before it), with
+    the K1, K2 and K11 counters set to 0 just before it. Returns
+    ({"three_interp": the kernels line's numbers}, K11's launches in that
+    unit)."""
+    import torch
+
+    from feat3dnet_tpu_torch.ops import batch_group
+    from feat3dnet_tpu_torch.ops.interpolate import three_interpolate
+
+    t_phase = time.perf_counter()
+    levels = seg_levels(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    widths = {4: 1024, 3: 512, 2: 512, 1: 256}       # the known features' width at FP k
+    k11, plain = three_interpolate, three_interpolate.plain
+    per, bounds, err = [], [], 0.0
+    for k in (4, 3, 2, 1):
+        unknown, known = levels[k - 1], levels[k]
+        b, n, m, c = unknown.shape[0], unknown.shape[1], known.shape[1], widths[k]
+        feats = torch.randn(b, m, c, generator=g, device=dev)
+        (ok, ik, wk), (op, ip, wp) = k11(unknown, known, feats), plain(unknown, known, feats)
+        torch.cuda.synchronize()
+        require(torch.equal(ik, ip), f"K11 FP{k}: indices != the plain twin's")
+        w_rel = ((wk - wp).abs() / wp.abs().clamp(min=1e-30)).max().item()
+        e = (ok - op).abs().max().item()
+        err = max(err, e)
+        require(w_rel <= 1e-6 and e <= 1e-6 * op.abs().max().item(),
+                f"K11 FP{k}: weights rel {w_rel:.3e}, sum max|d| {e:.3e}")
+        ms_k = cuda_ms(lambda: k11(unknown, known, feats), 50)
+        ms_p = cuda_ms(lambda: plain(unknown, known, feats), 5)
+        flop = 8.0 * b * n * m + 6.0 * b * n * c
+        moved = nbytes(unknown, known, feats, ok, ik, wk)
+        bounds.append(bound_ms(flop, moved))
+        per.append((ms_k, ms_p))
+        exact = torch.equal(ok, op) and torch.equal(wk, wp)
+        print(f"[{card}] K11 three_interp FP{k} (B={b}, n={n}, m={m}, C={c}): indices exact, "
+              f"weights rel {w_rel:.2e}, sum max|d| {e:.3e} ({'bit-equal' if exact else 'not bit-equal'}"
+              f" to the twin); kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
+              f"{bounds[-1][0]:.4f} ms ({bounds[-1][1]})")
+    report = {"max_abs_err": err, "ms": float(np.mean([p[0] for p in per])),
+              "plain_ms": float(np.mean([p[1] for p in per]))}
+    report["bound_ms"], report["bound_by"] = mean_bound(bounds)
+    radii = ((0.1, 0.5), (0.5, 1.0), (1.0, 2.0), (2.0, 4.0))
+    for k in range(4):
+        xyz, ctr = levels[k], levels[k + 1]
+        for r, ns in zip(radii[k], (16, 32)):
+            ik, ck = batch_group.ball_query_fused(xyz, ctr, r, ns)
+            cl = batch_group.k2_cluster_size(xyz.shape[0], ctr.shape[1], xyz.shape[1], dev)
+            counts = k2_counts(xyz, ik, ck, cl, ns=ns)
+            ms = cuda_ms(lambda: batch_group.ball_query_fused(xyz, ctr, r, ns), 20)
+            print(f"[{card}] K2 at SA{k + 1} r {r} ns {ns} ({xyz.shape[1]} points, "
+                  f"{ctr.shape[1]} centres, B={xyz.shape[0]}): {ms:.4f} ms; "
+                  + ", ".join(f"{key} {v:.4g}" if isinstance(v, float) else f"{key} {v}"
+                              for key, v in counts.items()))
+    launches = seg_unit_launches(dev, card)
+    print(f"[{card}] phase 26 (K11, K2 at PointNet++'s levels): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"three_interp": report}, {"three_interp": launches}
+
+
+def seg_unit_launches(dev, card):
+    """K1's, K2's and K11's launches in one unit of 8 KITTI frames (the two
+    vendored scans in turn) through SegmentationPipeline.segment_many, at
+    PointNet++ MSG's published widths, counted from 0 just before the unit,
+    once a call of the same shape has captured the step graphs: each
+    replayed graph adds what its capture counted. Requires K1 x4, K2 x8
+    (scalar radius) and K11 x4 and finite logits; returns K11's count."""
+    import torch
+
+    from feat3dnet_tpu_torch.config import PointNet2Config
+    from feat3dnet_tpu_torch.data.io import example_cloud_path, load_point_cloud
+    from feat3dnet_tpu_torch.inference import SegmentationPipeline
+    from feat3dnet_tpu_torch.models import PointNet2MSG
+    from feat3dnet_tpu_torch.ops import batch_group, fps
+    from feat3dnet_tpu_torch.ops.interpolate import three_interpolate
+
+    torch.manual_seed(SEED + 28)
+    pipe = SegmentationPipeline(PointNet2MSG(PointNet2Config()), device=dev)
+    scans = [np.ascontiguousarray(load_point_cloud(example_cloud_path(n))[:, :3])
+             for n in ("kitti_00_001554.bin", "kitti_00_004534.bin")]
+    frames = [scans[i % 2] for i in range(SEG_BATCH)]
+    pipe.segment_many(frames, np.random.default_rng(SEED), batch_size=SEG_BATCH)
+    k1, k2, k11 = fps.farthest_point_sample, batch_group.ball_query_fused, three_interpolate
+    k1.launches = k2.launches = k11.launches = 0
+    k2.mode_launches = dict.fromkeys(k2.mode_launches, 0)
+    out = pipe.segment_many(frames, np.random.default_rng(SEED + 1), batch_size=SEG_BATCH)
+    got = {"K1": k1.launches, "K2": k2.launches, "K2 scalar": k2.mode_launches["scalar"],
+           "K11": k11.launches}
+    print(f"[{card}] one unit of {SEG_BATCH} frames through segment_many (step graphs "
+          f"replayed): launches " + ", ".join(f"{k} {n}" for k, n in got.items()))
+    require(got == {"K1": 4, "K2": 8, "K2 scalar": 8, "K11": 4},
+            f"segment_many's unit launched {got}, not K1 x4, K2 x8, K11 x4")
+    require(len(out) == SEG_BATCH and all(np.isfinite(r.logits).all() for r in out),
+            "segment_many: a non-finite logit")
+    return k11.launches
+
+
 def main():
     import argparse
 
@@ -5745,6 +5887,11 @@ def main():
     # ---- 25. the last public API: fused_describe_clusters, convbn_maxpool_fused, augment ----
     public_api_phase(dev, card, clusters, variables)
 
+    # ---- 26. K11 at PointNet++'s FP shapes; K2's work at its SA levels ----
+    more = three_interp_phase(dev, card)
+    report.update(more[0])
+    launches.update(more[1])
+
     meta = {
         "fps": ("feat3dnet_tpu_torch/csrc/fps.cu", "feat3dnet_tpu/ops/fps.py:103"),
         "ball_query": ("feat3dnet_tpu_torch/csrc/ball_query.cu",
@@ -5779,6 +5926,8 @@ def main():
                                 "feat3dnet_tpu/ops/fused_describe.py:1286"),
         "fused_detect_bf16_operands": ("feat3dnet_tpu_torch/csrc/fused_detect.cu",
                                        "feat3dnet_tpu/ops/fused_describe.py:1286"),
+        "three_interp": ("feat3dnet_tpu_torch/csrc/three_interp.cu",
+                         "none (PointNet++'s feature propagation, new in the port)"),
     }
     # no single PyTorch call computes any of these functions: library_ms is null
     summary = [{"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],

@@ -131,6 +131,36 @@ class InferenceConfig:
     use_fused_detector: bool = False
 
 
+
+@dataclasses.dataclass(frozen=True)
+class PointNet2Config:
+    """PointNet++ with multi-scale grouping (Qi et al., arXiv:1706.02413) at
+    the widths of Pointnet2.PyTorch's tools/pointnet2_msg.py, PointRCNN's
+    stage-1 backbone (arXiv:1812.04244): per-point foreground logits of a
+    cloud sampled to `num_points` (xyz only, no input features).
+
+    npoints / radii / nsamples / sa_mlps: the four set-abstraction levels,
+    each FPS centres of the level before, one ball query and shared MLP per
+    scale (radius, nsample, widths), the scales' max pools concatenated.
+    fp_mlps[k]: the feature-propagation MLP that brings level k+1's
+    features onto level k's points (run from the coarsest). cls_fc: the
+    head's hidden convs before the one-logit conv (the source's dropout of
+    0.5 after the first is the identity in eval). bn_epsilon: torch's
+    BatchNorm default.
+    """
+
+    num_points: int = 16384
+    npoints: Sequence[int] = (4096, 1024, 256, 64)
+    radii: Sequence[Sequence[float]] = ((0.1, 0.5), (0.5, 1.0), (1.0, 2.0), (2.0, 4.0))
+    nsamples: Sequence[Sequence[int]] = ((16, 32), (16, 32), (16, 32), (16, 32))
+    sa_mlps: Sequence[Sequence[Sequence[int]]] = (
+        ((16, 16, 32), (32, 32, 64)), ((64, 64, 128), (64, 96, 128)),
+        ((128, 196, 256), (128, 196, 256)), ((256, 256, 512), (256, 384, 512)))
+    fp_mlps: Sequence[Sequence[int]] = ((128, 128), (256, 256), (512, 512), (512, 512))
+    cls_fc: Sequence[int] = (128,)
+    bn_epsilon: float = 1e-5
+
+
 # Padded cloud sizes: clouds are padded (with a validity mask) to the
 # smallest bucket that holds them, as the JAX pipeline does.
 POINT_BUCKETS = (4096, 8192, 16384, 32768, 65536, 131072)

@@ -1,6 +1,8 @@
-"""Inference entry points of the port: cluster-descriptor serving and
-whole-cloud keypoint extraction."""
+"""Inference entry points of the port: cluster-descriptor serving,
+whole-cloud keypoint extraction and PointNet++ segmentation."""
 from feat3dnet_tpu_torch.inference.pipeline import InferencePipeline, InferenceResult
+from feat3dnet_tpu_torch.inference.segmentation import SegmentationPipeline, SegmentationResult
 from feat3dnet_tpu_torch.inference.serving import ClusterDescriptorServer
 
-__all__ = ["ClusterDescriptorServer", "InferencePipeline", "InferenceResult"]
+__all__ = ["ClusterDescriptorServer", "InferencePipeline", "InferenceResult",
+           "SegmentationPipeline", "SegmentationResult"]

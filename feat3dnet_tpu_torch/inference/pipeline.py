@@ -60,8 +60,6 @@ import dataclasses
 import itertools
 import os
 import time
-from collections import deque
-from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -70,6 +68,7 @@ import torch
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig, bucket_for
 from feat3dnet_tpu_torch.data.io import load_point_cloud, save_descriptors
+from feat3dnet_tpu_torch.inference.stream import run_units
 from feat3dnet_tpu_torch.models.feat3dnet import Feat3DNet, _group_normalized, _rotate_z
 from feat3dnet_tpu_torch.ops import fused_describe as fd
 from feat3dnet_tpu_torch.ops.hash_grid import (SortedCloud, ball_max_sorted,
@@ -474,11 +473,12 @@ class InferencePipeline:
         unit of one cloud is an `extract`). `prep_workers` threads pad and
         upload the next units while up to `depth` units are queued on the
         card; the main thread queues each unit without a host sync and
-        reads back the oldest once `depth` are queued. rng: the
-        permutations are drawn in input order before any prep, so the
-        results equal a loop of `extract` calls. Off the hashed route, or on
-        `mesh`, it is that loop. On `cloud_mesh` the units are dealt
-        round-robin over the devices, up to `depth` queued on each.
+        reads back the oldest once `depth` are queued (inference/stream.py's
+        `run_units`). rng: the permutations are drawn in input order before
+        any prep, so the results equal a loop of `extract` calls. Off the
+        hashed route, or on `mesh`, it is that loop. On `cloud_mesh` the
+        units are dealt round-robin over the devices, up to `depth` queued
+        on each.
         Returns the results in input order."""
         clouds = list(clouds)
         if not self._use_hashed() or self.mesh is not None:
@@ -498,32 +498,14 @@ class InferencePipeline:
             else:
                 units.append([c])
 
-        results: List[InferenceResult] = []
-        inflight: deque = deque()
-        with ThreadPoolExecutor(max_workers=prep_workers) as pool:
-            it = enumerate(units)
-            futs: deque = deque()
 
-            def submit_next():
-                i, unit = next(it, (None, None))
-                if unit is not None:
-                    p = pipes[devs[i % len(devs)]]
-                    futs.append((p, pool.submit(p._prep, unit)))
+        def enqueue(i, prep):
+            p = pipes[devs[i % len(devs)]]
+            with on_device(p.device):
+                return p._enqueue(prep)
 
-            for _ in range(depth + prep_workers):
-                submit_next()
-            while futs:
-                p, fut = futs.popleft()
-                with span("f3d.extract.wait_prep"):
-                    prep = fut.result()
-                submit_next()
-                with on_device(p.device):
-                    inflight.append(p._enqueue(prep))
-                if len(inflight) >= depth:
-                    results.extend(self._finish(inflight.popleft()))
-            while inflight:
-                results.extend(self._finish(inflight.popleft()))
-        return results
+        return run_units(units, lambda i, unit: pipes[devs[i % len(devs)]]._prep(unit),
+                         enqueue, self._finish, depth, prep_workers, "f3d.extract.wait_prep")
 
     def _bucket_of(self, n: int) -> int:
         """The bucket of an n-point cloud after truncation to num_points."""

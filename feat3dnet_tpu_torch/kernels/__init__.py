@@ -16,8 +16,9 @@ commit's `csrc/`, for A/B runs in `chip_smoke.py --parent`).
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()` after the launch; `check` raises on a non-zero code.
 The op wrappers (ops/fps.py, ops/batch_group.py, ops/fused_describe.py,
-ops/hash_grid.py, ops/fused_train.py) validate tensors, allocate outputs and count launches; the `launch_*`
-functions below only pass pointers.
+ops/hash_grid.py, ops/fused_train.py, ops/interpolate.py) validate tensors,
+allocate outputs and count launches; the `launch_*` functions below only
+pass pointers.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("fps.cu", "ball_query.cu", "fused_describe.cu", "sorted_ball_query.cu",
-           "ball_max.cu", "fused_detect.cu", "fused_train.cu")
+           "ball_max.cu", "fused_detect.cu", "fused_train.cu", "three_interp.cu")
 HEADERS = ("common.cuh", "slot_layer.cuh", "tc_mma.cuh", "tower_pool.cuh",
            "block_cull.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -205,6 +206,9 @@ def library() -> ctypes.CDLL:
     # kind, ns, gp, cin0, convs, n, is_top, out (host int32 (2,): smem bytes, blocks per SM)
     lib.f3d_train_occupancy.argtypes = [_I, _I, _I, _I, _P, _I, _I, _P]
     lib.f3d_train_occupancy.restype = _I
+    # unknown, known, feats, b, n, m, c, out, idx, w, stream
+    lib.f3d_three_interp.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+    lib.f3d_three_interp.restype = _I
     return lib
 
 
@@ -449,3 +453,14 @@ def train_occupancy(kind: str, x, convs, is_top: bool = False):
                                         convs.shape[0], int(is_top), _ptr(out)),
           "train_occupancy")
     return int(out[0]), int(out[1])
+
+
+def launch_three_interp(unknown, known, feats, out, idx, w) -> None:
+    """K11: unknown (b, n, 3), known (b, m, 3), feats (b, m, c) into out
+    (b, n, c), idx (b, n, 3) int32 and w (b, n, 3)."""
+    b, n, _ = unknown.shape
+    m, c = feats.shape[1], feats.shape[2]
+    with torch.cuda.device(unknown.device):
+        check(library().f3d_three_interp(_ptr(unknown), _ptr(known), _ptr(feats), b, n, m, c,
+                                         _ptr(out), _ptr(idx), _ptr(w), _stream(unknown)),
+              "three_interp")

@@ -170,10 +170,12 @@ class _Relu(torch.autograd.Function):
 
 
 class Dense(nn.Linear):
-    """flax nn.Dense with compute dtype `dtype` (f32 parameters)."""
+    """flax nn.Dense with compute dtype `dtype` (f32 parameters); use_bias
+    False: no bias (a conv followed by BN, as PointNet++'s)."""
 
-    def __init__(self, cin: int, features: int, dtype: torch.dtype = torch.float32):
-        super().__init__(cin, features)
+    def __init__(self, cin: int, features: int, dtype: torch.dtype = torch.float32,
+                 use_bias: bool = True):
+        super().__init__(cin, features, bias=use_bias)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -182,7 +184,8 @@ class Dense(nn.Linear):
             # rides the GEMM
             return F.linear(x, self.weight, self.bias)
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class BatchNorm(nn.Module):
@@ -239,18 +242,18 @@ class BatchNorm(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Dense (= 1x1 conv) + optional BN + activation (after BN), computed in
-    `dtype`. residual_dtype (training only): squash points after the Dense
-    output and after the activation; BN's moments are taken over the
-    squashed values."""
+    """Dense (= 1x1 conv; use_bias False drops its bias) + optional BN +
+    activation (after BN), computed in `dtype`. residual_dtype (training
+    only): squash points after the Dense output and after the activation;
+    BN's moments are taken over the squashed values."""
 
     def __init__(self, cin: int, features: int, use_bn: bool = True,
                  activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = torch.relu,
                  bn_epsilon: float = 1e-3, bn_momentum: float = 0.9,
                  dtype: torch.dtype = torch.float32, bn_group=None,
-                 residual_dtype: Any = None):
+                 residual_dtype: Any = None, use_bias: bool = True):
         super().__init__()
-        self.conv2d = Dense(cin, features, dtype)
+        self.conv2d = Dense(cin, features, dtype, use_bias)
         self.bn = BatchNorm(features, bn_epsilon, bn_momentum, dtype, bn_group) \
             if use_bn else None
         self.activation = activation

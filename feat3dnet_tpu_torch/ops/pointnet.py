@@ -11,6 +11,11 @@ but the reference exports:
                        _group_normalized (kernel K2 on CUDA).
   sample_and_group_all (pointnet_common.py:138-165) one group of every
                        point, centred at the origin.
+
+And PointNet++'s grouping of C-wide features (models/pointnet2.py):
+
+  group_relative       each ball's [xyz - centre | features] rows, one
+                       gather of the cloud's [xyz | features].
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from feat3dnet_tpu_torch.ops.fps import farthest_point_sample
-from feat3dnet_tpu_torch.ops.neighborhoods import gather_points
+from feat3dnet_tpu_torch.ops.neighborhoods import gather_points, group_points
 
 
 def sample_points(xyz: torch.Tensor, npoint: int,
@@ -60,3 +65,14 @@ def sample_and_group_all(xyz: torch.Tensor
     centers = torch.zeros((b, 1, 3), dtype=xyz.dtype, device=xyz.device)
     idx = torch.arange(n, dtype=torch.int32, device=xyz.device).expand(b, 1, n)
     return centers, xyz[:, None], idx
+
+
+def group_relative(points: torch.Tensor, centers: torch.Tensor, idx: torch.Tensor
+                   ) -> torch.Tensor:
+    """(B, N, 3 + C) points whose first 3 columns are xyz (the rest their
+    features), (B, M, 3) centres and (B, M, S) ball indices -> (B, M, S, 3 +
+    C): each member's xyz less its centre (not divided by the radius), then
+    its features (Pointnet2.PyTorch's QueryAndGroup with use_xyz)."""
+    grouped = group_points(points, idx)
+    grouped[..., :3] -= centers[:, :, None, :]
+    return grouped

@@ -41,7 +41,10 @@ that names the card twice must equal `extract` bit for bit on the
 default, fused and dense routes. The chained step (from an int16 upload)
 must run with no host sync and equal k fused calls bit for bit, and
 remat_towers and the trainer's remat must equal the plain step bit for
-bit.
+bit. K11 (the 3-NN interpolation) must be index-exact against its plain
+version, its weights and sums within 1e-6 relative; PointNet++ MSG at
+16 384 points must hold to the benchmark's plain reference within the
+tier-1 tolerances, and `segment_many` must match a loop of `segment`.
 """
 import os
 import re
@@ -923,3 +926,119 @@ def test_remat_modes_equal_plain_on_the_card(dev, rs, dtype):
         assert torch.equal(loss, out[0][0])
         assert all(torch.equal(x, y) for x, y in zip(grads, out[0][1]))
         assert all(torch.equal(x, y) for x, y in zip(buffers, out[0][2]))
+
+
+@pytest.mark.parametrize("n,m,c", [(16384, 4096, 256), (4096, 1024, 512), (1024, 256, 512),
+                                   (256, 64, 1024), (1000, 3, 7), (300, 2050, 33)])
+def test_three_interp_kernel_matches_plain(dev, rs, n, m, c):
+    """K11 against its plain twin: indices exact; weights and sums within
+    1e-6 relative (the kernel repeats the twin's arithmetic, each operation
+    rounded to nearest, so they should agree bit for bit; the bound allows
+    a last-place difference in a torch op's rounding). Known points among
+    the unknown (zero distances, as at every FP level), duplicates (ties to
+    the lower index) and m past a tile of 1 024."""
+    from feat3dnet_tpu_torch.ops.interpolate import (three_interpolate,
+                                                      three_interpolate_plain)
+
+    unknown = rs.randn(2, n, 3).astype(np.float32) * 5.0
+    known = np.ascontiguousarray(unknown[:, rs.permutation(n)[:m]]) if m <= n else \
+        rs.randn(2, m, 3).astype(np.float32) * 5.0
+    if m > 3:
+        known[:, 2] = known[:, 1]
+    args = [torch.from_numpy(a).to(dev) for a in
+            (unknown, known, rs.randn(2, m, c).astype(np.float32))]
+    before = three_interpolate.launches
+    (ok, ik, wk), (op, ip, wp) = three_interpolate(*args), three_interpolate_plain(*args)
+    torch.cuda.synchronize()
+    assert three_interpolate.launches == before + 1
+    assert torch.equal(ik, ip)
+    torch.testing.assert_close(wk, wp, rtol=1e-6, atol=0)
+    torch.testing.assert_close(ok, op, rtol=1e-6, atol=1e-6 * float(op.abs().max()))
+
+
+def _pointnet2(dev, seed):
+    from feat3dnet_tpu_torch.config import PointNet2Config
+    from feat3dnet_tpu_torch.models.pointnet2 import PointNet2MSG
+    from portbench.reference import pointnet2 as R
+
+    cfg = PointNet2Config()
+    rcfg = {"npoints": list(cfg.npoints), "radii": cfg.radii, "nsamples": cfg.nsamples,
+            "sa_mlps": cfg.sa_mlps, "fp_mlps": cfg.fp_mlps, "cls_fc": cfg.cls_fc,
+            "bn_epsilon": cfg.bn_epsilon}
+    w = R.make_weights(rcfg, seed, dev)
+    m = PointNet2MSG(cfg).to(dev)
+    m.load_state_dict(w, strict=True)
+    return m.eval(), w, rcfg
+
+
+def test_pointnet2_at_16384_points_matches_the_reference(dev, rs):
+    """One KITTI frame sampled to 16 384 points at the published widths,
+    seeded weights: logits within 1e-4 of the reference's largest |logit|
+    and FP1's output within 1e-4 relative L2 at every point (the tier-1
+    test's tolerances and reasons, tests/test_torch_pointnet2.py); K1, K2
+    and K11 launched."""
+    from feat3dnet_tpu_torch.ops.interpolate import three_interpolate
+    from portbench.reference import pointnet2 as R
+
+    m, w, rcfg = _pointnet2(dev, 2 ** 31 + 28)
+    cloud = load_point_cloud(example_cloud_path("kitti_00_001554.bin"))[:, :3]
+    xyz = torch.from_numpy(cloud[rs.choice(len(cloud), 16384, replace=False)][None]).to(dev)
+    k1, k2, k11 = (farthest_point_sample.launches, ball_query_fused.launches,
+                   three_interpolate.launches)
+    out = m(xyz)
+    assert (farthest_point_sample.launches - k1, ball_query_fused.launches - k2,
+            three_interpolate.launches - k11) == (4, 8, 4)
+    logits, feats = R.forward(w, rcfg, xyz)
+    assert float((out.logits - logits).abs().max() / logits.abs().max()) <= 1e-4
+    rel = (out.features - feats).norm(dim=-1) / feats.norm(dim=-1).clamp(min=1e-30)
+    assert float(rel.max()) <= 1e-4
+
+
+def test_segment_many_matches_a_loop_of_segment_on_the_card(dev, rs):
+    """Indices equal; logits within 1e-5 of the largest: cuBLAS picks its
+    GEMM kernels by shape, so a unit of 3 frames and one of 1 may sum in
+    another order."""
+    from feat3dnet_tpu_torch.inference import SegmentationPipeline
+
+    pipe = SegmentationPipeline(_pointnet2(dev, 5)[0], device=dev)
+    cloud = load_point_cloud(example_cloud_path("kitti_00_004534.bin"))[:, :3]
+    clouds = [cloud, cloud[:12000], cloud[::-1].copy()]
+    many = pipe.segment_many(clouds, np.random.default_rng(3), batch_size=3)
+    rng = np.random.default_rng(3)
+    for a, c in zip(many, clouds):
+        b = pipe.segment(c, rng)
+        assert np.array_equal(a.indices, b.indices)
+        assert np.abs(a.logits - b.logits).max() <= 1e-5 * np.abs(b.logits).max()
+
+
+def test_segmentation_step_graphs_match_the_eager_forward(dev, rs):
+    """The pipeline's per-step CUDA graphs against the model run eagerly on
+    the same points: the same kernels on the same shapes, so logits and
+    FP1's features within 1e-6 of the largest (cuBLAS may pick another
+    algorithm under capture); each pass counts K1 x4, K2 x8 and K11 x4,
+    captured or replayed; a weight changed in place is seen by the next
+    unit (the graphs are made anew)."""
+    from feat3dnet_tpu_torch.inference import SegmentationPipeline
+    from feat3dnet_tpu_torch.ops.interpolate import three_interpolate
+
+    def counts():
+        return (farthest_point_sample.launches, ball_query_fused.launches,
+                three_interpolate.launches)
+
+    model = _pointnet2(dev, 6)[0]
+    pipe = SegmentationPipeline(model, device=dev)
+    cloud = load_point_cloud(example_cloud_path("kitti_00_001554.bin"))[:, :3]
+    xyz = torch.from_numpy(np.stack([cloud[rs.choice(len(cloud), 16384, replace=False)]
+                                     for _ in range(2)])).to(dev)
+    for _ in range(2):
+        # a capture (an eager pass, then the replay), then a replay alone
+        for want_counts in ((8, 16, 8), (4, 8, 4)):
+            before = counts()
+            got, got_feats = pipe.forward_sampled(xyz)
+            assert tuple(a - b for a, b in zip(counts(), before)) == want_counts
+        want = model(xyz)
+        assert float((got - want.logits).abs().max()) <= 1e-6 * float(want.logits.abs().max())
+        assert float((got_feats - want.features).abs().max()) <= \
+            1e-6 * float(want.features.abs().max())
+        with torch.no_grad():
+            model.logit.bias.add_(1.0)

@@ -26,7 +26,8 @@ import torch
 import feat3dnet_tpu_torch
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.config import ModelConfig
-from feat3dnet_tpu_torch.ops import batch_group, fps, fused_describe, fused_train, hash_grid
+from feat3dnet_tpu_torch.ops import (batch_group, fps, fused_describe, fused_train, hash_grid,
+                                     interpolate)
 
 torch.set_num_threads(2)
 
@@ -46,6 +47,7 @@ WRAPPERS = {
     "train_final": (fused_train.final_pass, fused_train.final_pass_plain),
     "train_bwd_top": (fused_train.bwd_top_pass, fused_train.bwd_top_pass_plain),
     "train_bwd": (fused_train.bwd_pass, fused_train.bwd_pass_plain),
+    "three_interp": (interpolate.three_interpolate, interpolate.three_interpolate_plain),
 }
 
 

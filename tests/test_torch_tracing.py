@@ -26,7 +26,8 @@ from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig, TrainConfig
 from feat3dnet_tpu_torch.data.datagenerator import prefetch
 from feat3dnet_tpu_torch.inference import ClusterDescriptorServer, InferencePipeline
 from feat3dnet_tpu_torch.models import Feat3DNet
-from feat3dnet_tpu_torch.ops import batch_group, fps, fused_describe, fused_train, hash_grid
+from feat3dnet_tpu_torch.ops import (batch_group, fps, fused_describe, fused_train, hash_grid,
+                                     interpolate)
 from feat3dnet_tpu_torch.train import init_state, make_fused_train_step
 from feat3dnet_tpu_torch.utils import init_variables, profiling
 
@@ -198,6 +199,8 @@ WRAPPERS = {
                       (_CPU, None, (), None, None, None)),
     "train_bwd": (fused_train, "bwd_pass", "bwd_pass_plain", "f3d.k10.bwd",
                   (_CPU, None, (), None, None, None, None, None, None, None, None, 1)),
+    "three_interp": (interpolate, "three_interpolate", "three_interpolate_plain",
+                     "f3d.k11.interp", (_CPU, _CPU, _CPU)),
 }
 
 
