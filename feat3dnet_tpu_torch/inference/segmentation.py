@@ -27,9 +27,11 @@ them: queuing the ~230 kernels of a unit one by one took the host 7-16 ms
 against the card's 19.6 ms (H100), so the host's own slow spells set the
 rate. The graphs read the weights in place and are made anew if any
 parameter or buffer changes. The kernel wrappers' launch counters
-(`.launches` of K1, K2 and K11) move when a step is captured, not when it
-is replayed, so `_StepGraphs` takes back what a capture counted and adds
-it on every replay: the counters read what the card ran. On the CPU the
+(`.launches` of K1, K2 and K11) and `ConvBN.folded_calls` move when a
+step is captured, not when it is replayed, so `_StepGraphs` takes back
+what a capture counted and adds it on every replay: the counters read
+what the card ran. The ConvBNs' eval folds are made in the eager pass
+before the capture, and the graphs read them in place. On the CPU the
 steps run eagerly.
 
 Under a profiler each unit's stages show as spans (utils/profiling.py):
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from feat3dnet_tpu_torch.inference.stream import run_units
+from feat3dnet_tpu_torch.models.layers import ConvBN
 from feat3dnet_tpu_torch.models.pointnet2 import PointNet2MSG
 from feat3dnet_tpu_torch.ops.batch_group import ball_query_fused
 from feat3dnet_tpu_torch.ops.fps import farthest_point_sample
@@ -206,26 +209,28 @@ class SegmentationPipeline:
                          prep_workers, "f3d.seg.wait_prep", first_here=True)
 
 
-# the kernel wrappers that the model's steps launch, with their counters
-_COUNTED = (farthest_point_sample, ball_query_fused, three_interpolate)
+# the counters that the model's steps move: the kernel wrappers' launches
+# and the GEMMs ConvBN runs folded
+_COUNTED = ((farthest_point_sample, "launches"), (ball_query_fused, "launches"),
+            (three_interpolate, "launches"), (ConvBN, "folded_calls"))
 
 
-def _launch_counts() -> Dict[Tuple[Any, str], int]:
-    """Each counted wrapper's `launches` (key '') and `mode_launches`."""
+def _launch_counts() -> Dict[Tuple[Any, str, str], int]:
+    """Each counter (mode '') and each wrapper's `mode_launches`."""
     out = {}
-    for w in _COUNTED:
-        out[w, ""] = w.launches
+    for w, name in _COUNTED:
+        out[w, name, ""] = getattr(w, name)
         for mode, n in getattr(w, "mode_launches", {}).items():
-            out[w, mode] = n
+            out[w, name, mode] = n
     return out
 
 
-def _add_counts(delta: Dict[Tuple[Any, str], int], sign: int = 1) -> None:
-    for (w, mode), n in delta.items():
+def _add_counts(delta: Dict[Tuple[Any, str, str], int], sign: int = 1) -> None:
+    for (w, name, mode), n in delta.items():
         if mode:
             w.mode_launches[mode] += sign * n
         else:
-            w.launches += sign * n
+            setattr(w, name, getattr(w, name) + sign * n)
 
 
 class _StepGraphs:
@@ -240,8 +245,9 @@ class _StepGraphs:
         self.xyz.copy_(xyz)
         side = torch.cuda.Stream(xyz.device)
         side.wait_stream(torch.cuda.current_stream(xyz.device))
-        with torch.cuda.stream(side):
-            model(self.xyz)                 # lazy set-up (cuBLAS) outside the capture
+        with torch.no_grad(), torch.cuda.stream(side):
+            # lazy set-up (cuBLAS) and the ConvBNs' folds outside the capture
+            model(self.xyz)
         torch.cuda.current_stream(xyz.device).wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
         state = model.start(self.xyz)

@@ -57,7 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -241,11 +241,37 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype) if low else y
 
 
+def fold_bn(kernel: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
+            beta: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+            eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval BN folded into the Dense before it: BN(x @ kernel + bias) =
+    x @ kernel' + bias' for a (Cin, Cout) kernel, with mul = scale *
+    rsqrt(var + eps): kernel' = kernel * mul, bias' = (bias - mean) * mul +
+    beta (an affine map on fixed statistics)."""
+    mul = scale * torch.rsqrt(var + eps)
+    return kernel * mul[None, :], (bias - mean) * mul + beta
+
+
 class ConvBN(nn.Module):
     """Dense (= 1x1 conv; use_bias False drops its bias) + optional BN +
     activation (after BN), computed in `dtype`. residual_dtype (training
     only): squash points after the Dense output and after the activation;
-    BN's moments are taken over the squashed values."""
+    BN's moments are taken over the squashed values.
+
+    Eval with BN in f32 and autograd off runs as one GEMM: BN folded into
+    the Dense (`fold_bn`), the ReLU in the product's epilogue
+    (`torch._addmm_activation`: cuBLASLt's bias+ReLU on CUDA), on the
+    input's own 2-D shape. The fold is kept on the layer and made anew
+    when any of the Dense's and BN's tensors changes (its `_version` or
+    `data_ptr`: a load, an in-place update, a move), never under CUDA graph
+    capture. Training, autograd-on eval (the cached fold carries no
+    graph back to BN's parameters) and another compute dtype (bf16 rounds
+    the product before BN) run the layers one by one. Class-wide
+    counters, as the kernel wrappers' `.launches`: `folded_calls` (GEMMs
+    run folded) and `fold_refreshes` (folds made)."""
+
+    folded_calls = 0
+    fold_refreshes = 0
 
     def __init__(self, cin: int, features: int, use_bn: bool = True,
                  activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = torch.relu,
@@ -258,8 +284,36 @@ class ConvBN(nn.Module):
             if use_bn else None
         self.activation = activation
         self.residual_dtype = residual_dtype
+        self._fold = None           # (key, kernel', bias')
+
+    def _folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The folded (Cin, Cout) kernel and bias of the current tensors."""
+        dense, bn = self.conv2d, self.bn
+        tensors = (dense.weight, dense.bias, bn.scale, bn.bias, bn.mean, bn.var)
+        key = tuple((t._version, t.data_ptr()) for t in tensors if t is not None)
+        if self._fold is None or self._fold[0] != key:
+            if dense.weight.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("ConvBN: eval fold missing under CUDA graph capture; "
+                                   "run the layer once outside the capture first")
+            bias = torch.zeros_like(bn.mean) if dense.bias is None else dense.bias
+            self._fold = (key, *fold_bn(dense.weight.t(), bias, bn.scale, bn.bias,
+                                        bn.mean, bn.var, bn.epsilon))
+            ConvBN.fold_refreshes += 1
+        return self._fold[1], self._fold[2]
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        if not training and self.bn is not None and not torch.is_grad_enabled() \
+                and self.conv2d.dtype == self.bn.dtype == torch.float32:
+            kernel, bias = self._folded()
+            x2d = x.reshape(-1, x.shape[-1])
+            if self.activation is torch.relu:
+                y = torch._addmm_activation(bias, x2d, kernel)
+            else:
+                y = torch.addmm(bias, x2d, kernel)
+                if self.activation is not None:
+                    y = self.activation(y)
+            ConvBN.folded_calls += 1
+            return y.reshape(*x.shape[:-1], y.shape[-1])
         squash = self.residual_dtype is not None and training
         x = squash_residual(self.conv2d(x), self.residual_dtype, squash)
         if self.bn is not None:

@@ -34,6 +34,7 @@ import torch
 
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.config import ModelConfig
+from feat3dnet_tpu_torch.models.layers import fold_bn
 from feat3dnet_tpu_torch.utils.profiling import spanned
 
 
@@ -45,10 +46,10 @@ def _f32(x) -> torch.Tensor:
 
 
 def _fold(params, stats, name, eps):
-    k, b = _f32(params[name]["conv2d"]["kernel"]), _f32(params[name]["conv2d"]["bias"])
-    scale = _f32(params[name]["bn"]["scale"]) * torch.rsqrt(_f32(stats[name]["bn"]["var"]) + eps)
-    beta, mean = _f32(params[name]["bn"]["bias"]), _f32(stats[name]["bn"]["mean"])
-    return k * scale[None, :], (b - mean) * scale + beta
+    conv, bn = params[name]["conv2d"], params[name]["bn"]
+    return fold_bn(_f32(conv["kernel"]), _f32(conv["bias"]), _f32(bn["scale"]),
+                   _f32(bn["bias"]), _f32(stats[name]["bn"]["mean"]),
+                   _f32(stats[name]["bn"]["var"]), eps)
 
 
 def folded_weights(variables: Dict[str, Any], cfg: ModelConfig) -> List[torch.Tensor]:

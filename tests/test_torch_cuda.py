@@ -1042,3 +1042,92 @@ def test_segmentation_step_graphs_match_the_eager_forward(dev, rs):
             1e-6 * float(want.features.abs().max())
         with torch.no_grad():
             model.logit.bias.add_(1.0)
+
+
+def test_segmentation_graphs_read_the_new_fold_after_a_weight_swap(dev, rs):
+    """Weights swapped between calls (load_state_dict): the pipeline
+    captures its step graphs again, the eager pass before the capture folds
+    every ConvBN anew (once a layer a load, none on a replay), each pass
+    counts one folded GEMM a layer, and the graphs' logits equal an eager
+    run of the model on the new weights (the same folded layers: within
+    the 1e-6 the step-graph test allows for cuBLAS's choice under capture)."""
+    from feat3dnet_tpu_torch.inference import SegmentationPipeline
+    from feat3dnet_tpu_torch.models.layers import ConvBN
+    from portbench.reference import pointnet2 as R
+
+    model, _, rcfg = _pointnet2(dev, 7)
+    n_layers = sum(isinstance(m, ConvBN) for m in model.modules())
+    pipe = SegmentationPipeline(model, device=dev)
+    cloud = load_point_cloud(example_cloud_path("kitti_00_004534.bin"))[:, :3]
+    xyz = torch.from_numpy(cloud[rs.choice(len(cloud), 16384, replace=False)][None]).to(dev)
+    last = None
+    for seed in (7, 8, 9):
+        model.load_state_dict(R.make_weights(rcfg, seed, dev), strict=True)
+        for want_calls, want_refreshes in ((2 * n_layers, n_layers), (n_layers, 0)):
+            calls, refreshes = ConvBN.folded_calls, ConvBN.fold_refreshes
+            got = pipe.forward_sampled(xyz)[0]
+            assert (ConvBN.folded_calls - calls, ConvBN.fold_refreshes - refreshes) == \
+                (want_calls, want_refreshes)
+        want = model(xyz).logits
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+        assert last is None or not torch.equal(got, last)
+        last = got
+
+
+def test_convbn_fold_missing_under_capture_raises(dev):
+    """A ConvBN whose fold was not made before a CUDA graph capture raises
+    inside it; once run eagerly, it captures and its replay equals the
+    eager call (within the 1e-6 the step-graph test allows for cuBLAS's
+    choice under capture)."""
+    from feat3dnet_tpu_torch.models.layers import ConvBN
+
+    torch.manual_seed(0)
+    layer = ConvBN(64, 128).to(dev).eval()
+    with torch.no_grad():
+        layer.bn.mean.normal_()
+        layer.bn.var.uniform_(0.5, 2.0)
+    x = torch.randn(4096, 64, device=dev)
+    torch.relu(x @ x.t())                    # cuBLAS set up outside any capture
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="CUDA graph capture"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                layer(x)
+        want = layer(x)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = layer(x)
+    g.replay()
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    with torch.no_grad():
+        ref = layer.bn(layer.conv2d(x))
+    assert float((want - torch.relu(ref)).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_default_route_folds_once_and_batches_bit_equal(dev, rs):
+    """The default route (the model's towers) at the paper's widths: its 9
+    ConvBNs folded on the first call and not again while the weights stand,
+    every call running folded GEMMs; extract_batch and extract_many give
+    each cloud extract's result bit for bit (each call keeps its own GEMM
+    shapes)."""
+    from feat3dnet_tpu_torch.config import InferenceConfig
+    from feat3dnet_tpu_torch.inference import InferencePipeline
+    from feat3dnet_tpu_torch.models import Feat3DNet
+    from feat3dnet_tpu_torch.models.layers import ConvBN
+
+    cfg = ModelConfig()
+    pipe = InferencePipeline(Feat3DNet(cfg), init_variables(cfg, seed=1, bn_perturb=0.1), cfg,
+                             InferenceConfig(use_fused_detector=False), device=dev)
+    clouds = [((rs.rand(n, 3) - 0.5) * np.float32(40.0)).astype(np.float32)
+              for n in (7000, 5200, 3100)]
+    refreshes = ConvBN.fold_refreshes
+    want = [pipe.extract(c) for c in clouds]
+    assert ConvBN.fold_refreshes - refreshes == 9
+    calls = ConvBN.folded_calls
+    for got in (pipe.extract_batch(clouds), pipe.extract_many(clouds, batch_size=2)):
+        for g, w in zip(got, want):
+            assert g.num_keypoints == w.num_keypoints > 0
+            for f in ("keypoints", "attention", "features"):
+                assert np.array_equal(getattr(g, f), getattr(w, f)), f
+    assert ConvBN.fold_refreshes - refreshes == 9 and ConvBN.folded_calls > calls
