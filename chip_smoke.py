@@ -614,10 +614,22 @@ def layout_step(card, name, dev, cloud):
 
 
 @contextlib.contextmanager
+def layout_builder(make):
+    """The pipeline's Morton layout builder replaced by make(device_build)
+    for as long as the context lasts."""
+    from feat3dnet_tpu_torch.inference import pipeline
+
+    device_build = pipeline.build_sorted_cloud_batch
+    pipeline.build_sorted_cloud_batch = make(device_build)
+    try:
+        yield
+    finally:
+        pipeline.build_sorted_cloud_batch = device_build
+
+
 def host_layout():
     """The pipeline's Morton layout built on the host in numpy (the route
-    before the device builder), for as long as the context lasts."""
-    from feat3dnet_tpu_torch.inference import pipeline
+    before the device builder)."""
     from feat3dnet_tpu_torch.ops import hash_grid as hg
 
     def host_layouts(xyz, valid, **kw):
@@ -629,12 +641,22 @@ def host_layout():
                               np.stack([s.inv_perm for s in scs]),
                               kw["block_size"]).to(xyz.device)
 
-    device_build = pipeline.build_sorted_cloud_batch
-    pipeline.build_sorted_cloud_batch = host_layouts
-    try:
-        yield
-    finally:
-        pipeline.build_sorted_cloud_batch = device_build
+    return layout_builder(lambda device_build: host_layouts)
+
+
+def layout_queue_clock(out):
+    """The device builder, appending to `out` the host ms each layout takes
+    to queue (the interval of the span `f3d.extract.layout`; nothing
+    waited on)."""
+    def timed(device_build):
+        def build(*args, **kw):
+            t0 = time.perf_counter()
+            sc = device_build(*args, **kw)
+            out.append((time.perf_counter() - t0) * 1e3)
+            return sc
+        return build
+
+    return layout_builder(timed)
 
 
 def sorted_clusters(dev, cloud):
@@ -1929,15 +1951,13 @@ def extraction_phases(dev, card, clouds, npz_path, data_dir, out_dir, parent_lib
         ms = {key: [] for key in itertools.product(("device", "host"), pipes)}
         queue_ms = []
         for layout in ("device", "host", "host", "device"):
-            with host_layout() if layout == "host" else contextlib.nullcontext():
+            with host_layout() if layout == "host" else layout_queue_clock(queue_ms):
                 for route in (("default", "fused") if layout == "device"
                               else ("fused", "default")):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     res = pipes[route].extract(cloud)
                     ms[layout, route].append((time.perf_counter() - t0) * 1e3)
-                    if layout == "device":
-                        queue_ms.append(pipes[route].timings["layout_s"] * 1e3)
         print(f"[{card}] extract {name} N={cloud.shape[0]}: default "
               f"{np.mean(ms['device', 'default']):.2f} ms, fused "
               f"{np.mean(ms['device', 'fused']):.2f} ms (on the host layout, in turns: "
@@ -3493,8 +3513,8 @@ def union_kernel_step(card, dev, clouds, pipe):
             "K4 with segment != its plain version on the union")
     grouped, _, _ = hg._finish_grouped(top_k, cnt_k, ctr, NS)
     offs = (grouped - ctr[:, None, :]).contiguous()
-    att, _ = fd.fused_detect_clusters(pipe._kernel_weights("detect"), offs, pipe.mcfg,
-                                      unfolded=True, packed=pipe._detect_packed)
+    weights_t, packed = pipe.kernel_weights.detect()
+    att, _ = fd.fused_detect_clusters(weights_t, offs, pipe.mcfg, unfolded=True, packed=packed)
     bm_k = hg.ball_max_sorted(sc.pts4, sc.blk_bbox, att, NMS_RADIUS, segment=nb)
     bm_p = hg.ball_max_plain(sc.pts4, att, NMS_RADIUS, segment=nb)
     require(torch.equal(bm_k, bm_p), "K5 with segment != its plain version on the union")
@@ -3616,8 +3636,8 @@ def batch_phase(dev, card, npz_path, data_dir):
     routes = {"default": {}, "fused": {"use_fused_detector": True}}
     pipes = {r: InferencePipeline(model, None, cfg, InferenceConfig(**kw), device=dev)
              for r, kw in routes.items()}
-    for pipe in pipes.values():
-        pipe._pack_weights()
+    pipes["fused"].kernel_weights.detect()      # K6's and K3's weights, packed once
+    pipes["fused"].kernel_weights.describe()
     vendored = {n: load_point_cloud(example_cloud_path(n)) for n in CLOUDS}
     clouds = list(vendored.values())
     with torch.no_grad():
@@ -5585,7 +5605,7 @@ def main():
     cpu_model = load_variables(Feat3DNet(cfg), variables).eval()
     model.to(dev)
     server = ClusterDescriptorServer(model, device=dev)
-    weights_t = server._kernel_weights_t()
+    weights_t, _ = server.kernel_weights.describe()
     packed_host = ClusterDescriptorServer.pack_clusters(clusters.cpu().numpy())
     packed = torch.from_numpy(packed_host).to(dev)
     k3, k3_plain = wrappers["fused_describe"], wrappers["fused_describe"].plain

@@ -17,7 +17,8 @@ as in the JAX pipeline. Two routes compute the same keypoints:
   it, and `select_keypoints` picks the keypoints. Their descriptors reuse
   the attention pass's own neighbourhoods and orientations, with no second
   ball query: the model's descriptor tower, or kernel K3 under
-  `use_fused_detector`.
+  `use_fused_detector`, on weights from `kernel_weights`
+  (kernel_weights.py), checked against the model's tensors once a unit.
 
 Throughput entry points (the JAX pipeline's): `extract_batch` runs B
 clouds of one bucket through the hashed route at once, as a union built
@@ -37,20 +38,25 @@ Under a profiler each unit's stages show as spans (utils/profiling.py):
 `f3d.extract.many` spans a whole `extract_many` call.
 Meshes (the JAX pipeline's two modes; a mesh is a tuple of devices,
 parallel/mesh.py, and each distinct device gets its own copy of the model
-and of K6's and K3's packed weights at first use):
-* `mesh=`: one cloud sharded over the devices (latency). `extract` runs
-  parallel/point_parallel.make_sharded_extract on the hashed route (K4,
-  the detector or K6, and K5 per centre shard; K3 per keypoint shard) and
-  keypoint_sharded_attention on the dense one (each device's ball query
-  and detector chunks; NMS and descriptors on the first device);
-  `extract_batch` and `extract_many` are loops of it.
+and its own kernel weights at first use):
+* `mesh=`: one cloud sharded over the devices (latency), by the stages
+  of one device. On the hashed route the layout is built on the first
+  device and copied to each; K4, the detector (or K6) and K5 run per
+  shard of the sorted centres, the selection on the first device; each
+  keypoint's cluster and orientation come from the shard that holds it;
+  K3 runs per device on K / d keypoints (the descriptor tower on the
+  first device). The dense route runs each device's rows of the
+  attention pass (NMS and descriptors on the first device). JAX's rules
+  hold: 128-aligned centre shards, max_keypoints split evenly.
+  `extract_batch` and `extract_many` are loops of `extract`.
 * `cloud_mesh=`: a sub-batch of clouds per device (throughput).
   `extract_batch` pads the clouds to a multiple of the mesh with replicas
   of the last one, queues one `_enqueue` unit per device and drops the
   replicas' results; `extract_many` deals its units round-robin over the
   devices, `depth` queued on each.
-Each cloud's results on either mesh equal `extract` bit for bit: the
-shards keep the single-device shapes (point_parallel.py).
+Each cloud's results on either mesh equal `extract` bit for bit: a shard
+keeps the single-device shapes (whole detector chunks on the default
+route; K4, K5, K6 and K3 compute each centre or cluster alone).
 The JAX pipeline's TPU workarounds (packed uploads, F3D_* switches,
 executable caches) are not part of this port.
 """
@@ -68,6 +74,7 @@ import torch
 from feat3dnet_tpu_torch import kernels
 from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig, bucket_for
 from feat3dnet_tpu_torch.data.io import load_point_cloud, save_descriptors
+from feat3dnet_tpu_torch.inference.kernel_weights import KernelWeights
 from feat3dnet_tpu_torch.inference.stream import run_units
 from feat3dnet_tpu_torch.models.feat3dnet import Feat3DNet, _group_normalized, _rotate_z
 from feat3dnet_tpu_torch.ops import fused_describe as fd
@@ -75,11 +82,8 @@ from feat3dnet_tpu_torch.ops.hash_grid import (SortedCloud, ball_max_sorted,
                                                ball_query_grouped_sorted,
                                                build_sorted_cloud_batch, estimate_ball_points)
 from feat3dnet_tpu_torch.ops.nms import nms_keypoints, select_keypoints
-from feat3dnet_tpu_torch.parallel.mesh import as_mesh
-from feat3dnet_tpu_torch.parallel.point_parallel import (keypoint_sharded_attention,
-                                                         make_sharded_extract, on_device,
-                                                         replicas)
-from feat3dnet_tpu_torch.utils.convert import load_variables, variables_from_module
+from feat3dnet_tpu_torch.parallel.mesh import as_mesh, chunk_shards, on_device, replicas
+from feat3dnet_tpu_torch.utils.convert import load_variables
 from feat3dnet_tpu_torch.utils.device import resolve_device
 from feat3dnet_tpu_torch.utils.profiling import span, spanned
 
@@ -102,12 +106,10 @@ class InferencePipeline:
     model: the port's Feat3DNet. variables: a flax-layout variable tree to
     load into it (e.g. utils.load_variables_npz), or None to keep the
     model's own weights. device: where the passes run, `cuda` unless the
-    caller names another (raises without a CUDA device). `timings` holds
-    the last extract's total seconds (`extract_s`) and, on the hashed
-    route, the host seconds to queue the Morton layout (`layout_s`; no
-    synchronise). mesh / cloud_mesh: a sequence of devices (see the
-    module's docstring), at most one of them; the pipeline's device is
-    then the mesh's first.
+    caller names another (raises without a CUDA device). mesh /
+    cloud_mesh: a sequence of devices (see the module's docstring), at
+    most one of them; the pipeline's device is then the mesh's first.
+    `kernel_weights`: K6's and K3's weights of the model on that device.
     """
 
     def __init__(self, model: Feat3DNet, variables: Optional[Dict[str, Any]],
@@ -130,12 +132,8 @@ class InferencePipeline:
         self.model = model.to(self.device).eval()
         self.mcfg = model_cfg
         self.icfg = infer_cfg
-        self._weights: Dict[str, list] = {}
-        self._detect_packed: Optional[tuple] = None     # K6's weight buffers
-        self._describe_packed: Optional[tuple] = None   # K3's
+        self.kernel_weights = KernelWeights(self.model, model_cfg, self.device)
         self._pipes: Optional[Dict[torch.device, "InferencePipeline"]] = None
-        self._mesh_fns: Dict[int, Any] = {}
-        self.timings: Dict[str, float] = {}
 
     # -- configuration ------------------------------------------------------
 
@@ -161,29 +159,33 @@ class InferencePipeline:
         est = estimate_ball_points(xyz, float(self.mcfg.base_scale))
         return (128 if est >= self.mcfg.num_samples else 256), self.icfg.hash_tile
 
-    def _kernel_weights(self, kind: str) -> list:
-        """Detector (unfolded BN, for K6) or whole-tower (folded BN, for K3)
-        weights in the kernels' transposed layout, made once."""
-        if kind not in self._weights:
-            v = variables_from_module(self.model)
-            w = (fd.transpose_unfolded_detector(fd.detector_weights_unfolded(v, self.mcfg))
-                 if kind == "detect" else
-                 fd.transpose_folded_weights(fd.folded_weights(v, self.mcfg)))
-            self._weights[kind] = [t.to(self.device) for t in w]
-        return self._weights[kind]
+    def _shards(self, n: int, unit: Optional[int] = None
+                ) -> Optional[List[Tuple[torch.device, int, int]]]:
+        """On `mesh` (None off one), each device's rows (device, start, end)
+        of n, cut on multiples of `unit` (`chunk_shards`; devices without
+        rows dropped). unit None: the hashed route's n sorted centres, n / d
+        a device on the fused route, whole detector chunks on the default
+        one. Raises unless they split as JAX's rules ask."""
+        if self.mesh is None:
+            return None
+        n_dev, k_max = len(self.mesh), self.icfg.max_keypoints
+        if unit is None:
+            if n % n_dev or n // n_dev % 128 or k_max % n_dev:
+                raise ValueError(f"bucket {n} must shard into 128-aligned centre tiles and "
+                                 f"max_keypoints {k_max} divide across {n_dev} devices")
+            unit = n // n_dev if self.icfg.use_fused_detector else self._chunk_size(n)
+        elif n % n_dev:
+            raise ValueError(f"{n} points do not split over {n_dev} devices")
+        return [(d, s0, s1) for d, (s0, s1) in zip(self.mesh, chunk_shards(n, unit, n_dev))
+                if s1 > s0]
 
-    def _pack_weights(self) -> None:
-        """K6's and K3's weight buffers, packed once before the first unit
-        is queued (packing reads host tables, a sync); every entry point of
-        the hashed route calls it."""
-        if not (self.icfg.use_fused_detector and self.device.type == "cuda"):
-            return
-        if self._detect_packed is None:
-            self._detect_packed = fd._detect_kernel_weights(
-                self._kernel_weights("detect"), self.mcfg, self.device, unfolded=True)
-        if self._describe_packed is None:
-            self._describe_packed = fd._describe_kernel_weights(
-                self._kernel_weights("describe"), self.mcfg, self.device)
+    def _ready(self) -> None:
+        """Once a unit: check the kernel weights against the model's tensors
+        and, on the fused route, make K6's and K3's (after a load: a sync)."""
+        self.kernel_weights.refresh()
+        if self.icfg.use_fused_detector:
+            self.kernel_weights.detect()
+            self.kernel_weights.describe()
 
     def _device_pipes(self) -> Dict[torch.device, "InferencePipeline"]:
         """One pipeline per distinct device of the mesh: this one on its
@@ -195,13 +197,6 @@ class InferencePipeline:
                     m, None, self.mcfg, self.icfg, device=dev)
                 for dev, m in replicas(self.model, mesh).items()}
         return self._pipes
-
-    def _mesh_extract_fn(self, n_bucket: int):
-        """The sharded hashed extraction of one bucket on `mesh`, made once."""
-        if n_bucket not in self._mesh_fns:
-            self._mesh_fns[n_bucket] = make_sharded_extract(
-                self.model, self.mesh, self.mcfg, self.icfg, n_bucket, self._device_pipes())
-        return self._mesh_fns[n_bucket]
 
     # -- passes ---------------------------------------------------------------
 
@@ -235,20 +230,26 @@ class InferencePipeline:
                             valid.to(self.device, non_blocking=True), layout, buckets,
                             uid)
 
-    def _chunked_attention(self, cloud: torch.Tensor, valid: torch.Tensor
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _chunked_attention(self, cloud: torch.Tensor, valid: torch.Tensor, shards=None,
+                           chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Attention and orientation at every point of a (1, nb, 3) cloud,
-        `_chunk_size(nb)` points per pass (ball query + detector)."""
+        `chunk` points per pass (ball query + detector; default
+        `_chunk_size(nb)`); shards (`_shards`): each device's rows against
+        its copy of the cloud, gathered here (None: every row here)."""
         nb = cloud.shape[1]
-        chunk = self._chunk_size(nb)
+        chunk = chunk or self._chunk_size(nb)
         atts, oris = [], []
-        for s in range(0, nb, chunk):
-            grouped, _, _ = _group_normalized(cloud, cloud[:, s:s + chunk].contiguous(),
-                                              self.mcfg.base_scale, self.mcfg.num_samples,
-                                              valid)
-            att, ori = self.model.detect_clusters(grouped)
-            atts.append(att[0])
-            oris.append(ori[0])
+        for dev, s0, s1 in shards or [(None, 0, nb)]:
+            model, cl, vm = ((self.model, cloud, valid) if dev is None else
+                             (self._device_pipes()[dev].model, cloud.to(dev), valid.to(dev)))
+            with on_device(dev):
+                for s in range(s0, s1, chunk):
+                    grouped, _, _ = _group_normalized(cl, cl[:, s:s + chunk].contiguous(),
+                                                      self.mcfg.base_scale,
+                                                      self.mcfg.num_samples, vm)
+                    att, ori = model.detect_clusters(grouped)
+                    atts.append(att[0] if dev is None else att[0].to(self.device))
+                    oris.append(ori[0] if dev is None else ori[0].to(self.device))
         return torch.cat(atts), torch.cat(oris)
 
     def _detect_sorted(self, grouped: torch.Tensor, centers: torch.Tensor,
@@ -261,8 +262,9 @@ class InferencePipeline:
         own run and as the dense route's."""
         offs = grouped - centers[:, None, :]
         if self.icfg.use_fused_detector:
-            return fd.fused_detect_clusters(self._kernel_weights("detect"), offs, self.mcfg,
-                                            unfolded=True, packed=self._detect_packed)
+            weights_t, packed = self.kernel_weights.detect()
+            return fd.fused_detect_clusters(weights_t, offs, self.mcfg, unfolded=True,
+                                            packed=packed)
         normalized = offs / self.mcfg.base_scale
         rows = normalized.shape[0] // len(buckets)
         atts, oris = [], []
@@ -282,10 +284,10 @@ class InferencePipeline:
         cloud's rotated, normalised clusters, one call per cloud."""
         b, k = offs.shape[:2]
         if self.icfg.use_fused_detector:
+            weights_t, packed = self.kernel_weights.describe()
             feats, _ = fd.fused_describe_clusters_t(
-                self._kernel_weights("describe"),
-                fd.pack_clusters_lanes_torch(offs.reshape(b * k, *offs.shape[2:])),
-                self.mcfg, packed=self._describe_packed)
+                weights_t, fd.pack_clusters_lanes_torch(offs.reshape(b * k, *offs.shape[2:])),
+                self.mcfg, packed=packed)
             return feats.reshape(b, k, -1)
         feats = []
         for i in range(b):
@@ -296,12 +298,7 @@ class InferencePipeline:
         return torch.cat(feats)
 
     def _extract_dense(self, cloud: torch.Tensor, vmask: torch.Tensor):
-        if self.mesh is None:
-            att, _ = self._chunked_attention(cloud, vmask)
-        else:
-            att, _ = keypoint_sharded_attention(
-                self.model, self.mesh, self._chunk_size(cloud.shape[1]),
-                {d: p.model for d, p in self._device_pipes().items()})(cloud, vmask)
+        att, _ = self.attention(cloud, vmask)
         icfg = self.icfg
         kp, kp_att, num = nms_keypoints(cloud, att[None], icfg.nms_radius,
                                         icfg.max_keypoints, icfg.min_response_ratio,
@@ -309,34 +306,51 @@ class InferencePipeline:
         out = self.model(cloud, keypoints=kp, valid_mask=vmask)
         return kp, out.features, kp_att, num
 
-    def _extract_hashed(self, prep: "_Prepped"):
+    def _extract_hashed(self, prep: "_Prepped", shards=None):
         """The hashed route on a prepped unit of B clouds padded to one
         bucket -> (kp (B, K, 3), features (B, K, D), kp_att (B, K), num
-        (B,)), every op queued without a host sync. The clouds' layouts
-        form one union (`build_sorted_cloud_batch`) that K4 and K5 take
-        with `segment=` the padded bucket, so each cloud's results equal
-        its own run's (one cloud: the union is the cloud)."""
+        (B,)) here, every op queued without a host sync; shards: a mesh's
+        (B = 1, `_shards`; the module's docstring), None for one device."""
+        for p in [self] if shards is None else self._device_pipes().values():
+            p._ready()
         icfg, r, ns = self.icfg, float(self.mcfg.base_scale), self.mcfg.num_samples
         L, tc = prep.layout
         b = prep.xyz.shape[0]
         with span("f3d.extract.layout"):
-            t0 = time.perf_counter()
             sc = build_sorted_cloud_batch(prep.xyz, prep.valid, cell_size=r, block_size=L)
-            self.timings["layout_s"] = time.perf_counter() - t0
         pts4, blk_bbox = sc.pts4, sc.blk_bbox
         np_ = pts4.shape[0] // b
         centers = pts4[:, :3]
-        with span("f3d.extract.group"):
-            grouped, _, _ = ball_query_grouped_sorted(
-                SortedCloud(pts4, blk_bbox, None, None, L), centers, r, ns, tile=tc,
-                segment=np_)
-        with span("f3d.extract.detect"):
-            att_s, ori_s = self._detect_sorted(grouped, centers, prep.buckets)
+        # one device: every centre, K4 and K5 taking each cloud's rows of the
+        # union (`segment`), so each cloud's results equal its own run's
+        seg = np_ if shards is None else None
+        grid = SortedCloud(pts4, blk_bbox, None, None, L)      # what K4 and K5 read
+        if shards is None:
+            parts = [_Shard(self, None, grid, centers)]
+        else:
+            copies = {d: grid.to(d) for d, _, _ in shards}
+            parts = [_Shard(self._device_pipes()[d], d, copies[d], copies[d].pts4[s0:s1, :3], s0)
+                     for d, s0, s1 in shards]
+        for p in parts:
+            with on_device(p.dev):
+                with span("f3d.extract.group"):
+                    p.grouped, _, _ = ball_query_grouped_sorted(p.sc, p.centers, r, ns, tile=tc,
+                                                                segment=seg)
+                with span("f3d.extract.detect"):
+                    p.att, p.ori = p.pipe._detect_sorted(p.grouped, p.centers, prep.buckets)
         # a point survives iff its attention ties its ball max; invalid points
         # sit at +1e9 and never enter a real ball
         with span("f3d.extract.ballmax"):
-            ballmax = ball_max_sorted(pts4, blk_bbox, att_s, float(icfg.nms_radius),
-                                      segment=np_)
+            att_s = _gathered([p.att for p in parts], self.device)
+            maxes = []
+            for p in parts:
+                with on_device(p.dev):
+                    one = p.dev is None
+                    maxes.append(ball_max_sorted(
+                        p.sc.pts4, p.sc.blk_bbox, att_s if one else att_s.to(p.dev),
+                        float(icfg.nms_radius), centers=None if one else p.centers,
+                        segment=seg))
+            ballmax = _gathered(maxes, self.device)
         with span("f3d.extract.select"):
             # each cloud's sorted rows in its original order: inv_perm is local
             rows = sc.inv_perm.long() + torch.arange(b, device=pts4.device)[:, None] * np_
@@ -347,17 +361,25 @@ class InferencePipeline:
         with span("f3d.extract.describe"):
             # descriptors from the attention pass's neighbourhoods
             kp_s = torch.gather(rows, 1, kp_idx.long())
-            offs = grouped[kp_s] - centers[kp_s][:, :, None, :]
-            feats = self._describe_at_keypoints(offs, ori_s[kp_s])
-        return kp, feats, kp_att, num
+            clusters, ori = _owned(parts, kp_s)
+            offs = clusters - centers[kp_s][:, :, None, :]
+            if shards is None or not icfg.use_fused_detector:
+                return kp, self._describe_at_keypoints(offs, ori), kp_att, num
+            feats, n_dev = [], len(self.mesh)       # K3 per device on its K / d keypoints
+            for dev, o, a in zip(self.mesh, offs.chunk(n_dev, 1), ori.chunk(n_dev, 1)):
+                with on_device(dev):
+                    feats.append(self._device_pipes()[dev]._describe_at_keypoints(
+                        o.to(dev), a.to(dev)).to(self.device))
+            return kp, torch.cat(feats, dim=1), kp_att, num
 
     @torch.no_grad()
     def _enqueue(self, prep: "_Prepped") -> "_Pending":
-        """Queue the hashed route on one prepped unit and the copy of its
-        outputs into (pinned) host buffers behind a CUDA event; no host
-        sync."""
+        """Queue the hashed route on one prepped unit (over `mesh` when
+        there is one) and the copy of its outputs into (pinned) host buffers
+        behind a CUDA event; no host sync."""
         with span("f3d.extract.enqueue", prep.uid):
-            return self._to_host(self._extract_hashed(prep), prep.uid)
+            outs = self._extract_hashed(prep, self._shards(prep.xyz.shape[1]))
+            return self._to_host(outs, prep.uid)
 
     def _to_host(self, outs, uid: int) -> "_Pending":
         with span("f3d.extract.to_host"):
@@ -389,6 +411,23 @@ class InferencePipeline:
 
     # -- public API -------------------------------------------------------------
 
+    def attention(self, cloud: torch.Tensor, valid: torch.Tensor,
+                  chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The dense route's first pass: attention and orientation (nb,) at
+        every point of a (1, nb, 3) device cloud with (1, nb) validity, in
+        `_chunked_attention`'s passes, over `mesh` (nb must split over it)."""
+        chunk = chunk or self._chunk_size(cloud.shape[1])
+        return self._chunked_attention(cloud, valid, self._shards(cloud.shape[1], chunk), chunk)
+
+    def extract_on_device(self, xyz: torch.Tensor, valid: torch.Tensor,
+                          layout: Tuple[int, int]):
+        """`extract`'s outputs (B, K, ...) and num (B,) for (B, nb, 3) device
+        clouds of one bucket with (B, nb) validity and the Morton layout
+        (block, tile), queued with no host sync (on `mesh`: one cloud)."""
+        nb = xyz.shape[1]
+        prep = _Prepped(xyz, valid, tuple(layout), (nb,) * xyz.shape[0], next(_UNIT_IDS))
+        return self._extract_hashed(prep, self._shards(nb))
+
     @torch.no_grad()
     def extract(self, cloud: np.ndarray, keypoints: Optional[np.ndarray] = None,
                 rng: Optional[np.random.RandomState] = None) -> InferenceResult:
@@ -399,32 +438,20 @@ class InferencePipeline:
         runs at those points. rng: permute the points first (the
         reference's --randomize_points).
         """
-        t0 = time.perf_counter()
-        self.timings = {}
         if rng is not None:
             cloud = cloud[rng.permutation(cloud.shape[0])]
-        self._pack_weights()
         prep = self._prep([cloud])
-        if keypoints is None and self.mesh is not None and self._use_hashed():
-            with torch.no_grad():
-                outs = self._mesh_extract_fn(prep.xyz.shape[1])(prep.xyz, prep.valid,
-                                                                 prep.layout)
-            pending = self._to_host(outs, prep.uid)
-        elif keypoints is None and self._use_hashed():
-            pending = self._enqueue(prep)
+        if keypoints is None and self._use_hashed():
+            return self._finish(self._enqueue(prep))[0]
+        if keypoints is None:
+            outs = self._extract_dense(prep.xyz, prep.valid)
         else:
-            if keypoints is None:
-                outs = self._extract_dense(prep.xyz, prep.valid)
-            else:
-                kp = torch.from_numpy(np.ascontiguousarray(keypoints[None, :, :3],
-                                                           np.float32)).to(self.device)
-                out = self.model(prep.xyz, keypoints=kp, valid_mask=prep.valid)
-                outs = (kp, out.features, out.end_points["attention"],
-                        torch.full((1,), kp.shape[1], dtype=torch.int32))
-            pending = self._to_host(outs, prep.uid)
-        result = self._finish(pending)[0]
-        self.timings["extract_s"] = time.perf_counter() - t0
-        return result
+            kp = torch.from_numpy(np.ascontiguousarray(keypoints[None, :, :3],
+                                                       np.float32)).to(self.device)
+            out = self.model(prep.xyz, keypoints=kp, valid_mask=prep.valid)
+            outs = (kp, out.features, out.end_points["attention"],
+                    torch.full((1,), kp.shape[1], dtype=torch.int32))
+        return self._finish(self._to_host(outs, prep.uid))[0]
 
     @torch.no_grad()
     def extract_batch(self, clouds, rng: Optional[np.random.RandomState] = None
@@ -444,7 +471,6 @@ class InferencePipeline:
         if rng is not None:
             clouds = [c[rng.permutation(c.shape[0])] for c in clouds]
         if self.cloud_mesh is None:
-            self._pack_weights()
             return self._finish(self._enqueue(self._prep(clouds)))
         n, d = len(clouds), len(self.cloud_mesh)
         padded = clouds + [clouds[-1]] * (-n % d)
@@ -453,7 +479,6 @@ class InferencePipeline:
         units = []
         for i, dev in enumerate(self.cloud_mesh):
             p = pipes[dev]
-            p._pack_weights()
             with on_device(dev):
                 units.append(p._enqueue(p._prep(padded[i * per:(i + 1) * per])))
         out: List[InferenceResult] = []
@@ -487,8 +512,6 @@ class InferencePipeline:
             clouds = [c[rng.permutation(c.shape[0])] for c in clouds]
         devs = self.cloud_mesh or (self.device,)
         pipes = self._device_pipes()
-        for p in pipes.values():
-            p._pack_weights()
         depth *= len(devs)
         units: List[list] = []
         for c in clouds:
@@ -497,7 +520,6 @@ class InferencePipeline:
                 units[-1].append(c)
             else:
                 units.append([c])
-
 
         def enqueue(i, prep):
             p = pipes[devs[i % len(devs)]]
@@ -525,7 +547,7 @@ class InferencePipeline:
         if self.device.type == "cuda":
             kernels.build()
             kernels.library()
-        self._pack_weights()
+        self._ready()
         t_build = time.perf_counter() - t_build
         rng = np.random.RandomState(seed)
         work = [(int(n), None) for n in point_counts]
@@ -591,6 +613,42 @@ class _Prepped:
     layout: Optional[Tuple[int, int]]
     buckets: Tuple[int, ...]
     uid: int
+
+
+@dataclasses.dataclass
+class _Shard:
+    """One shard of the hashed route's sorted centres: the pipeline that runs
+    it, its device (None: the pipeline's own, no switch, no copies), the
+    layout there, its centres and their first row, and their results."""
+    pipe: InferencePipeline
+    dev: Optional[torch.device]
+    sc: SortedCloud
+    centers: torch.Tensor
+    s0: int = 0
+    grouped: Optional[torch.Tensor] = None
+    att: Optional[torch.Tensor] = None
+    ori: Optional[torch.Tensor] = None
+
+
+def _gathered(parts: List[torch.Tensor], home: torch.device) -> torch.Tensor:
+    """The shards' rows in order on `home` (one shard: its own tensor)."""
+    return parts[0] if len(parts) == 1 else torch.cat([t.to(home) for t in parts])
+
+
+def _owned(parts: List[_Shard], kp_s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each keypoint's (B, K, ns, 3) cluster and (B, K) orientation, from
+    the one shard whose centres hold its sorted row kp_s (B, K)."""
+    if len(parts) == 1:
+        return parts[0].grouped[kp_s], parts[0].ori[kp_s]
+    home, clusters, ori = kp_s.device, None, None
+    for p in parts:
+        n, ks = p.centers.shape[0], kp_s.to(p.dev)
+        rel = torch.clamp(ks - p.s0, 0, n - 1)
+        own = ((ks >= p.s0) & (ks < p.s0 + n)).to(home)
+        g, o = p.grouped[rel].to(home), p.ori[rel].to(home)
+        clusters = g if clusters is None else torch.where(own[..., None, None], g, clusters)
+        ori = o if ori is None else torch.where(own, o, ori)
+    return clusters, ori
 
 
 @dataclasses.dataclass

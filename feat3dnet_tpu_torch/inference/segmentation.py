@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from feat3dnet_tpu_torch.inference.stream import run_units
-from feat3dnet_tpu_torch.models.layers import ConvBN
+from feat3dnet_tpu_torch.models.layers import ConvBN, weights_key
 from feat3dnet_tpu_torch.models.pointnet2 import PointNet2MSG
 from feat3dnet_tpu_torch.ops.batch_group import ball_query_fused
 from feat3dnet_tpu_torch.ops.fps import farthest_point_sample
@@ -113,7 +113,7 @@ class SegmentationPipeline:
         if self.device.type != "cuda":
             out = self.model(xyz)
             return out.logits, out.features
-        key = tuple((t._version, t.data_ptr()) for t in self._weights)
+        key = weights_key(self._weights)
         if key != self._weights_key:
             self._graphs.clear()
             self._weights_key = key

@@ -12,24 +12,23 @@ packing as `f3d.serve.pack#<request>` (utils/profiling.py).
 from __future__ import annotations
 
 import itertools
-from typing import List, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from feat3dnet_tpu_torch.inference.kernel_weights import KernelWeights
 from feat3dnet_tpu_torch.models.feat3dnet import Feat3DNet
-from feat3dnet_tpu_torch.ops.fused_describe import (_describe_kernel_weights, folded_weights,
-                                                    fused_describe_clusters_t,
+from feat3dnet_tpu_torch.ops.fused_describe import (fused_describe_clusters_t,
                                                     pack_clusters_lanes,
-                                                    pack_clusters_lanes_torch,
-                                                    transpose_folded_weights)
-from feat3dnet_tpu_torch.utils.convert import variables_from_module
+                                                    pack_clusters_lanes_torch)
 from feat3dnet_tpu_torch.utils.device import resolve_device
 from feat3dnet_tpu_torch.utils.profiling import span
 
 
 class ClusterDescriptorServer:
-    """Holds the model and its folded kernel weights for repeated calls.
+    """Holds the model and its folded kernel weights (`kernel_weights`,
+    checked against the model's tensors once a request) for repeated calls.
 
     device: where it serves, `cuda` unless the caller names another
     (raises without a CUDA device); the model is moved there.
@@ -46,23 +45,17 @@ class ClusterDescriptorServer:
         self.model = model.to(self.device).eval()
         self.cfg = model.cfg
         self.bf16_act = bf16_act
-        self._weights_t: Optional[List[torch.Tensor]] = None
-        self._packed: Optional[tuple] = None      # K3's weight buffers, made once
+        self.kernel_weights = KernelWeights(self.model, self.cfg, self.device)
         self._requests = itertools.count()        # the id of each call's spans
 
-    def _kernel_weights_t(self) -> List[torch.Tensor]:
-        if self._weights_t is None:
-            variables = variables_from_module(self.model)
-            self._weights_t = [w.to(self.device) for w in transpose_folded_weights(
-                folded_weights(variables, self.cfg))]
-        return self._weights_t
-
-    def _kernel_packed(self) -> tuple:
-        if self._packed is None:
-            self._packed = _describe_kernel_weights(self._kernel_weights_t(), self.cfg,
-                                                    self.device,
-                                                    "bf16" if self.bf16_act else "f32")
-        return self._packed
+    def _k3(self, clusters_p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K3 (its plain version off CUDA) on (P·8, B) packed clusters, on
+        weights in this server's mode, remade if the model's tensors changed
+        since the last request."""
+        weights_t, packed = self.kernel_weights.refresh().describe(
+            "bf16" if self.bf16_act else "f32")
+        return fused_describe_clusters_t(weights_t, clusters_p, self.cfg,
+                                         bf16_act=self.bf16_act, packed=packed)
 
     def _fused_ok(self, ns: int) -> bool:
         # the kernel folds eval BN into the weights: no-BN models take the
@@ -89,9 +82,7 @@ class ClusterDescriptorServer:
         if self._kernel_route(clusters):
             with span("f3d.serve.pack", rid):
                 clusters_p = pack_clusters_lanes_torch(clusters)
-            return fused_describe_clusters_t(
-                self._kernel_weights_t(), clusters_p, self.cfg, bf16_act=self.bf16_act,
-                packed=self._kernel_packed())
+            return self._k3(clusters_p)
         return self._model_path(clusters)
 
     @staticmethod
@@ -111,7 +102,4 @@ class ClusterDescriptorServer:
             raise ValueError(
                 f"describe_packed: want (num_samples*8, B) = ({8 * self.cfg.num_samples}, B) "
                 f"and a BN model, got {tuple(packed.shape)}, use_bn={self.cfg.use_bn}")
-        clusters_p = packed.contiguous()
-        return fused_describe_clusters_t(
-            self._kernel_weights_t(), clusters_p, self.cfg, bf16_act=self.bf16_act,
-            packed=self._kernel_packed() if clusters_p.is_cuda else None)
+        return self._k3(packed.contiguous())

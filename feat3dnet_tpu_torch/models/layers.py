@@ -57,7 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Iterable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -241,6 +241,12 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype) if low else y
 
 
+def weights_key(tensors: Iterable[Optional[torch.Tensor]]) -> tuple:
+    """Each tensor's (`_version`, `data_ptr()`), None skipped: it changes on
+    a load, an in-place update or a move, without reading a value."""
+    return tuple((t._version, t.data_ptr()) for t in tensors if t is not None)
+
+
 def fold_bn(kernel: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
             beta: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
             eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -262,8 +268,8 @@ class ConvBN(nn.Module):
     the Dense (`fold_bn`), the ReLU in the product's epilogue
     (`torch._addmm_activation`: cuBLASLt's bias+ReLU on CUDA), on the
     input's own 2-D shape. The fold is kept on the layer and made anew
-    when any of the Dense's and BN's tensors changes (its `_version` or
-    `data_ptr`: a load, an in-place update, a move), never under CUDA graph
+    when any of the Dense's and BN's tensors changes (`weights_key`: a
+    load, an in-place update, a move), never under CUDA graph
     capture. Training, autograd-on eval (the cached fold carries no
     graph back to BN's parameters) and another compute dtype (bf16 rounds
     the product before BN) run the layers one by one. Class-wide
@@ -289,8 +295,7 @@ class ConvBN(nn.Module):
     def _folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The folded (Cin, Cout) kernel and bias of the current tensors."""
         dense, bn = self.conv2d, self.bn
-        tensors = (dense.weight, dense.bias, bn.scale, bn.bias, bn.mean, bn.var)
-        key = tuple((t._version, t.data_ptr()) for t in tensors if t is not None)
+        key = weights_key((dense.weight, dense.bias, bn.scale, bn.bias, bn.mean, bn.var))
         if self._fold is None or self._fold[0] != key:
             if dense.weight.is_cuda and torch.cuda.is_current_stream_capturing():
                 raise RuntimeError("ConvBN: eval fold missing under CUDA graph capture; "

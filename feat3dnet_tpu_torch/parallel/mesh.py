@@ -1,16 +1,18 @@
 """Device meshes of the inference paths (port of feat3dnet_tpu/parallel/mesh.py).
 
-A mesh is a tuple of torch devices, one per shard, that the sharded
-extraction (point_parallel.py) and the cloud-per-device pipeline
-(inference/pipeline.py `cloud_mesh=`) spread their work over. A mesh may
-name a device more than once: its shards then run one after the other on
-that device, with the real splits (how one card checks the sharded code).
+A mesh is a tuple of torch devices, one per shard, that the pipeline's
+sharded extraction (inference/pipeline.py `mesh=`, `cloud_mesh=`) spreads
+its work over, each shard under its device (`on_device`). A mesh may name
+a device more than once: its shards then run one after the other there,
+with the real splits (how one card checks the sharded code).
 Data-parallel training takes a torch.distributed process group instead
 (data_parallel.py).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import contextlib
+import copy
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -42,3 +44,31 @@ def as_mesh(devices: Sequence[Union[str, torch.device]]) -> Mesh:
     if not mesh:
         raise ValueError("a mesh needs at least one device")
     return mesh
+
+
+def on_device(dev: Optional[torch.device]):
+    """The context a shard's launches run in (None: the caller's own)."""
+    cuda = dev is not None and dev.type == "cuda"
+    return torch.cuda.device(dev) if cuda else contextlib.nullcontext()
+
+
+def chunk_shards(n: int, unit: int, n_dev: int) -> List[Tuple[int, int]]:
+    """(start, end) rows of each device's shard of n rows, cut on multiples
+    of `unit`: the n / unit units dealt in contiguous runs, the first
+    devices taking one more where they do not split evenly (and the last
+    taking none when there are fewer units than devices)."""
+    nu = n // unit
+    cut = [-(-i * nu // n_dev) * unit for i in range(n_dev + 1)]
+    return list(zip(cut[:-1], cut[1:]))
+
+
+def replicas(model: torch.nn.Module, mesh: Sequence[torch.device]
+             ) -> Dict[torch.device, torch.nn.Module]:
+    """One model per distinct device of the mesh: the model itself on its
+    own device, a copy on each other one."""
+    home = next(model.parameters()).device
+    out: Dict[torch.device, torch.nn.Module] = {}
+    for dev in mesh:
+        if dev not in out:
+            out[dev] = model if dev == home else copy.deepcopy(model).to(dev)
+    return out

@@ -12,7 +12,7 @@ cloud, at its bucket with 256-point blocks and a 2 m cell (the
 pipeline's call): both trees' layouts are held bit-equal in every field,
 then each is timed on the host clock from the call to its return, the
 card synchronised before each call and nothing waited on inside it
-(the time the extract's `timings["layout_s"]` reads), and on CUDA events
+(the interval the extract's span `f3d.extract.layout` marks), and on CUDA events
 recorded before and after the call (the card's wall time for it, which
 waits on the host while the ops are queued), in turns: other, this,
 this, other, `--reps` times. Prints ms per call (mean and spread) and the card's name

@@ -31,7 +31,9 @@ equals the single-process step. Tolerances:
 
 Point parallelism (meshes of CPU devices, one process): every result bit
 for bit against the single-device pipeline, and against JAX's mesh
-pipeline at tests/test_parallel.py's tolerances.
+pipeline at tests/test_parallel.py's tolerances. After a weight load the
+fused route, the server's `describe_packed` and a mesh pipeline run the new
+weights, bit for bit against fresh objects.
 
 JAX is imported inside the tests that use it: the spawned ranks import
 this module.
@@ -46,11 +48,11 @@ import torch.distributed as dist
 
 from feat3dnet_tpu_torch.config import InferenceConfig, ModelConfig, TrainConfig
 from feat3dnet_tpu_torch.data.augment import augment_clouds, augment_rows
-from feat3dnet_tpu_torch.inference import InferencePipeline
+from feat3dnet_tpu_torch.inference import ClusterDescriptorServer, InferencePipeline
 from feat3dnet_tpu_torch.models import Feat3DNet
 from feat3dnet_tpu_torch.parallel import (keypoint_sharded_attention, make_fused_dp_train_step,
                                           make_mesh, run_ranks, shard_batch)
-from feat3dnet_tpu_torch.parallel.point_parallel import chunk_shards
+from feat3dnet_tpu_torch.parallel.mesh import chunk_shards
 from feat3dnet_tpu_torch.train.trainer import (aug_generator, init_state,
                                                make_fused_train_step, role_rows)
 from feat3dnet_tpu_torch.utils import init_variables, variables_from_module
@@ -411,13 +413,11 @@ PCFG = dict(num_clusters=-1, num_samples=8, feature_dim=16, base_scale=2.0,
             detector_mlp=(8, 16), detector_mlp2=(8,), descriptor_mlp=(8, 8))
 
 
-def _inference_model(seed=3):
-    from feat3dnet_tpu_torch.utils import load_variables
-
-    cfg = ModelConfig(**PCFG)
+def _variables(cfg, seed):
+    """A seeded variable tree away from the init's zero biases and unit BN
+    statistics."""
     v = init_variables(cfg, seed=seed)
     rng = np.random.RandomState(seed)
-    # away from the init's zero biases and unit BN statistics
     for col in v.values():
         stack = [col]
         while stack:
@@ -429,7 +429,14 @@ def _inference_model(seed=3):
                     d[k] = (x + 0.1 * rng.randn(*x.shape)).astype(np.float32)
                     if k == "var":
                         d[k] = np.abs(d[k]) + 0.5
-    return cfg, load_variables(Feat3DNet(cfg), v).eval()
+    return v
+
+
+def _inference_model(seed=3):
+    from feat3dnet_tpu_torch.utils import load_variables
+
+    cfg = ModelConfig(**PCFG)
+    return cfg, load_variables(Feat3DNet(cfg), _variables(cfg, seed)).eval()
 
 
 def _same(got, want):
@@ -504,6 +511,93 @@ def test_mesh_extract_against_jax():
     assert got.num_keypoints == want.num_keypoints
     np.testing.assert_allclose(got.keypoints, want.keypoints, atol=1e-5)
     np.testing.assert_allclose(got.features, want.features, rtol=1e-4, atol=1e-5)
+
+
+def test_make_sharded_extract_is_the_mesh_extract():
+    """make_sharded_extract's impl on a cloud padded to its bucket gives
+    the mesh pipeline's extract (fused route, 2 CPU devices): the same
+    count, and the same keypoints, attention and features in its first
+    rows; a cloud of another bucket raises."""
+    from feat3dnet_tpu_torch.config import bucket_for
+    from feat3dnet_tpu_torch.parallel import make_sharded_extract
+
+    cfg, model = _inference_model()
+    icfg = InferenceConfig(use_hashed_grouping=True, use_fused_detector=True,
+                           keypoint_chunk=1024, max_keypoints=32, nms_radius=1.0)
+    cloud = (np.random.RandomState(4).rand(3000, 6).astype(np.float32) - 0.5) * 12.0
+    pipe = InferencePipeline(model, None, cfg, icfg, mesh=make_mesh(2, "cpu"))
+    want = pipe.extract(cloud)
+    nb = bucket_for(cloud.shape[0])
+    xyz = torch.zeros((1, nb, 3))
+    xyz[0, :cloud.shape[0]] = torch.from_numpy(cloud[:, :3])
+    valid = torch.arange(nb)[None] < cloud.shape[0]
+    impl = make_sharded_extract(model, make_mesh(2, "cpu"), cfg, icfg, nb)
+    with torch.no_grad():
+        kp, feats, att, num = impl(xyz, valid, pipe._layout_for(cloud[:, :3]))
+    k = int(num[0])
+    assert k == want.num_keypoints > 4
+    np.testing.assert_array_equal(kp[0, :k].numpy(), want.keypoints)
+    np.testing.assert_array_equal(att[0, :k].numpy(), want.attention)
+    np.testing.assert_array_equal(feats[0, :k].numpy(), want.features)
+    with pytest.raises(ValueError, match="bucket"):
+        impl(xyz[:, :nb // 2], valid[:, :nb // 2], (256, 512))
+
+
+@pytest.mark.parametrize("case", ["fused_pipeline", "server", "fused_mesh"])
+def test_weight_change_reaches_the_kernel_weights(case):
+    """After `load_variables` of a second tree into the model, a fused-route
+    pipeline (K6's and K3's plain versions), the server's `describe_packed`
+    and a 2-device CPU mesh pipeline on the fused route (both devices the
+    CPU: the one owner of kernel weights, through the mesh's stage
+    sequence) give what a fresh one built on the second tree gives, bit
+    for bit. With the weights unchanged, the next call gives the same
+    results from the same kernel weights (the same weights_t list and, on
+    CUDA, the same packed buffers)."""
+    from feat3dnet_tpu_torch.utils import load_variables
+
+    cfg = ModelConfig(**PCFG)
+    trees = [_variables(cfg, seed) for seed in (3, 8)]
+    rng = np.random.RandomState(4)
+    if case == "server":
+        packed = ClusterDescriptorServer.pack_clusters(
+            ((rng.rand(24, 8, 3) - 0.5) * 2.0).astype(np.float32))
+
+        def make(v):
+            return ClusterDescriptorServer(load_variables(Feat3DNet(cfg), v), device="cpu")
+
+        def run(obj):
+            return [t.numpy() for t in obj.describe_packed(packed)]
+    else:
+        icfg = InferenceConfig(use_hashed_grouping=True, use_fused_detector=True,
+                               keypoint_chunk=1024, max_keypoints=32, nms_radius=1.0)
+        cloud = (rng.rand(3000, 6).astype(np.float32) - 0.5) * 12.0
+        mesh = make_mesh(2, "cpu") if case == "fused_mesh" else None
+
+        def make(v):
+            return InferencePipeline(Feat3DNet(cfg), v, cfg, icfg,
+                                     device=None if mesh else "cpu", mesh=mesh)
+
+        def run(obj):
+            res = obj.extract(cloud)
+            assert res.num_keypoints > 4
+            return [res.keypoints, res.attention, res.features]
+
+    def made(obj):
+        kw = obj.kernel_weights
+        return [kw.describe()] if case == "server" else [kw.detect(), kw.describe()]
+
+    obj = make(trees[0])
+    first = run(obj)
+    load_variables(obj.model, trees[1])
+    got, want = run(obj), run(make(trees[1]))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert not np.array_equal(got[-1], first[-1])
+    before = made(obj)
+    for g, w in zip(run(obj), got):
+        np.testing.assert_array_equal(g, w)
+    for (w1, p1), (w0, p0) in zip(made(obj), before):
+        assert w1 is w0 and p1 is p0
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import jax
 import jax.numpy as jnp
@@ -97,10 +98,12 @@ def test_extract_matches_jax(jax_setup, route):
     want = jpipe.extract(cloud)
     pipe = _port(v, **ROUTES[route])
     assert pipe._use_hashed() == (route != "dense")
-    got = pipe.extract(cloud)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = pipe.extract(cloud)
     _assert_same(got, want)
     assert got.num_keypoints > 8 and np.isfinite(got.features).all()
-    assert ("layout_s" in pipe.timings) == (route != "dense")
+    layouts = [e for e in prof.events() if e.name == "f3d.extract.layout"]
+    assert len(layouts) == (route != "dense")
     if route == "hashed":
         assert pipe._chunk_size(4096) == jpipe._chunk_size(4096)
         assert pipe._layout_for(cloud[:, :3]) == jpipe._layout_for(cloud[:, :3])

@@ -12,8 +12,7 @@
   and `prefetch` records `data.wait` and, in its thread, `data.upload`.
 * Each kernel wrapper opens its `f3d.k<n>.*` span on every call, on the
   CPU's plain version too.
-* With no profiler, no span opens a range and `timings["layout_s"]` is
-  still the layout's queue time.
+* With no profiler, no span opens a range.
 Small widths (ns 8), clouds of 500-700 points (bucket 4 096).
 """
 import numpy as np
@@ -216,8 +215,7 @@ def test_every_wrapper_call_opens_its_span(monkeypatch, name):
 
 def test_no_range_without_a_profiler(pipe, monkeypatch):
     """With no profiler running no span opens a range, on any thread
-    (the prep and feed threads included), and `timings["layout_s"]` is
-    still the layout's queue time."""
+    (the prep and feed threads included)."""
     opened = []
     real = torch.profiler.record_function
 
@@ -230,8 +228,7 @@ def test_no_range_without_a_profiler(pipe, monkeypatch):
     with profiling.span("f3d.x"):
         pass
     res = pipe.extract(_clouds(1, seed=3)[0])
-    layout_s, extract_s = pipe.timings["layout_s"], pipe.timings["extract_s"]
-    assert res.num_keypoints > 0 and 0 < layout_s < extract_s
+    assert res.num_keypoints > 0
     pipe.extract_many(_clouds(2, seed=4), batch_size=2)
     server = ClusterDescriptorServer(pipe.model, device="cpu")
     server(np.zeros((4, 8, 3), np.float32))
